@@ -1,0 +1,35 @@
+"""Batch: the bundle every model consumes, on an explicit device.
+
+Counterpart of ``allset_tpu/graph/batch.py``: features, labels and the
+incidence, all tensors on one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from allset_tpu_torch.graph.incidence import Incidence
+from allset_tpu_torch.graph.transforms import HyperData
+
+
+@dataclasses.dataclass(frozen=True)
+class Batch:
+    x: torch.Tensor  # [N, F] float32
+    y: torch.Tensor  # [N] int64
+    inc: Incidence
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @classmethod
+    def from_hyperdata(
+        cls, data: HyperData, device="cpu", bucket: int = 256
+    ) -> "Batch":
+        return cls(
+            x=torch.as_tensor(data.x, dtype=torch.float32).to(device),
+            y=torch.as_tensor(data.y, dtype=torch.int64).to(device),
+            inc=data.to_incidence(bucket=bucket).to(device),
+        )

@@ -1,0 +1,124 @@
+"""Host-side hypergraph transforms (numpy), mirroring reference preprocessing.
+
+Counterpart of ``allset_tpu/graph/transforms.py``, limited to what the
+AllSetTransformer training step needs: ``HyperData``, ``coalesce``,
+``add_self_loops`` and ``norm_construction``. The port keeps its own copy
+because importing the JAX package's module loads jax. Given the same
+inputs, every function returns the same arrays as the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from allset_tpu_torch.graph import native
+
+
+@dataclasses.dataclass
+class HyperData:
+    """Host-side hypergraph: features, labels, V2E incidence COO.
+
+    node[i]/edge[i]: the i-th incidence entry, 0-based in separate id
+    spaces. num_hyperedges counts original hyperedges; after
+    :func:`add_self_loops` it grows by ``num_sl_edges`` singleton edges
+    appended at the end of the edge id space.
+    """
+
+    x: np.ndarray  # [N, F] float32
+    y: np.ndarray  # [N] int64
+    node: np.ndarray  # [nnz] int64
+    edge: np.ndarray  # [nnz] int64
+    num_nodes: int
+    num_hyperedges: int
+    norm: Optional[np.ndarray] = None  # [nnz] float32
+    num_sl_edges: int = 0
+
+    @property
+    def nnz(self) -> int:
+        return int(self.node.shape[0])
+
+    @property
+    def num_features(self) -> int:
+        return int(self.x.shape[1])
+
+    def copy(self) -> "HyperData":
+        return dataclasses.replace(
+            self,
+            node=self.node.copy(),
+            edge=self.edge.copy(),
+            norm=None if self.norm is None else self.norm.copy(),
+        )
+
+    def to_incidence(self, bucket: int = 256):
+        from allset_tpu_torch.graph.incidence import Incidence
+
+        return Incidence.from_arrays(
+            self.node,
+            self.edge,
+            norm=self.norm,
+            num_nodes=self.num_nodes,
+            num_edges=self.num_hyperedges,
+            bucket=bucket,
+            num_sl_edges=self.num_sl_edges,
+        )
+
+
+def coalesce(node: np.ndarray, edge: np.ndarray):
+    """Sort (by edge, then node) and drop duplicate incidence entries.
+    Native hypercore kernel when built; numpy otherwise."""
+    native_out = native.coalesce(node, edge)
+    if native_out is not None:
+        return native_out
+    pairs = np.stack([edge, node], axis=1)
+    uniq = np.unique(pairs, axis=0)
+    return uniq[:, 1], uniq[:, 0]
+
+
+def add_self_loops(data: HyperData) -> HyperData:
+    """Append one new singleton hyperedge per node, skipping nodes that
+    already sit in a size-1 hyperedge (reference
+    ``src/preprocessing.py:412-448``)."""
+    edge_sizes = np.bincount(data.edge, minlength=data.num_hyperedges)
+    singleton_edges = np.where(edge_sizes == 1)[0]
+    skip = np.zeros(data.num_nodes, bool)
+    if singleton_edges.size:
+        skip[data.node[np.isin(data.edge, singleton_edges)]] = True
+    new_nodes = np.flatnonzero(~skip).astype(np.int64)
+    new_edges = data.num_hyperedges + np.arange(len(new_nodes), dtype=np.int64)
+
+    out = data.copy()
+    out.node = np.concatenate([data.node, new_nodes])
+    out.edge = np.concatenate([data.edge, new_edges])
+    out.num_hyperedges = data.num_hyperedges + len(new_nodes)
+    out.num_sl_edges = len(new_nodes)
+    if data.norm is not None:
+        out.norm = np.concatenate(
+            [data.norm, np.ones(len(new_nodes), dtype=np.float32)]
+        )
+    return out
+
+
+def norm_construction(data: HyperData, option: str = "all_one") -> HyperData:
+    """Per-incidence-entry weights (reference ``src/preprocessing.py:451-464``).
+
+    'all_one'     : data.norm = 1 everywhere
+    'deg_half_sym': d_v^{-1/2} * d_e^{-1/2} per entry
+    """
+    out = data.copy()
+    if option == "all_one":
+        out.norm = np.ones(data.nnz, dtype=np.float32)
+    elif option == "deg_half_sym":
+        vdeg = np.bincount(data.node, minlength=data.num_nodes).astype(np.float64)
+        edeg = np.bincount(data.edge, minlength=data.num_hyperedges).astype(np.float64)
+        with np.errstate(divide="ignore"):
+            vn = vdeg ** -0.5
+            en = edeg ** -0.5
+        vn[~np.isfinite(vn)] = 0.0
+        en[~np.isfinite(en)] = 0.0
+        out.norm = (vn[data.node] * en[data.edge]).astype(np.float32)
+    else:
+        raise ValueError(f"unknown norm option {option!r}")
+    return out

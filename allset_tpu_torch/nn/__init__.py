@@ -1,0 +1,6 @@
+from allset_tpu_torch.nn.modules import (  # noqa: F401
+    MLP,
+    PMA,
+    HalfNLHconv,
+    TorchDense,
+)

@@ -1,0 +1,117 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under ``allset_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
+for Hopper (``sm_90a``) into one shared library with a plain C interface,
+``allset_tpu_torch/_build/libkernels.so`` (an ignored directory), at first
+use, and again whenever a source is newer than the library. The library
+is loaded with ctypes; every pointer and the stream are passed as
+``c_void_p``. Each C entry returns ``cudaGetLastError()`` after its
+launches, and :func:`check` raises if it is not zero. A failed build
+raises too: there is no fallback.
+
+``launches`` counts, per kernel, the calls that launched it. A wrapper
+adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import os
+import os.path as osp
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
+_CSRC = osp.join(_PKG, "csrc")
+BUILD_DIR = osp.join(_PKG, "_build")
+_SO = osp.join(BUILD_DIR, "libkernels.so")
+
+KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd")
+launches = collections.Counter({k: 0 for k in KERNELS})
+
+_lib = None
+build_seconds = 0.0
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+_SIGNATURES = {
+    "allset_segment_sum": [P, P, P, I, I, I, P],
+    "allset_pma_epilogue_fwd": [P] * 9 + [I] * 7 + [P],
+    "allset_pma_epilogue_bwd": [P] * 17 + [I] * 10 + [P],
+}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    cand = osp.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if osp.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu into the shared library if it is missing or
+    older than a source; returns its path."""
+    global build_seconds
+    srcs = sorted(glob.glob(osp.join(_CSRC, "*.cu")))
+    newest = max(osp.getmtime(s) for s in srcs)
+    if not force and osp.exists(_SO) and osp.getmtime(_SO) >= newest:
+        return _SO
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *srcs,
+    ]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    os.replace(tmp, _SO)  # atomic: a concurrent loader sees old or new
+    return _SO
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        so = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        so.allset_error_string.argtypes = [ctypes.c_int]
+        so.allset_error_string.restype = ctypes.c_char_p
+        _lib = so
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().allset_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")

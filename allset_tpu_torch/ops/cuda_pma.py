@@ -1,0 +1,248 @@
+"""Fused PMA epilogue (K2 forward, K3 backward).
+
+Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
+``csrc/pma_epilogue.cu`` replace its ``_fwd_kernel`` and ``_bwd_kernel``
+(the single-run, R=1 grids). Per row of the packed aggregate
+``agg [M, WP] = [vals HC | den H | pad]``:
+
+    out0 = vals / expand(max(den, 1e-16)) + seed
+    z    = LN0(out0)                     f32, fast variance E[x^2] - mu^2
+    y    = LN1(zb + relu(rFF(zb)))       zb = z in the activation dtype
+    y    = relu(y)                       when ``relu`` (SetGNN's folded
+                                         inter-stage activation)
+
+On the H100 the forward is bound by the bytes of one read of ``agg`` and
+one write of ``y``; the kernel keeps every intermediate of a 16-row tile
+in shared memory, runs the bf16 rFF products on the tensor cores (WMMA,
+f32 accumulation) and the f32 ones as full-f32 FMA. The backward
+recomputes the forward per tile and sums the parameter gradients through
+per-block f32 partials and a second reduce kernel, so they repeat bit for
+bit (see the CUDA source).
+
+The plain versions below follow the kernel's math (``_fwd_recompute`` and
+``_ln_bwd`` of the JAX module), including its rounding points. The
+wrappers launch the kernels for CUDA tensors and take the plain versions
+for CPU tensors; any other device raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from allset_tpu_torch.ops import _kernels
+
+Tensor = torch.Tensor
+
+EPS = 1e-5  # torch/flax LayerNorm default
+DEN_FLOOR = 1e-16  # softmax denominator clamp
+
+_BWD_MAX_BLOCKS = 1024  # row-kernel blocks (= small-grad partials) of K3
+_BWD_MAX_CHUNKS = 64  # row chunks (= dW partials) of K3
+
+
+def _ln(x, g, b):
+    """LayerNorm in f32, fast variance; returns (y, xhat, rstd)."""
+    mu = x.mean(dim=1, keepdim=True)
+    var = (x * x).mean(dim=1, keepdim=True) - mu * mu
+    rstd = torch.rsqrt(var + EPS)
+    xhat = (x - mu) * rstd
+    return xhat * g + b, xhat, rstd
+
+
+def _ln_bwd(gy, xhat, rstd, g):
+    gg = gy * g
+    m1 = gg.mean(dim=1, keepdim=True)
+    m2 = (gg * xhat).mean(dim=1, keepdim=True)
+    dx = rstd * (gg - m1 - xhat * m2)
+    return dx, (gy * xhat).sum(dim=0), gy.sum(dim=0)
+
+
+def _fwd_recompute(agg, seed, g0, b0, Wrff, brff, g1, b1, H):
+    """Forward chain in f32 with the kernel's rounding points; returns
+    every intermediate the backward needs."""
+    cdt = agg.dtype
+    HC = seed.shape[0]
+    a = agg.float()
+    v = a[:, :HC]
+    den_raw = a[:, HC : HC + H]
+    deninv = 1.0 / den_raw.clamp_min(DEN_FLOOR)
+    denE = deninv.repeat_interleave(HC // H, dim=1)
+    out0 = v * denE + seed
+    z, xhat0, rstd0 = _ln(out0, g0, b0)
+    zb = z.to(cdt)
+    h = zb
+    pres = []
+    for l in range(Wrff.shape[0]):
+        # TorchDense rounding: f32 accumulation of the rounded operands,
+        # output rounded to the activation dtype, bias added, rounded again
+        p32 = h.float() @ Wrff[l].to(cdt).float()
+        p = (p32.to(cdt).float() + brff[l]).to(cdt).float()
+        pres.append(p)
+        if l < Wrff.shape[0] - 1:
+            h = p.clamp_min(0.0).to(cdt)
+    out2 = zb.float() + pres[-1].clamp_min(0.0)
+    y, xhat1, rstd1 = _ln(out2, g1, b1)
+    return dict(v=v, den_raw=den_raw, deninv=deninv, denE=denE, zb=zb,
+                pres=pres, xhat0=xhat0, rstd0=rstd0, xhat1=xhat1,
+                rstd1=rstd1, y=y)
+
+
+def epilogue_fwd_plain(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Plain PyTorch version of K2 -> y [M, HC] in agg.dtype."""
+    y = _fwd_recompute(agg, seed, g0, b0, Wrff, brff, g1, b1, H)["y"].to(agg.dtype)
+    return y.clamp_min(0) if relu else y
+
+
+def epilogue_bwd_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Plain PyTorch version of K3 -> (dagg [M, WP] in agg.dtype,
+    dW [L, HC, HC] f32, dsmall [8, HC] f32 = dseed, dg0, db0, dg1, db1,
+    dbrff[0..L), zero rows)."""
+    cdt = agg.dtype
+    M, WP = agg.shape
+    HC = seed.shape[0]
+    L = Wrff.shape[0]
+    r = _fwd_recompute(agg, seed, g0, b0, Wrff, brff, g1, b1, H)
+    gy = gy.float()
+    if relu:  # mask on the ROUNDED output, as the composition does
+        gy = gy * (r["y"].to(cdt).float() > 0)
+    dout2, dg1, db1 = _ln_bwd(gy, r["xhat1"], r["rstd1"], g1)
+    dz = dout2
+    dp = dout2 * (r["pres"][-1] > 0)
+    dbr, dW = [None] * L, [None] * L
+    for l in range(L - 1, -1, -1):
+        dbr[l] = dp.sum(dim=0)
+        hin = r["zb"] if l == 0 else r["pres"][l - 1].clamp_min(0.0).to(cdt)
+        dW[l] = hin.float().T @ dp
+        dh = dp @ Wrff[l].T
+        if l > 0:
+            dp = dh * (r["pres"][l - 1] > 0)
+        else:
+            dz = dz + dh
+    dout0, dg0, db0 = _ln_bwd(dz, r["xhat0"], r["rstd0"], g0)
+    dseed = dout0.sum(dim=0)
+    dv = dout0 * r["denE"]
+    dden = -(dout0 * r["v"]).reshape(M, H, HC // H).sum(dim=2) * (
+        r["deninv"] * r["deninv"]
+    )
+    dden = torch.where(r["den_raw"] > DEN_FLOOR, dden, torch.zeros_like(dden))
+    pad = torch.zeros(M, WP - HC - H, device=agg.device)
+    dagg = torch.cat([dv, dden, pad], dim=1).to(cdt)
+    zeros = [torch.zeros(HC, device=agg.device)] * (3 - L)
+    dsmall = torch.stack([dseed, dg0, db0, dg1, db1, *dbr, *zeros])
+    return dagg, torch.stack(dW), dsmall
+
+
+def _check_cuda_args(agg, seed, Wrff, H):
+    if not agg.is_cuda:
+        raise ValueError("the PMA epilogue kernels need CUDA tensors")
+    M, WP = agg.shape
+    HC = seed.shape[0]
+    L = Wrff.shape[0]
+    if not (HC % 64 == 0 and HC <= 256 and HC % H == 0 and WP >= HC + H
+            and L in (1, 2) and Wrff.shape[1:] == (HC, HC)):
+        raise ValueError(
+            f"unsupported epilogue shape: agg {tuple(agg.shape)}, HC={HC}, "
+            f"H={H}, L={L} (need HC % 64 == 0, HC <= 256, WP >= HC + H)"
+        )
+    return M, WP, HC, L
+
+
+def _f32(*ts):
+    return [t.float().contiguous() for t in ts]
+
+
+def epilogue_fwd_cuda(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Launch K2 on the current stream."""
+    M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H)
+    agg = agg.contiguous()
+    Wc = Wrff.to(agg.dtype).contiguous()
+    seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
+    out = torch.empty(M, HC, dtype=agg.dtype, device=agg.device)
+    rc = _kernels.lib().allset_pma_epilogue_fwd(
+        agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
+        Wc.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+        out.data_ptr(), M, WP, HC, H, L, int(relu), _kernels.dtype_code(agg),
+        _kernels.stream_ptr(agg),
+    )
+    _kernels.check(rc, "pma_epilogue_fwd")
+    _kernels.launches["pma_epilogue_fwd"] += 1
+    return out
+
+
+def epilogue_bwd_cuda(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Launch K3 (its row pass, dW partials and the two final reduces) on
+    the current stream."""
+    M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H)
+    dev, cdt = agg.device, agg.dtype
+    agg = agg.contiguous()
+    gy = gy.to(cdt).contiguous()
+    Wc = Wrff.to(cdt).contiguous()
+    WT = Wrff.float().transpose(1, 2).contiguous()
+    seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
+    grid_rows = max(1, min(-(-M // 16), _BWD_MAX_BLOCKS))
+    chunk_rows = -(-max(M, 1) // _BWD_MAX_CHUNKS)
+    chunk_rows = -(-chunk_rows // 32) * 32
+    nch = max(1, -(-M // chunk_rows))
+    dagg = torch.empty(M, WP, dtype=cdt, device=dev)
+    dW = torch.empty(L, HC, HC, dtype=torch.float32, device=dev)
+    dsmall = torch.empty(8, HC, dtype=torch.float32, device=dev)
+    hin = torch.empty(L, M, HC, dtype=cdt, device=dev)
+    dpbuf = torch.empty(L, M, HC, dtype=torch.float32, device=dev)
+    part_small = torch.empty(grid_rows, 8, HC, dtype=torch.float32, device=dev)
+    part_w = torch.empty(nch, L, HC, HC, dtype=torch.float32, device=dev)
+    rc = _kernels.lib().allset_pma_epilogue_bwd(
+        agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(),
+        b0.data_ptr(), Wc.data_ptr(), WT.data_ptr(), brff.data_ptr(),
+        g1.data_ptr(), b1.data_ptr(), dagg.data_ptr(), dW.data_ptr(),
+        dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
+        part_small.data_ptr(), part_w.data_ptr(), M, WP, HC, H, L, int(relu),
+        _kernels.dtype_code(agg), grid_rows, nch, chunk_rows,
+        _kernels.stream_ptr(agg),
+    )
+    _kernels.check(rc, "pma_epilogue_bwd")
+    _kernels.launches["pma_epilogue_bwd"] += 1
+    return dagg, dW, dsmall
+
+
+def _dispatch(cuda_fn, plain_fn, agg, *args):
+    if agg.is_cuda:
+        return cuda_fn(agg, *args)
+    if agg.device.type == "cpu":
+        return plain_fn(agg, *args)
+    raise ValueError(f"pma epilogue: unsupported device {agg.device}")
+
+
+def epilogue_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    return _dispatch(epilogue_fwd_cuda, epilogue_fwd_plain, agg, seed, g0, b0,
+                     Wrff, brff, g1, b1, H, relu)
+
+
+def epilogue_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    return _dispatch(epilogue_bwd_cuda, epilogue_bwd_plain, agg, gy, seed, g0,
+                     b0, Wrff, brff, g1, b1, H, relu)
+
+
+class _Epilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+        ctx.save_for_backward(agg, seed, g0, b0, Wrff, brff, g1, b1)
+        ctx.H, ctx.relu = H, relu
+        return epilogue_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+
+    @staticmethod
+    def backward(ctx, gy):
+        agg, seed, g0, b0, Wrff, brff, g1, b1 = ctx.saved_tensors
+        dagg, dW, ds = epilogue_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1,
+                                    ctx.H, ctx.relu)
+        L = Wrff.shape[0]
+        return (dagg, ds[0], ds[1], ds[2], dW, ds[5 : 5 + L], ds[3], ds[4],
+                None, None)
+
+
+def pma_epilogue(agg, seed, g0, b0, Wrff, brff, g1, b1, H: int, relu: bool):
+    """y = LN1(z + relu(rFF(z))), z = LN0(agg_vals / denom + seed), with
+    an optional folded relu; forward K2, backward K3. ``agg`` is
+    dir_spmm's packed [M, WP] aggregate, ``Wrff`` the stacked [L, HC, HC]
+    rFF kernels (layout [in, out]) and ``brff`` the stacked [L, HC]
+    biases; the other parameters are [HC] vectors."""
+    return _Epilogue.apply(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)

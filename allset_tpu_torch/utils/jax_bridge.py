@@ -1,0 +1,27 @@
+"""Carry the JAX package's parameters across, without importing jax.
+
+The port's modules use the flax names (``V2E_0/prop/lin_K/kernel``,
+``att_r``, ``ln0/scale``, ``rFF/lin{i}``, ``classifier/lin0``...), so a
+``state_dict`` key is the flax path joined by dots. Kernels keep the flax
+layout ``[in, out]``: nothing is transposed. The input is the flax
+``params`` tree with its leaves converted to numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree: Mapping, prefix: str = "") -> dict:
+    """Nested {name: subtree | array} -> {"a.b.c": float32 tensor}."""
+    out = {}
+    for name, v in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(v, Mapping):
+            out.update(params_from_jax(v, key + "."))
+        else:
+            out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return out
