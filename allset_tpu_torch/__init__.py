@@ -7,19 +7,21 @@ under ``csrc/`` (built with nvcc for sm_90a at first use, see
 ``ops/_kernels.py``) beside a plain PyTorch version of the same function:
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 
-Ported so far: the AllSetTransformer training step (SetGNN, pma=True,
-self-loop split, masked NLL, torch Adam) and its three kernels: the
-sorted segment-sum (K1) and the fused PMA epilogue forward (K2) and
-backward (K3).
+Ported so far: AllSetTransformer (SetGNN, pma=True, self-loop split,
+masked NLL, torch Adam) and the statistical runs protocol with its CLI
+(``python -m allset_tpu_torch.cli``), through the sorted segment-sum (K1)
+and the fused PMA epilogue forward and backward, for one run (K2, K3)
+and for R runs folded into the width (K2R, K3R).
 
 Layout:
-  graph/     Incidence (host build + sorted orders), Batch, transforms
-  data/      synthetic hypergraph generators
+  graph/     Incidence (host build + sorted orders), Batch, transforms, splits
+  data/      synthetic hypergraph generators and their registry
   ops/       segment-sum, exchange (dir_spmm), PMA epilogue, kernel build
-  nn/        TorchDense, MLP, PMA, HalfNLHconv
+  nn/        TorchDense, NormLayer, MLP, PMA, HalfNLHconv
   models/    SetGNN
-  train/     masked NLL and the Adam training step
+  train/     Trainer (runs protocol), presets, experiment factory
   utils/     parameter bridge from the JAX package
+  cli.py     the experiment command line
 """
 
 import torch

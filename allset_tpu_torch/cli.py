@@ -1,0 +1,206 @@
+"""The port's experiment command line.
+
+Counterpart of ``allset_tpu/cli.py`` (reference ``src/train.py:220-528``),
+with the same flags and the same summary and CSV lines:
+
+    python -m allset_tpu_torch.cli --dname synthetic-walmart \
+        --method AllSetTransformer --preset
+
+Results append to ``{res_root}/{dname}_noise_{noise}.csv`` in the
+reference's CSV format (``src/train.py:503-525``).
+
+Differences from the JAX CLI:
+  * ``--device`` (default ``cuda``) names the device. With the default
+    and no CUDA device the CLI raises; it never falls back to the
+    CPU. ``--device cpu`` runs the kernels' plain versions.
+  * With ``--preset``, a flag given on the command line overrides the
+    preset (the JAX CLI lets the preset win), so the tuned protocol can
+    be shortened, e.g. ``--preset --runs 5``.
+  * ``--add_self_loop`` takes an optional boolean (default true); the
+    reference's flag is ``store_false``, which turns self-loops off.
+  * Flags of parts not ported yet (``--plot``, ``--save_params``,
+    ``--profile``, ``--remat``, ``--epoch_chunk``) raise; the flags of the
+    other methods are parsed and not read (their methods raise).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import sys
+
+import torch
+
+
+def _boolarg(s: str) -> bool:
+    """argparse type=bool is a trap (bool("False") is True)."""
+    return str(s).lower() in ("1", "true", "yes", "y", "t")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="allset_tpu_torch experiment CLI")
+    p.add_argument("--train_prop", type=float, default=0.5)
+    p.add_argument("--valid_prop", type=float, default=0.25)
+    p.add_argument("--dname", default="walmart-trips-100")
+    p.add_argument("--method", default="AllSetTransformer")
+    p.add_argument("--epochs", default=500, type=int)
+    p.add_argument("--runs", default=20, type=int)
+    p.add_argument("--dropout", default=0.5, type=float)
+    p.add_argument("--lr", default=0.001, type=float)
+    p.add_argument("--wd", default=0.0, type=float)
+    p.add_argument("--All_num_layers", default=2, type=int)
+    p.add_argument("--MLP_num_layers", default=2, type=int)
+    p.add_argument("--MLP_hidden", default=64, type=int)
+    p.add_argument("--Classifier_num_layers", default=2, type=int)
+    p.add_argument("--Classifier_hidden", default=64, type=int)
+    p.add_argument("--aggregate", default="mean", choices=["sum", "mean", "add"])
+    p.add_argument("--normtype", default="all_one", choices=["all_one", "deg_half_sym"])
+    p.add_argument("--add_self_loop", nargs="?", const=True, default=True, type=_boolarg)
+    p.add_argument("--normalization", default="ln", choices=["bn", "ln", "None"])
+    p.add_argument("--deepset_input_norm", default=True, type=_boolarg)
+    p.add_argument("--GPR", action="store_true")
+    p.add_argument("--LearnMask", action="store_true")
+    p.add_argument("--feature_noise", default="1", type=str)
+    p.add_argument("--exclude_self", action="store_true")
+    p.add_argument("--heads", default=1, type=int)
+    p.add_argument("--output_heads", default=1, type=int)
+    p.add_argument("--HyperGCN_mediators", default=True, type=_boolarg)
+    p.add_argument("--HyperGCN_fast", default=True, type=_boolarg)
+    p.add_argument("--HNHN_alpha", default=-1.5, type=float)
+    p.add_argument("--HNHN_beta", default=-0.5, type=float)
+    p.add_argument("--HNHN_nonlinear_inbetween", default=True, type=_boolarg)
+    p.add_argument("--HCHA_symdegnorm", action="store_true")
+    p.add_argument("--UniGNN_use_norm", action="store_true")
+    p.add_argument("--UniGNN_model_name", default="UniGCN")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--data_root", default="data/AllSet_all_raw_data")
+    p.add_argument("--cache_dir", default="data/cache")
+    p.add_argument("--res_root", default="hyperparameter_tunning")
+    p.add_argument("--display_step", type=int, default=-1)
+    p.add_argument("--no_vmap_runs", action="store_true",
+                   help="run statistical replicas one by one (low-memory)")
+    p.add_argument("--vmap_chunk", type=int, default=None,
+                   help="runs folded per group (default: as many as the free "
+                        "device memory holds; halves on out-of-memory)")
+    p.add_argument("--epoch_chunk", type=int, default=None, help="not ported")
+    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--preset", action="store_true",
+                   help="apply the tuned per-dataset AllSetTransformer preset; "
+                        "flags given on the command line override it")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16 = mixed precision on the compute path")
+    p.add_argument("--plot", default=None, metavar="PATH", help="not ported")
+    p.add_argument("--save_params", default=None, metavar="PATH", help="not ported")
+    p.add_argument("--profile", default=None, metavar="DIR", help="not ported")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+    return p
+
+
+# flag -> preset key
+_PRESET_FLAGS = {
+    "epochs": "epochs", "runs": "runs", "lr": "lr", "wd": "wd",
+    "All_num_layers": "all_num_layers", "MLP_num_layers": "mlp_num_layers",
+    "MLP_hidden": "mlp_hidden", "Classifier_num_layers": "classifier_num_layers",
+    "Classifier_hidden": "classifier_hidden", "heads": "heads",
+}
+
+
+def _given(parser: argparse.ArgumentParser, argv) -> set:
+    """Destinations of the flags present on the command line."""
+    opts = {a.split("=", 1)[0] for a in argv if a.startswith("--")}
+    return {a.dest for a in parser._actions if opts & set(a.option_strings)}
+
+
+def run(argv=None):
+    """Parse, train the runs protocol, print the summary and append the CSV
+    lines; returns the Results."""
+    from allset_tpu_torch.data.registry import SYNTHETIC_FEATURE_DATASETS, load_dataset
+    from allset_tpu_torch.train import TrainConfig, Trainer
+    from allset_tpu_torch.train.factory import ExperimentConfig, prepare
+    from allset_tpu_torch.train.presets import preset_for
+
+    parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parser.parse_args(argv)
+    for flag in ("plot", "save_params", "profile", "epoch_chunk", "remat"):
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1 item 8)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(--device cpu runs the plain versions)")
+
+    noise = float(args.feature_noise)
+    needs_noise = args.dname in SYNTHETIC_FEATURE_DATASETS
+    given = _given(parser, argv)
+    values = {key: getattr(args, flag) for flag, key in _PRESET_FLAGS.items()}
+    if args.preset:
+        preset = preset_for(args.dname, noise if needs_noise else None)
+        values.update({key: preset[key] for flag, key in _PRESET_FLAGS.items()
+                       if key in preset and flag not in given})
+
+    data = load_dataset(
+        args.dname, root=args.data_root, cache_dir=args.cache_dir,
+        feature_noise=noise if needs_noise or args.dname.startswith("synthetic") else None,
+        seed=args.seed,
+    )
+    cfg = ExperimentConfig(
+        method=args.method,
+        dname=args.dname,
+        train_prop=args.train_prop,
+        valid_prop=args.valid_prop,
+        dropout=args.dropout,
+        aggregate={"sum": "add"}.get(args.aggregate, args.aggregate),
+        normtype=args.normtype,
+        add_self_loop=args.add_self_loop,
+        normalization=args.normalization,
+        gpr=args.GPR,
+        learn_mask=args.LearnMask,
+        exclude_self=args.exclude_self,
+        seed=args.seed,
+        dtype=args.dtype,
+        **values,
+    )
+    model_cfg, batch = prepare(cfg, data, device)
+    trainer = Trainer(model_cfg, batch, TrainConfig(
+        epochs=cfg.epochs, runs=cfg.runs, lr=cfg.lr, wd=cfg.wd,
+        train_prop=cfg.train_prop, valid_prop=cfg.valid_prop,
+        vmap_runs=not args.no_vmap_runs, vmap_chunk=args.vmap_chunk,
+        display_step=args.display_step, seed=cfg.seed,
+    ))
+    res = trainer.fit()
+    print(res.summary())
+
+    # CSV append in the reference's format (src/train.py:503-525)
+    os.makedirs(args.res_root, exist_ok=True)
+    filename = osp.join(args.res_root, f"{args.dname}_noise_{args.feature_noise}.csv")
+    s = res.best_by_valid()
+    vm, vs = s["highest_valid"]
+    tm, ts = s["final_test"]
+    avg_time = res.wall_time / max(cfg.runs, 1)
+    with open(filename, "a+") as f:
+        f.write(
+            f"{cfg.method}_{cfg.lr}_{cfg.wd}_{cfg.heads}"
+            f",{vm / 100:.3f} ± {vs / 100:.3f}"
+            f",{tm / 100:.3f} ± {ts / 100:.3f}"
+            f",{res.num_params}, {avg_time:.2f}s, 0.00s"
+            f",{avg_time // 60}min{avg_time % 60:.2f}s\n"
+        )
+    all_args_file = osp.join(
+        args.res_root, f"all_args_{args.dname}_noise_{args.feature_noise}.csv"
+    )
+    with open(all_args_file, "a+") as f:
+        f.write(str(vars(args)) + "\n")
+    print(f"Saved results to {filename}")
+    return res
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,7 +1,9 @@
 // K2 / K3: the fused PMA epilogue, forward and backward.
 //
 // Replaces allset_tpu/ops/pallas_pma.py::_fwd_kernel (K2) and ::_bwd_kernel
-// (K3). Per row of the packed aggregate agg = [vals HC | den H | pad]:
+// (K3), and their runs grids (K2R, K3R: the R > 1 pallas_calls of
+// _pallas_fwd/_pallas_bwd). Per row of the packed aggregate
+// agg = [vals HC | den H | pad]:
 //   out0 = vals / expand(max(den, 1e-16)) + seed
 //   z    = LN0(out0)            f32, fast variance E[x^2] - mu^2, eps 1e-5
 //   zb   = z rounded to the activation dtype
@@ -29,6 +31,14 @@
 //   * K3b: dW partials [NCH, L, HC, HC] = h_l^T dp_l over row chunks, f32;
 //   * K3c: a second kernel sums each partial table over its first axis
 //     in a fixed order.
+// Runs (K2R/K3R): R statistical runs folded into the width. agg is
+// [M, R*WP] with run r in columns [r*WP, (r+1)*WP), y [M, R*HC], the
+// parameters carry a leading [R] axis, dW is [R, L, HC, HC] and dsmall
+// [R, 8, HC]. The second grid axis runs over r; a block offsets its
+// pointers to its run and reads rows with the folded stride, so the body
+// is K2/K3's and run r's outputs equal a single-run launch on run r's
+// slice bit for bit (same tiles, same partials, same reduce order). R = 1
+// is the single-run layout.
 // Shapes: HC % 64 == 0, HC <= 256, H divides HC, WP >= HC + H.
 
 #include <cuda_bf16.h>
@@ -143,7 +153,7 @@ __device__ void gemm_tile(const __nv_bfloat16* A, int lda,
 // row-wise by warp: a caller that reads x1 in the same warp-row mapping
 // needs no barrier.
 template <typename T>
-__device__ void fwd_tile(const T* __restrict__ agg, int M, int WP, int HC, int H,
+__device__ void fwd_tile(const T* __restrict__ agg, int M, size_t lda, int HC, int H,
                          int L, int row0, const float* __restrict__ seed,
                          const float* __restrict__ g0, const float* __restrict__ b0,
                          const T* __restrict__ Wc, const float* __restrict__ brff,
@@ -155,7 +165,7 @@ __device__ void fwd_tile(const T* __restrict__ agg, int M, int WP, int HC, int H
     const int r = warp * RPW + rr;
     const int grow = row0 + r;
     const bool valid = grow < M;
-    const T* a = agg + (size_t)grow * WP;
+    const T* a = agg + grow * lda;
     float sum = 0.f, sq = 0.f;
     for (int c = lane; c < HC; c += 32) {
       const float v = valid ? to_f(a[c]) : 0.f;
@@ -219,8 +229,17 @@ pma_fwd_kernel(const T* __restrict__ agg, const float* __restrict__ seed,
                T* __restrict__ out, int M, int WP, int HC, int H, int L, int relu) {
   extern __shared__ __align__(128) char smem[];
   Smem<T> s(smem, HC);
+  // this block's run (blockIdx.y) of R = gridDim.y folded runs
+  const int run = blockIdx.y, R = gridDim.y;
+  const size_t lda = (size_t)R * WP, ldo = (size_t)R * HC;
+  agg += (size_t)run * WP;
+  out += (size_t)run * HC;
+  seed += (size_t)run * HC, g0 += (size_t)run * HC, b0 += (size_t)run * HC;
+  g1 += (size_t)run * HC, b1 += (size_t)run * HC;
+  Wc += (size_t)run * L * HC * HC;
+  brff += (size_t)run * L * HC;
   const int row0 = blockIdx.x * ROWS;
-  fwd_tile<T>(agg, M, WP, HC, H, L, row0, seed, g0, b0, Wc, brff, s);
+  fwd_tile<T>(agg, M, lda, HC, H, L, row0, seed, g0, b0, Wc, brff, s);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int rr = 0; rr < RPW; ++rr) {
     const int r = warp * RPW + rr;
@@ -229,7 +248,7 @@ pma_fwd_kernel(const T* __restrict__ agg, const float* __restrict__ seed,
     for (int c = lane; c < HC; c += 32) {
       T y = from_f<T>(s.x1[r * HC + c] * g1[c] + b1[c]);
       if (relu && !(to_f(y) > 0.f)) y = from_f<T>(0.f);
-      out[(size_t)grow * HC + c] = y;
+      out[grow * ldo + c] = y;
     }
   }
 }
@@ -249,6 +268,20 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
   Smem<T> s(smem, HC);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int C = HC / H, HCP = HC + 8, npad = WP - HC - H;
+  // this block's run (blockIdx.y) of R = gridDim.y folded runs
+  const int run = blockIdx.y, R = gridDim.y;
+  const size_t lda = (size_t)R * WP, ldg = (size_t)R * HC;
+  agg += (size_t)run * WP;
+  dagg += (size_t)run * WP;
+  gy += (size_t)run * HC;
+  seed += (size_t)run * HC, g0 += (size_t)run * HC, b0 += (size_t)run * HC;
+  g1 += (size_t)run * HC, b1 += (size_t)run * HC;
+  Wc += (size_t)run * L * HC * HC;
+  WT += (size_t)run * L * HC * HC;
+  brff += (size_t)run * L * HC;
+  hin += (size_t)run * L * M * HC;
+  dpbuf += (size_t)run * L * M * HC;
+  part_small += (size_t)run * gridDim.x * 8 * HC;
   // this thread's column partials: dseed, dg0, db0, dg1, db1, dbrff[0..2]
   float acc[8];
 #pragma unroll
@@ -256,7 +289,7 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
   const int ntiles = (M + ROWS - 1) / ROWS;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int row0 = t * ROWS;
-    fwd_tile<T>(agg, M, WP, HC, H, L, row0, seed, g0, b0, Wc, brff, s);
+    fwd_tile<T>(agg, M, lda, HC, H, L, row0, seed, g0, b0, Wc, brff, s);
     const float* pl = L == 1 ? s.p0 : s.p1;
     // upstream gradient; the folded relu masks on the ROUNDED output
     for (int rr = 0; rr < RPW; ++rr) {
@@ -264,7 +297,7 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
       const int grow = row0 + r;
       const bool valid = grow < M;
       for (int c = lane; c < HC; c += 32) {
-        float gv = valid ? to_f(gy[(size_t)grow * HC + c]) : 0.f;
+        float gv = valid ? to_f(gy[grow * ldg + c]) : 0.f;
         if (relu) {
           const float y = round_to<T>(s.x1[r * HC + c] * g1[c] + b1[c]);
           gv = gv * (y > 0.f ? 1.f : 0.f);
@@ -356,7 +389,7 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
       s1 = warp_sum(s1) / HC;
       s2 = warp_sum(s2) / HC;
       const float rstd = s.rstd0[r];
-      const T* a = agg + (size_t)grow * WP;
+      const T* a = agg + grow * lda;
       for (int c = lane; c < HC; c += 32) {
         const int i = r * HC + c;
         const float d0 = rstd * (s.x1[i] * g0[c] - s1 - s.x0[i] * s2);
@@ -364,7 +397,7 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
         const float v = valid ? to_f(a[c]) : 0.f;
         const float den = valid ? to_f(a[HC + c / C]) : 0.f;
         s.dh[i] = d0 * v;
-        if (valid) dagg[(size_t)grow * WP + c] = from_f<T>(d0 * (1.f / fmaxf(den, DEN_FLOOR)));
+        if (valid) dagg[grow * lda + c] = from_f<T>(d0 * (1.f / fmaxf(den, DEN_FLOOR)));
       }
     }
     __syncthreads();
@@ -379,15 +412,15 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
       if (grow >= M) continue;
       float sm = 0.f;
       for (int c = h * C; c < (h + 1) * C; ++c) sm += s.dh[r * HC + c];
-      const float den = to_f(agg[(size_t)grow * WP + HC + h]);
+      const float den = to_f(agg[grow * lda + HC + h]);
       const float dinv = 1.f / fmaxf(den, DEN_FLOOR);
       const float dd = den > DEN_FLOOR ? -sm * (dinv * dinv) : 0.f;
-      dagg[(size_t)grow * WP + HC + h] = from_f<T>(dd);
+      dagg[grow * lda + HC + h] = from_f<T>(dd);
     }
     for (int i = tid; i < ROWS * npad; i += THREADS) {  // zero pad columns
       const int r = i / npad, c = HC + H + i % npad;
       const int grow = row0 + r;
-      if (grow < M) dagg[(size_t)grow * WP + c] = from_f<T>(0.f);
+      if (grow < M) dagg[grow * lda + c] = from_f<T>(0.f);
     }
     __syncthreads();
   }
@@ -397,15 +430,20 @@ pma_bwd_rows_kernel(const T* __restrict__ agg, const T* __restrict__ gy,
   }
 }
 
-// K3b: part[ch][l] = hin[l][rows of ch]^T @ dp[l][rows of ch], 64x64 tiles.
+// K3b: part[run][ch][l] = hin[run][l][rows of ch]^T @ dp[run][l][rows of ch],
+// 64x64 tiles; blockIdx.z = (run * nch + ch) * L + l.
 template <typename T>
 __global__ void __launch_bounds__(256)
 dw_partial_kernel(const T* __restrict__ hin, const float* __restrict__ dp, int M,
-                  int HC, int L, int chunk_rows, float* __restrict__ part) {
+                  int HC, int L, int nch, int chunk_rows, float* __restrict__ part) {
   __shared__ float As[32][64];
   __shared__ float Bs[32][64];
   const int j0 = blockIdx.x * 64, i0 = blockIdx.y * 64;
-  const int ch = blockIdx.z / L, l = blockIdx.z % L;
+  const int run = blockIdx.z / (nch * L);
+  const int ch = blockIdx.z % (nch * L) / L, l = blockIdx.z % L;
+  hin += (size_t)run * L * M * HC;
+  dp += (size_t)run * L * M * HC;
+  part += (size_t)run * nch * L * HC * HC;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4];
 #pragma unroll
@@ -444,26 +482,27 @@ dw_partial_kernel(const T* __restrict__ hin, const float* __restrict__ dp, int M
       outp[(size_t)(i0 + ty * 4 + x) * HC + j0 + tx * 4 + y] = acc[x][y];
 }
 
-// K3c: out[j] = sum_p part[p][j], in order of p.
+// K3c: out[run][j] = sum_p part[run][p][j], in order of p (run = blockIdx.y).
 __global__ void reduce_partials_kernel(const float* __restrict__ part, int P,
                                        int N, float* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
+  part += (size_t)blockIdx.y * P * N;
   float s = 0.f;
   for (int p = 0; p < P; ++p) s += part[(size_t)p * N + j];
-  out[j] = s;
+  out[(size_t)blockIdx.y * N + j] = s;
 }
 
 template <typename T>
 int launch_fwd(const void* agg, const void* seed, const void* g0, const void* b0,
                const void* Wc, const void* brff, const void* g1, const void* b1,
-               void* out, int M, int WP, int HC, int H, int L, int relu,
+               void* out, int M, int WP, int HC, int H, int L, int R, int relu,
                cudaStream_t s) {
   const size_t bytes = smem_bytes(HC, sizeof(T), false);
   cudaError_t e = cudaFuncSetAttribute(
       pma_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  pma_fwd_kernel<T><<<(M + ROWS - 1) / ROWS, THREADS, bytes, s>>>(
+  pma_fwd_kernel<T><<<dim3((M + ROWS - 1) / ROWS, R), THREADS, bytes, s>>>(
       (const T*)agg, (const float*)seed, (const float*)g0, (const float*)b0,
       (const T*)Wc, (const float*)brff, (const float*)g1, (const float*)b1,
       (T*)out, M, WP, HC, H, L, relu);
@@ -475,26 +514,26 @@ int launch_bwd(const void* agg, const void* gy, const void* seed, const void* g0
                const void* b0, const void* Wc, const void* WT, const void* brff,
                const void* g1, const void* b1, void* dagg, void* dW, void* dsmall,
                void* hin, void* dpbuf, void* part_small, void* part_w, int M,
-               int WP, int HC, int H, int L, int relu, int grid_rows, int nch,
+               int WP, int HC, int H, int L, int R, int relu, int grid_rows, int nch,
                int chunk_rows, cudaStream_t s) {
   const size_t bytes = smem_bytes(HC, sizeof(T), true);
   cudaError_t e = cudaFuncSetAttribute(
       pma_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  pma_bwd_rows_kernel<T><<<grid_rows, THREADS, bytes, s>>>(
+  pma_bwd_rows_kernel<T><<<dim3(grid_rows, R), THREADS, bytes, s>>>(
       (const T*)agg, (const T*)gy, (const float*)seed, (const float*)g0,
       (const float*)b0, (const T*)Wc, (const float*)WT, (const float*)brff,
       (const float*)g1, (const float*)b1, (T*)dagg, (T*)hin, (float*)dpbuf,
       (float*)part_small, M, WP, HC, H, L, relu);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  dw_partial_kernel<T><<<dim3(HC / 64, HC / 64, nch * L), 256, 0, s>>>(
-      (const T*)hin, (const float*)dpbuf, M, HC, L, chunk_rows, (float*)part_w);
+  dw_partial_kernel<T><<<dim3(HC / 64, HC / 64, R * nch * L), 256, 0, s>>>(
+      (const T*)hin, (const float*)dpbuf, M, HC, L, nch, chunk_rows, (float*)part_w);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int nw = L * HC * HC, ns = 8 * HC;
-  reduce_partials_kernel<<<(nw + 255) / 256, 256, 0, s>>>(
+  reduce_partials_kernel<<<dim3((nw + 255) / 256, R), 256, 0, s>>>(
       (const float*)part_w, nch, nw, (float*)dW);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  reduce_partials_kernel<<<(ns + 255) / 256, 256, 0, s>>>(
+  reduce_partials_kernel<<<dim3((ns + 255) / 256, R), 256, 0, s>>>(
       (const float*)part_small, grid_rows, ns, (float*)dsmall);
   return (int)cudaGetLastError();
 }
@@ -504,39 +543,42 @@ int launch_bwd(const void* agg, const void* gy, const void* seed, const void* g0
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (agg, out, Wc). Parameters are float32.
+// R runs folded into the width (R = 1: the single-run layout); WP is the
+// per-run width.
 int allset_pma_epilogue_fwd(const void* agg, const void* seed, const void* g0,
                             const void* b0, const void* Wc, const void* brff,
                             const void* g1, const void* b1, void* out, int M,
-                            int WP, int HC, int H, int L, int relu, int dtype,
-                            void* stream) {
+                            int WP, int HC, int H, int L, int R, int relu,
+                            int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (M <= 0) return (int)cudaGetLastError();
+  if (M <= 0 || R <= 0) return (int)cudaGetLastError();
   if (dtype == 0)
     return launch_fwd<float>(agg, seed, g0, b0, Wc, brff, g1, b1, out, M, WP, HC,
-                             H, L, relu, s);
+                             H, L, R, relu, s);
   return launch_fwd<__nv_bfloat16>(agg, seed, g0, b0, Wc, brff, g1, b1, out, M,
-                                   WP, HC, H, L, relu, s);
+                                   WP, HC, H, L, R, relu, s);
 }
 
-// Scratch (allocated by the caller): hin [L, M, HC] dtype, dpbuf [L, M, HC]
-// f32, part_small [grid_rows, 8, HC] f32, part_w [nch, L, HC, HC] f32.
+// Scratch (allocated by the caller), per run: hin [R, L, M, HC] dtype,
+// dpbuf [R, L, M, HC] f32, part_small [R, grid_rows, 8, HC] f32,
+// part_w [R, nch, L, HC, HC] f32.
 int allset_pma_epilogue_bwd(const void* agg, const void* gy, const void* seed,
                             const void* g0, const void* b0, const void* Wc,
                             const void* WT, const void* brff, const void* g1,
                             const void* b1, void* dagg, void* dW, void* dsmall,
                             void* hin, void* dpbuf, void* part_small,
                             void* part_w, int M, int WP, int HC, int H, int L,
-                            int relu, int dtype, int grid_rows, int nch,
+                            int R, int relu, int dtype, int grid_rows, int nch,
                             int chunk_rows, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (M <= 0) return (int)cudaGetLastError();
+  if (M <= 0 || R <= 0) return (int)cudaGetLastError();
   if (dtype == 0)
     return launch_bwd<float>(agg, gy, seed, g0, b0, Wc, WT, brff, g1, b1, dagg, dW,
                              dsmall, hin, dpbuf, part_small, part_w, M, WP, HC, H,
-                             L, relu, grid_rows, nch, chunk_rows, s);
+                             L, R, relu, grid_rows, nch, chunk_rows, s);
   return launch_bwd<__nv_bfloat16>(agg, gy, seed, g0, b0, Wc, WT, brff, g1, b1,
                                    dagg, dW, dsmall, hin, dpbuf, part_small,
-                                   part_w, M, WP, HC, H, L, relu, grid_rows, nch,
+                                   part_w, M, WP, HC, H, L, R, relu, grid_rows, nch,
                                    chunk_rows, s);
 }
 

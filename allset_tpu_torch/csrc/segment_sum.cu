@@ -4,14 +4,19 @@
 // reduce). On the H100 the op is bound by bytes: it reads every message
 // row once and writes every segment row once, with no reuse. The design
 // keeps both streams contiguous and does nothing else:
-//   * one warp per segment; lanes cover the row width in 16-byte vectors
-//     (8 bf16 or 4 f32), so a row is read by one coalesced warp access;
-//   * a sequential f32 sum over the segment's rows, in row order (four
-//     rows loaded ahead for memory-level parallelism, added in order):
-//     no atomics, so the result is deterministic;
+//   * one warp per (segment, column tile); a tile is 32 16-byte vectors
+//     (256 bf16 or 128 f32 columns), one per lane, so a row's tile is
+//     read by one coalesced warp access. The second grid axis runs over
+//     the tiles: a wide row (runs folded into the width, W = R * 264)
+//     spreads across warps instead of being walked tile after tile;
+//   * each lane sums its vector over the segment's rows in f32, in row
+//     order (four rows loaded ahead for memory-level parallelism, added
+//     in order): no atomics, so the result is deterministic, and a
+//     column's sum does not depend on W or on the tiling;
 //   * the store is in the input dtype; an empty segment stores zeros.
 // The row width W must be a multiple of 8 (any such width: 264, 384,
-// 512...). Segments are not balanced: a hot segment is one warp's work.
+// R * 264...). Segments are not balanced: a hot segment is one warp's
+// work per tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -20,6 +25,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kTileVecs = 32;  // 16-byte vectors per column tile (one per lane)
 
 template <typename T>
 struct Vec;
@@ -71,34 +77,31 @@ __global__ void segment_sum_kernel(const T* __restrict__ msgs,
                                    T* __restrict__ out, int num_seg, int W) {
   constexpr int V = Vec<T>::N;
   const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (seg >= num_seg) return;
+  const int c = blockIdx.y * kTileVecs + (threadIdx.x & 31);  // this lane's vector
+  if (seg >= num_seg || c >= W / V) return;
   const int start = indptr[seg];
   const int end = indptr[seg + 1];
-  const int nvec = W / V;
-  for (int c = lane; c < nvec; c += 32) {
-    float acc[V];
+  float acc[V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    const T* p = msgs + (size_t)start * W + (size_t)c * V;
-    int r = start;
-    for (; r + 4 <= end; r += 4) {
-      uint4 v0 = load16(p);
-      uint4 v1 = load16(p + W);
-      uint4 v2 = load16(p + 2 * (size_t)W);
-      uint4 v3 = load16(p + 3 * (size_t)W);
-      add_vec(acc, v0, T());
-      add_vec(acc, v1, T());
-      add_vec(acc, v2, T());
-      add_vec(acc, v3, T());
-      p += 4 * (size_t)W;
-    }
-    for (; r < end; ++r) {
-      add_vec(acc, load16(p), T());
-      p += W;
-    }
-    store_vec(out + (size_t)seg * W + (size_t)c * V, acc);
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  const T* p = msgs + (size_t)start * W + (size_t)c * V;
+  int r = start;
+  for (; r + 4 <= end; r += 4) {
+    uint4 v0 = load16(p);
+    uint4 v1 = load16(p + W);
+    uint4 v2 = load16(p + 2 * (size_t)W);
+    uint4 v3 = load16(p + 3 * (size_t)W);
+    add_vec(acc, v0, T());
+    add_vec(acc, v1, T());
+    add_vec(acc, v2, T());
+    add_vec(acc, v3, T());
+    p += 4 * (size_t)W;
   }
+  for (; r < end; ++r) {
+    add_vec(acc, load16(p), T());
+    p += W;
+  }
+  store_vec(out + (size_t)seg * W + (size_t)c * V, acc);
 }
 
 }  // namespace
@@ -108,8 +111,10 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
 int allset_segment_sum(const void* msgs, const void* indptr, void* out,
                        int num_seg, int W, int dtype, void* stream) {
-  if (num_seg > 0) {
-    dim3 grid((num_seg + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (num_seg > 0 && W > 0) {
+    const int nvec = W / (dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N);
+    dim3 grid((num_seg + kWarpsPerBlock - 1) / kWarpsPerBlock,
+              (nvec + kTileVecs - 1) / kTileVecs);
     dim3 block(32 * kWarpsPerBlock);
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     if (dtype == 0) {

@@ -1,13 +1,15 @@
 """Batch: the bundle every model consumes, on an explicit device.
 
 Counterpart of ``allset_tpu/graph/batch.py``: features, labels and the
-incidence, all tensors on one device.
+incidence, all tensors on one device; and ``split_masks``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
+import numpy as np
 import torch
 
 from allset_tpu_torch.graph.incidence import Incidence
@@ -33,3 +35,13 @@ class Batch:
             y=torch.as_tensor(data.y, dtype=torch.int64).to(device),
             inc=data.to_incidence(bucket=bucket).to(device),
         )
+
+
+def split_masks(split_idx: Dict[str, np.ndarray], num_nodes: int) -> Dict[str, torch.Tensor]:
+    """Index arrays -> boolean node masks [num_nodes] (on the CPU)."""
+    out = {}
+    for k, idx in split_idx.items():
+        m = np.zeros(num_nodes, dtype=bool)
+        m[np.asarray(idx)] = True
+        out[k] = torch.from_numpy(m)
+    return out

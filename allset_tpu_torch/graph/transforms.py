@@ -1,16 +1,17 @@
 """Host-side hypergraph transforms (numpy), mirroring reference preprocessing.
 
 Counterpart of ``allset_tpu/graph/transforms.py``, limited to what the
-AllSetTransformer training step needs: ``HyperData``, ``coalesce``,
-``add_self_loops`` and ``norm_construction``. The port keeps its own copy
-because importing the JAX package's module loads jax. Given the same
-inputs, every function returns the same arrays as the JAX package's.
+AllSetTransformer runs protocol needs: ``HyperData``, ``coalesce``,
+``add_self_loops``, ``norm_construction`` and ``rand_train_test_idx``.
+The port keeps its own copy because importing the JAX package's module
+loads jax. Given the same inputs (and the same numpy generator state),
+every function returns the same arrays as the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -43,6 +44,10 @@ class HyperData:
     @property
     def num_features(self) -> int:
         return int(self.x.shape[1])
+
+    @property
+    def num_classes(self) -> int:
+        return int(self.y.max()) + 1
 
     def copy(self) -> "HyperData":
         return dataclasses.replace(
@@ -122,3 +127,43 @@ def norm_construction(data: HyperData, option: str = "all_one") -> HyperData:
     else:
         raise ValueError(f"unknown norm option {option!r}")
     return out
+
+
+def rand_train_test_idx(
+    label: np.ndarray,
+    train_prop: float = 0.5,
+    valid_prop: float = 0.25,
+    ignore_negative: bool = True,
+    balance: bool = False,
+    rng: Optional[np.random.Generator] = None,
+) -> Dict[str, np.ndarray]:
+    """Random split (reference ``src/preprocessing.py:472-519``) drawn from
+    an explicit numpy generator; nodes labelled -1 are left out."""
+    if rng is None:
+        rng = np.random.default_rng()
+    label = np.asarray(label)
+    if not balance:
+        labeled = np.where(label != -1)[0] if ignore_negative else np.arange(len(label))
+        n = len(labeled)
+        train_num = int(n * train_prop)
+        valid_num = int(n * valid_prop)
+        perm = rng.permutation(n)
+        return {
+            "train": labeled[perm[:train_num]],
+            "valid": labeled[perm[train_num : train_num + valid_num]],
+            "test": labeled[perm[train_num + valid_num :]],
+        }
+    indices = []
+    for c in range(label.max() + 1):
+        idx = np.where(label == c)[0]
+        indices.append(rng.permutation(idx))
+    percls_trn = int(train_prop / (label.max() + 1) * len(label))
+    val_lb = int(valid_prop * len(label))
+    train_idx = np.concatenate([i[:percls_trn] for i in indices])
+    rest = np.concatenate([i[percls_trn:] for i in indices])
+    rest = rest[rng.permutation(len(rest))]
+    return {
+        "train": train_idx,
+        "valid": rest[:val_lb],
+        "test": rest[val_lb:],
+    }

@@ -1,10 +1,23 @@
-"""Core neural modules: TorchDense, MLP, PMA (attention pooling), HalfNLHconv.
+"""Core neural modules: TorchDense, NormLayer, MLP, PMA (attention
+pooling), HalfNLHconv.
 
 Counterpart of ``allset_tpu/nn/modules.py`` for the AllSetTransformer
 path. Parameter names and shapes follow the JAX package's flax names, so
 a ``state_dict`` key is the flax path joined by dots (see
 ``utils/jax_bridge.py``); kernels keep the flax layout ``[in, out]``.
 Parameters are float32; ``dtype`` is the activation dtype.
+
+Statistical runs: built with a list of R generators (one per run), every
+parameter carries a leading [R] axis, the counterpart of the JAX
+package's vmapped parameter tree. Activations are then [rows, R, F]; a
+shared input [rows, F] (the features, before any dropout) is accepted
+too. The sparse exchange and the fused epilogue see the runs folded into
+the width, [rows, R * F]: one launch serves all runs, and each run's
+columns come out as a single run's would. Every dense op (GEMMs,
+LayerNorm, the score and pack math) runs run by run on contiguous [rows,
+F] tensors, so its shapes, and with them the library's choice of kernel
+and summation order, do not depend on R: a run gives the same bits
+whether it is trained alone or folded with others.
 """
 
 from __future__ import annotations
@@ -17,15 +30,60 @@ from torch import nn
 
 from allset_tpu_torch.graph.incidence import Direction
 from allset_tpu_torch.nn.init import (
+    Generators,
     glorot_uniform,
     torch_linear_bias,
     torch_linear_kernel,
     xavier_uniform_torch_fans,
 )
-from allset_tpu_torch.ops.cuda_pma import pma_epilogue
+from allset_tpu_torch.ops.cuda_pma import pma_epilogue, pma_epilogue_runs
 from allset_tpu_torch.ops.exchange import dir_spmm
 
 NEGATIVE_SLOPE = 0.2  # PMA's leaky_relu on the seed scores
+LN_EPS = 1e-5  # torch/flax LayerNorm default
+
+
+def runs_of(generator: Generators) -> Optional[int]:
+    """None for one generator (no runs axis), else the number of runs."""
+    return None if isinstance(generator, torch.Generator) else len(generator)
+
+
+def _lead(generator: Generators) -> tuple:
+    R = runs_of(generator)
+    return () if R is None else (R,)
+
+
+def per_run(x: torch.Tensor, R: int) -> list:
+    """Run r's input as a contiguous [rows, F] tensor: a slice of x [rows,
+    R, F], or a shared x [rows, F] itself."""
+    if x.dim() == 2:
+        return [x] * R
+    return [t.contiguous() for t in x.unbind(1)]
+
+
+def runs_apply(fn, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+    """fn(x_r, *params[r]) for every run -> stacked [rows, R, out]; params
+    carry the leading [R] axis."""
+    R = params[0].shape[0]
+    per = zip(per_run(x, R), *(p.unbind(0) for p in params))
+    return torch.stack([fn(*a) for a in per], dim=1)
+
+
+def dropout(x: torch.Tensor, p: float, train: bool, generator=None) -> torch.Tensor:
+    """Inverted dropout, the identity unless ``train``. With a list of R
+    generators (runs), run r's mask is drawn from generator r with the
+    shape a single run draws, [N, F]; a shared x [N, F] becomes [N, R, F]."""
+    if not train or p == 0.0:
+        return x
+    if isinstance(generator, (list, tuple)):
+        shape = (x.shape[0], x.shape[-1])
+        keep = torch.stack([torch.rand(shape, generator=g, device=x.device) >= p
+                            for g in generator], dim=1)
+        if x.dim() == 2:
+            x = x[:, None]
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def packed_width(HC: int, H: int) -> int:
@@ -40,7 +98,7 @@ class TorchDense(nn.Module):
     bf16 rounding points of the JAX layer: the product is rounded to the
     activation dtype, then the bias is added in that dtype."""
 
-    def __init__(self, fan_in: int, features: int, generator: torch.Generator,
+    def __init__(self, fan_in: int, features: int, generator: Generators,
                  kernel_init=torch_linear_kernel,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -48,30 +106,34 @@ class TorchDense(nn.Module):
         self.bias = nn.Parameter(torch_linear_bias(fan_in, (features,), generator))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.kernel
+    def _dense(self, x, k, b):
         if self.dtype is not None:
             x, k = x.to(self.dtype), k.to(self.dtype)
         y = x @ k
-        return y + self.bias.to(y.dtype)
+        return y + b.to(y.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel.dim() == 2:
+            return self._dense(x, self.kernel, self.bias)
+        return runs_apply(self._dense, x, self.kernel, self.bias)
 
 
 class LNParams(nn.Module):
     """LayerNorm parameters ('scale', 'bias'), consumed by the fused
     epilogue."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, lead: tuple = ()):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.scale = nn.Parameter(torch.ones(lead + (dim,)))
+        self.bias = nn.Parameter(torch.zeros(lead + (dim,)))
 
 
 class MLPParams(nn.Module):
     """Parameters of an equal-width MLP ('lin{i}'), stacked for the fused
-    epilogue as [L, F, F] kernels and [L, F] biases."""
+    epilogue as [(R,) L, F, F] kernels and [(R,) L, F] biases."""
 
     def __init__(self, hidden: int, out: int, num_layers: int,
-                 generator: torch.Generator):
+                 generator: Generators):
         super().__init__()
         for i in range(num_layers):
             width = out if i == num_layers - 1 else hidden
@@ -80,25 +142,70 @@ class MLPParams(nn.Module):
 
     def stacked(self):
         lins = [getattr(self, f"lin{i}") for i in range(self.num_layers)]
-        return (torch.stack([m.kernel for m in lins]),
-                torch.stack([m.bias for m in lins]))
+        at = lins[0].bias.dim() - 1  # 1 with a runs axis
+        return (torch.stack([m.kernel for m in lins], dim=at),
+                torch.stack([m.bias for m in lins], dim=at))
+
+
+class NormLayer(nn.Module):
+    """'ln' (flax LayerNorm: f32 statistics, fast variance, 'scale' and
+    'bias') or 'None' (identity, no parameters). 'bn' raises."""
+
+    def __init__(self, kind: str, dim: int, lead: tuple = (),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if kind == "bn":
+            raise NotImplementedError(
+                "normalization='bn' (batch statistics) comes with the "
+                "AllDeepSets port (ROADMAP Queue 1 item 6)"
+            )
+        if kind not in ("ln", "None", "none", None):
+            raise ValueError(f"unknown normalization {kind!r}")
+        self.kind, self.dtype = kind, dtype
+        if kind == "ln":  # the flax submodule's automatic name
+            self.LayerNorm_0 = LNParams(dim, lead)
+
+    def _ln(self, x, scale, bias):
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        y = (xf - mu) * (torch.rsqrt(var + LN_EPS) * scale) + bias
+        return y.to(self.dtype if self.dtype is not None else x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind != "ln":
+            return x
+        ln = self.LayerNorm_0
+        if ln.scale.dim() == 1:
+            return self._ln(x, ln.scale, ln.bias)
+        return runs_apply(self._ln, x, ln.scale, ln.bias)
 
 
 class MLP(nn.Module):
-    """The classifier MLP. One layer is a linear map (TorchDense)."""
+    """The reference MLP (``src/layers.py:496-579``) without input norm:
+    for each hidden layer lin -> relu -> norm -> dropout, then the final
+    linear. One layer is a linear map (TorchDense)."""
 
-    def __init__(self, in_dim: int, out: int, num_layers: int,
-                 generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+    def __init__(self, in_dim: int, hidden: int, out: int, num_layers: int,
+                 generator: Generators, dtype: Optional[torch.dtype] = None,
+                 normalization: str = "ln", dropout: float = 0.0):
         super().__init__()
-        if num_layers != 1:
-            raise NotImplementedError(
-                "MLP with hidden layers (normalization, dropout) comes with "
-                "the AllDeepSets port (ROADMAP Queue 1 item 6)"
-            )
-        self.lin0 = TorchDense(in_dim, out, generator, dtype=dtype)
+        self.num_layers, self.p = num_layers, dropout
+        for i in range(num_layers - 1):
+            self.add_module(f"lin{i}", TorchDense(in_dim if i == 0 else hidden, hidden,
+                                                  generator, dtype=dtype))
+            self.add_module(f"norm{i}", NormLayer(normalization, hidden,
+                                                  _lead(generator), dtype=dtype))
+        last = num_layers - 1
+        self.add_module(f"lin{last}", TorchDense(in_dim if last == 0 else hidden, out,
+                                                 generator, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin0(x)
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        for i in range(self.num_layers - 1):
+            x = torch.relu(getattr(self, f"lin{i}")(x))
+            x = getattr(self, f"norm{i}")(x)
+            x = dropout(x, self.p, train, generator)
+        return getattr(self, f"lin{self.num_layers - 1}")(x)
 
 
 class PMA(nn.Module):
@@ -114,10 +221,14 @@ class PMA(nn.Module):
     makes e a per-source quantity, so the weighting happens on the source
     table before the gather. lin_K enters only through alpha, so it is
     folded into one [in, H] kernel: Wa = W_K @ proj, ba = b_K @ proj.
+
+    With R runs the packed tables are built run by run and folded to
+    [rows, R*WP] for the exchange and the fused epilogue (K2R/K3R); the
+    output is [M, R, out].
     """
 
     def __init__(self, in_dim: int, hid_dim: int, out_dim: int, num_layers: int,
-                 heads: int, generator: torch.Generator,
+                 heads: int, generator: Generators,
                  dtype: Optional[torch.dtype] = None, fold_relu: bool = False):
         super().__init__()
         if out_dim != hid_dim or num_layers not in (1, 2):
@@ -131,25 +242,26 @@ class PMA(nn.Module):
         self.lin_K = TorchDense(in_dim, HC, generator, kernel_init=glorot_uniform)
         self.lin_V = TorchDense(in_dim, HC, generator, kernel_init=glorot_uniform)
         self.att_r = nn.Parameter(xavier_uniform_torch_fans((1, H, C), generator))
-        self.ln0 = LNParams(HC)
+        self.ln0 = LNParams(HC, _lead(generator))
         self.rFF = MLPParams(HC, out_dim, num_layers, generator)
-        self.ln1 = LNParams(out_dim)
+        self.ln1 = LNParams(out_dim, _lead(generator))
+        self.runs = runs_of(generator)
 
-    def forward(self, x: torch.Tensor, d: Direction) -> torch.Tensor:
+    def _pack(self, x, WK, bK, WV, bV, att_flat):
+        """One run's packed exchange table [N, WP] = [x_V * e | e | 0]."""
         H = self.heads
-        HC = self.att_r.numel()
+        HC = att_flat.shape[0]
         C = HC // H
-        att_flat = self.att_r.reshape(HC)
         col = torch.arange(HC, device=x.device)[:, None] // C
         blk = col == torch.arange(H, device=x.device)[None, :]
         proj = torch.where(blk, att_flat[:, None], torch.zeros((), device=x.device))
-        Wa = self.lin_K.kernel @ proj  # [in_dim, H], f32 parameter math
-        ba = self.lin_K.bias @ proj  # [H]
+        Wa = WK @ proj  # [in_dim, H], f32 parameter math
+        ba = bK @ proj  # [H]
         xc = x.to(self.dtype) if self.dtype is not None else x
         # one GEMM for [values | seed scores]
-        Wf = torch.cat([self.lin_V.kernel, Wa], dim=1)
+        Wf = torch.cat([WV, Wa], dim=1)
         yf = xc @ Wf.to(xc.dtype)
-        x_V = yf[:, :HC] + self.lin_V.bias.to(yf.dtype)
+        x_V = yf[:, :HC] + bV.to(yf.dtype)
         alpha = F.leaky_relu(yf[:, HC:].float() + ba, NEGATIVE_SLOPE)
         # shift over ALL source rows (N-slot hole rows included on E->V)
         gmax = alpha.detach().amax(dim=0).clamp_min(0.0)
@@ -161,11 +273,22 @@ class PMA(nn.Module):
         pad = packed_width(HC, H) - HC - H
         if pad:
             parts.append(x_V.new_zeros(x_V.shape[0], pad))
-        agg = dir_spmm(torch.cat(parts, dim=1), d)
+        return torch.cat(parts, dim=1)
+
+    def forward(self, x: torch.Tensor, d: Direction) -> torch.Tensor:
+        R = self.runs
+        HC = self.lin_V.kernel.shape[-1]
+        att_flat = self.att_r.reshape(self.att_r.shape[:-3] + (HC,))  # [(R,) HC]
+        params = (self.lin_K.kernel, self.lin_K.bias, self.lin_V.kernel,
+                  self.lin_V.bias, att_flat)
         Wrff, brff = self.rFF.stacked()
-        return pma_epilogue(agg, att_flat, self.ln0.scale, self.ln0.bias, Wrff,
-                            brff, self.ln1.scale, self.ln1.bias, H,
-                            self.fold_relu)
+        epi = (att_flat, self.ln0.scale, self.ln0.bias, Wrff, brff, self.ln1.scale,
+               self.ln1.bias, self.heads, self.fold_relu)
+        if R is None:
+            return pma_epilogue(dir_spmm(self._pack(x, *params), d), *epi)
+        w = runs_apply(self._pack, x, *params)  # [N, R, WP]
+        agg = dir_spmm(w.reshape(w.shape[0], -1), d)  # runs folded: [M, R*WP]
+        return pma_epilogue_runs(agg, *epi).view(agg.shape[0], R, -1)
 
 
 class HalfNLHconv(nn.Module):
@@ -175,7 +298,7 @@ class HalfNLHconv(nn.Module):
     AllDeepSets port."""
 
     def __init__(self, in_dim: int, hid_dim: int, out_dim: int, num_layers: int,
-                 heads: int, generator: torch.Generator,
+                 heads: int, generator: Generators,
                  dtype: Optional[torch.dtype] = None, fold_relu: bool = False):
         super().__init__()
         self.prop = PMA(in_dim, hid_dim, out_dim, num_layers, heads, generator,

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources under ``allset_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
+for Hopper (``sm_90a``), one ``nvcc`` per source, all started together,
+and linked into one shared library with a plain C interface,
 ``allset_tpu_torch/_build/libkernels.so`` (an ignored directory), at first
 use, and again whenever a source is newer than the library. The library
 is loaded with ctypes; every pointer and the stream are passed as
@@ -31,7 +32,8 @@ _CSRC = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
 _SO = osp.join(BUILD_DIR, "libkernels.so")
 
-KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd")
+KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
+           "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -41,8 +43,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 _SIGNATURES = {
     "allset_segment_sum": [P, P, P, I, I, I, P],
-    "allset_pma_epilogue_fwd": [P] * 9 + [I] * 7 + [P],
-    "allset_pma_epilogue_bwd": [P] * 17 + [I] * 10 + [P],
+    "allset_pma_epilogue_fwd": [P] * 9 + [I] * 8 + [P],
+    "allset_pma_epilogue_bwd": [P] * 17 + [I] * 11 + [P],
 }
 
 
@@ -70,16 +72,28 @@ def build(force: bool = False) -> str:
     if not force and osp.exists(_SO) and osp.getmtime(_SO) >= newest:
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *srcs,
-    ]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    objs = [osp.join(BUILD_DIR, osp.basename(s)[:-3] + f".{tag}.o") for s in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(srcs, objs)]
+    errs = [(s, p.communicate()[1]) for s, p in zip(srcs, procs)]
+    errs = [(s, e) for (s, e), p in zip(errs, procs) if p.returncode != 0]
+    tmp = f"{_SO}.{tag}"
+    if not errs:
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                           text=True)
+    for o in objs:
+        if osp.exists(o):
+            os.remove(o)
+    if errs:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{s}:\n{e}" for s, e in errs))
     build_seconds = time.perf_counter() - t0
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
     os.replace(tmp, _SO)  # atomic: a concurrent loader sees old or new
     return _SO
 

@@ -1,8 +1,9 @@
-"""Fused PMA epilogue (K2 forward, K3 backward).
+"""Fused PMA epilogue (K2 forward, K3 backward; K2R/K3R with runs).
 
 Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
-``csrc/pma_epilogue.cu`` replace its ``_fwd_kernel`` and ``_bwd_kernel``
-(the single-run, R=1 grids). Per row of the packed aggregate
+``csrc/pma_epilogue.cu`` replace its ``_fwd_kernel`` and ``_bwd_kernel``,
+both the single-run grids (K2, K3) and the runs grids R > 1 that the
+vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
 ``agg [M, WP] = [vals HC | den H | pad]``:
 
     out0 = vals / expand(max(den, 1e-16)) + seed
@@ -19,10 +20,18 @@ recomputes the forward per tile and sums the parameter gradients through
 per-block f32 partials and a second reduce kernel, so they repeat bit for
 bit (see the CUDA source).
 
+With R runs folded into the width, ``agg`` is ``[M, R*WP]`` (run r in
+columns ``[r*WP, (r+1)*WP)``), ``y`` is ``[M, R*HC]``, every parameter
+carries a leading ``[R]`` axis, and the backward returns ``dW [R, L, HC,
+HC]`` and ``dsmall [R, 8, HC]``. The runs kernels are the single-run
+kernels with a second grid axis over r: run r's outputs equal a
+single-run launch on run r's slice bit for bit.
+
 The plain versions below follow the kernel's math (``_fwd_recompute`` and
-``_ln_bwd`` of the JAX module), including its rounding points. The
-wrappers launch the kernels for CUDA tensors and take the plain versions
-for CPU tensors; any other device raises.
+``_ln_bwd`` of the JAX module), including its rounding points; the runs
+versions apply them run by run. The wrappers launch the kernels for CUDA
+tensors and take the plain versions for CPU tensors; any other device
+raises.
 """
 
 from __future__ import annotations
@@ -132,17 +141,51 @@ def epilogue_bwd_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
     return dagg, torch.stack(dW), dsmall
 
 
-def _check_cuda_args(agg, seed, Wrff, H):
+def epilogue_fwd_runs_plain(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Plain PyTorch version of K2R: K2's plain version on each run's
+    slice -> y [M, R*HC]."""
+    R, WP = seed.shape[0], agg.shape[1] // seed.shape[0]
+    return torch.cat([
+        epilogue_fwd_plain(agg[:, r * WP : (r + 1) * WP], seed[r], g0[r], b0[r],
+                           Wrff[r], brff[r], g1[r], b1[r], H, relu)
+        for r in range(R)
+    ], dim=1)
+
+
+def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Plain PyTorch version of K3R: K3's plain version on each run's
+    slice -> (dagg [M, R*WP], dW [R, L, HC, HC], dsmall [R, 8, HC])."""
+    R, HC = seed.shape
+    WP = agg.shape[1] // R
+    outs = [
+        epilogue_bwd_plain(agg[:, r * WP : (r + 1) * WP], gy[:, r * HC : (r + 1) * HC],
+                           seed[r], g0[r], b0[r], Wrff[r], brff[r], g1[r], b1[r],
+                           H, relu)
+        for r in range(R)
+    ]
+    return (torch.cat([o[0] for o in outs], dim=1), torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def _check_cuda_args(agg, seed, Wrff, H, R):
+    """Validate K2/K3 (R=None: unbatched parameters) or K2R/K3R (R runs,
+    parameters [R, ...]); returns (M, WP, HC, L) with WP per run."""
     if not agg.is_cuda:
         raise ValueError("the PMA epilogue kernels need CUDA tensors")
-    M, WP = agg.shape
-    HC = seed.shape[0]
-    L = Wrff.shape[0]
-    if not (HC % 64 == 0 and HC <= 256 and HC % H == 0 and WP >= HC + H
-            and L in (1, 2) and Wrff.shape[1:] == (HC, HC)):
+    runs = 1 if R is None else R
+    lead = () if R is None else (R,)
+    M, W = agg.shape
+    HC = seed.shape[-1]
+    L = Wrff.shape[-3]
+    WP = W // runs
+    if not (seed.shape == lead + (HC,) and Wrff.shape == lead + (L, HC, HC)
+            and W == runs * WP and HC % 64 == 0 and HC <= 256 and HC % H == 0
+            and WP >= HC + H and L in (1, 2)
+            and runs * _BWD_MAX_CHUNKS * L <= 65535):
         raise ValueError(
-            f"unsupported epilogue shape: agg {tuple(agg.shape)}, HC={HC}, "
-            f"H={H}, L={L} (need HC % 64 == 0, HC <= 256, WP >= HC + H)"
+            f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
+            f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC % 64 "
+            "== 0, HC <= 256, WP >= HC + H, L in (1, 2), runs <= 511)"
         )
     return M, WP, HC, L
 
@@ -151,57 +194,90 @@ def _f32(*ts):
     return [t.float().contiguous() for t in ts]
 
 
-def epilogue_fwd_cuda(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
-    """Launch K2 on the current stream."""
-    M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H)
+def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
+    """K2 (R=None) or K2R (R runs) on the current stream."""
+    M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
+    runs = 1 if R is None else R
     agg = agg.contiguous()
     Wc = Wrff.to(agg.dtype).contiguous()
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
-    out = torch.empty(M, HC, dtype=agg.dtype, device=agg.device)
+    out = torch.empty(M, runs * HC, dtype=agg.dtype, device=agg.device)
     rc = _kernels.lib().allset_pma_epilogue_fwd(
         agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
         Wc.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-        out.data_ptr(), M, WP, HC, H, L, int(relu), _kernels.dtype_code(agg),
-        _kernels.stream_ptr(agg),
+        out.data_ptr(), M, WP, HC, H, L, runs, int(relu),
+        _kernels.dtype_code(agg), _kernels.stream_ptr(agg),
     )
     _kernels.check(rc, "pma_epilogue_fwd")
-    _kernels.launches["pma_epilogue_fwd"] += 1
     return out
 
 
-def epilogue_bwd_cuda(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
-    """Launch K3 (its row pass, dW partials and the two final reduces) on
-    the current stream."""
-    M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H)
+def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
+    """K3 (R=None) or K3R (R runs): the row pass, dW partials and the two
+    final reduces, on the current stream."""
+    M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
+    runs = 1 if R is None else R
+    lead = () if R is None else (R,)
     dev, cdt = agg.device, agg.dtype
     agg = agg.contiguous()
     gy = gy.to(cdt).contiguous()
     Wc = Wrff.to(cdt).contiguous()
-    WT = Wrff.float().transpose(1, 2).contiguous()
+    WT = Wrff.float().transpose(-1, -2).contiguous()
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     grid_rows = max(1, min(-(-M // 16), _BWD_MAX_BLOCKS))
     chunk_rows = -(-max(M, 1) // _BWD_MAX_CHUNKS)
     chunk_rows = -(-chunk_rows // 32) * 32
     nch = max(1, -(-M // chunk_rows))
-    dagg = torch.empty(M, WP, dtype=cdt, device=dev)
-    dW = torch.empty(L, HC, HC, dtype=torch.float32, device=dev)
-    dsmall = torch.empty(8, HC, dtype=torch.float32, device=dev)
-    hin = torch.empty(L, M, HC, dtype=cdt, device=dev)
-    dpbuf = torch.empty(L, M, HC, dtype=torch.float32, device=dev)
-    part_small = torch.empty(grid_rows, 8, HC, dtype=torch.float32, device=dev)
-    part_w = torch.empty(nch, L, HC, HC, dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    dagg = torch.empty(M, runs * WP, dtype=cdt, device=dev)
+    dW = torch.empty(lead + (L, HC, HC), dtype=f32, device=dev)
+    dsmall = torch.empty(lead + (8, HC), dtype=f32, device=dev)
+    # scratch, per run: K3a's stored rFF inputs and output gradients, and
+    # the per-block (small vectors) and per-chunk (dW) f32 partials
+    hin = torch.empty(runs, L, M, HC, dtype=cdt, device=dev)
+    dpbuf = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
+    part_small = torch.empty(runs, grid_rows, 8, HC, dtype=f32, device=dev)
+    part_w = torch.empty(runs, nch, L, HC, HC, dtype=f32, device=dev)
     rc = _kernels.lib().allset_pma_epilogue_bwd(
         agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(),
         b0.data_ptr(), Wc.data_ptr(), WT.data_ptr(), brff.data_ptr(),
         g1.data_ptr(), b1.data_ptr(), dagg.data_ptr(), dW.data_ptr(),
         dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
-        part_small.data_ptr(), part_w.data_ptr(), M, WP, HC, H, L, int(relu),
-        _kernels.dtype_code(agg), grid_rows, nch, chunk_rows,
+        part_small.data_ptr(), part_w.data_ptr(), M, WP, HC, H, L, runs,
+        int(relu), _kernels.dtype_code(agg), grid_rows, nch, chunk_rows,
         _kernels.stream_ptr(agg),
     )
     _kernels.check(rc, "pma_epilogue_bwd")
-    _kernels.launches["pma_epilogue_bwd"] += 1
     return dagg, dW, dsmall
+
+
+def epilogue_fwd_cuda(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Launch K2."""
+    out = _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+    _kernels.launches["pma_epilogue_fwd"] += 1
+    return out
+
+
+def epilogue_bwd_cuda(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Launch K3."""
+    out = _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+    _kernels.launches["pma_epilogue_bwd"] += 1
+    return out
+
+
+def epilogue_fwd_runs_cuda(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Launch K2R: the runs grid over R = seed.shape[0] folded runs."""
+    out = _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=seed.shape[0])
+    _kernels.launches["pma_epilogue_fwd_runs"] += 1
+    return out
+
+
+def epilogue_bwd_runs_cuda(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Launch K3R: the runs grid over R = seed.shape[0] folded runs."""
+    out = _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu,
+                      R=seed.shape[0])
+    _kernels.launches["pma_epilogue_bwd_runs"] += 1
+    return out
 
 
 def _dispatch(cuda_fn, plain_fn, agg, *args):
@@ -222,21 +298,36 @@ def epilogue_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
                      b0, Wrff, brff, g1, b1, H, relu)
 
 
+def epilogue_fwd_runs(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    return _dispatch(epilogue_fwd_runs_cuda, epilogue_fwd_runs_plain, agg, seed,
+                     g0, b0, Wrff, brff, g1, b1, H, relu)
+
+
+def epilogue_bwd_runs(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    return _dispatch(epilogue_bwd_runs_cuda, epilogue_bwd_runs_plain, agg, gy,
+                     seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+
+
 class _Epilogue(torch.autograd.Function):
+    """K2 forward, K3 backward; with ``runs`` K2R/K3R over the leading [R]
+    axis of the parameters."""
+
     @staticmethod
-    def forward(ctx, agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    def forward(ctx, agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs):
         ctx.save_for_backward(agg, seed, g0, b0, Wrff, brff, g1, b1)
-        ctx.H, ctx.relu = H, relu
-        return epilogue_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+        ctx.H, ctx.relu, ctx.runs = H, relu, runs
+        fwd = epilogue_fwd_runs if runs else epilogue_fwd
+        return fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
 
     @staticmethod
     def backward(ctx, gy):
         agg, seed, g0, b0, Wrff, brff, g1, b1 = ctx.saved_tensors
-        dagg, dW, ds = epilogue_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1,
-                                    ctx.H, ctx.relu)
-        L = Wrff.shape[0]
-        return (dagg, ds[0], ds[1], ds[2], dW, ds[5 : 5 + L], ds[3], ds[4],
-                None, None)
+        bwd = epilogue_bwd_runs if ctx.runs else epilogue_bwd
+        dagg, dW, ds = bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, ctx.H, ctx.relu)
+        L = Wrff.shape[-3]
+        ds = ds.movedim(-2, 0)  # [8, (R,) HC]
+        return (dagg, ds[0], ds[1], ds[2], dW, ds[5 : 5 + L].movedim(0, -2), ds[3],
+                ds[4], None, None, None)
 
 
 def pma_epilogue(agg, seed, g0, b0, Wrff, brff, g1, b1, H: int, relu: bool):
@@ -245,4 +336,12 @@ def pma_epilogue(agg, seed, g0, b0, Wrff, brff, g1, b1, H: int, relu: bool):
     dir_spmm's packed [M, WP] aggregate, ``Wrff`` the stacked [L, HC, HC]
     rFF kernels (layout [in, out]) and ``brff`` the stacked [L, HC]
     biases; the other parameters are [HC] vectors."""
-    return _Epilogue.apply(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+    return _Epilogue.apply(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, False)
+
+
+def pma_epilogue_runs(agg, seed, g0, b0, Wrff, brff, g1, b1, H: int, relu: bool):
+    """``pma_epilogue`` for R runs folded into the width: ``agg`` [M, R*WP]
+    -> [M, R*HC]; the parameters carry a leading [R] axis (``Wrff`` [R, L,
+    HC, HC], ``brff`` [R, L, HC], the others [R, HC]). Forward K2R,
+    backward K3R."""
+    return _Epilogue.apply(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, True)

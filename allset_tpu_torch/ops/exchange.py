@@ -16,6 +16,10 @@ src-sorted CSR ``src_indptr``:
 
 Padding sorts to the tail of both entry orders, so only the first
 ``nnz`` entries are gathered: no out-of-range id is ever read.
+
+Every op here acts on whole rows, so a table with R runs folded into its
+width, [rows, R*W], gives each run's columns exactly what the run's own
+[rows, W] table gives (tests/test_torch_runs_epilogue.py).
 """
 
 from __future__ import annotations

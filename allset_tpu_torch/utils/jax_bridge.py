@@ -4,7 +4,9 @@ The port's modules use the flax names (``V2E_0/prop/lin_K/kernel``,
 ``att_r``, ``ln0/scale``, ``rFF/lin{i}``, ``classifier/lin0``...), so a
 ``state_dict`` key is the flax path joined by dots. Kernels keep the flax
 layout ``[in, out]``: nothing is transposed. The input is the flax
-``params`` tree with its leaves converted to numpy arrays.
+``params`` tree with its leaves converted to numpy arrays. A vmapped
+tree (a leading runs axis on every leaf, the same keys) gives the
+parameters of the port's runs model, built with a list of generators.
 """
 
 from __future__ import annotations

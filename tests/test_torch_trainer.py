@@ -1,0 +1,278 @@
+"""The runs protocol of the port against the JAX package on the CPU:
+splits, the synthetic datasets, the runs SetGNN (the vmapped JAX model
+over a stacked init), Trainer.fit, the Results text and the CLI.
+
+The JAX model runs its fused epilogue in Pallas interpret mode
+(ALLSET_PMA_EPILOGUE=interpret); vmapped, that is the R > 1 grid."""
+
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import allset_tpu.data.registry as jreg
+import allset_tpu.data.synthetic as jsyn
+import allset_tpu.graph.transforms as jtr
+import allset_tpu.train.trainer as jtrainer
+import allset_tpu_torch.data.registry as treg
+import allset_tpu_torch.data.synthetic as tsyn
+import allset_tpu_torch.graph.transforms as ttr
+import allset_tpu_torch.train.trainer as ttrainer
+from allset_tpu.graph.batch import Batch as JBatch
+from allset_tpu.graph.batch import split_masks as jsplit_masks
+from allset_tpu.models.setgnn import SetGNN as JSetGNN
+from allset_tpu.models.setgnn import SetGNNConfig as JConfig
+from allset_tpu_torch.graph.batch import Batch, split_masks
+from allset_tpu_torch.models import SetGNN, SetGNNConfig
+from allset_tpu_torch.train import TrainConfig, Trainer, masked_nll
+from allset_tpu_torch.utils import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, R = 260, 2
+CFG = dict(num_features=16, num_classes=4, all_num_layers=1, mlp_hidden=128,
+           mlp_num_layers=2, classifier_num_layers=2, classifier_hidden=32,
+           heads=4, dropout=0.0)
+MASK = np.arange(N) % 2 == 0
+
+
+def _hd(syn, tr):
+    g = syn.synthetic_hypergraph(num_nodes=N, num_hyperedges=150, feature_dim=16, seed=1)
+    return tr.norm_construction(tr.add_self_loops(g), "all_one")
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def test_splits_match_jax():
+    y = jreg.load_dataset("synthetic-att").y  # 40% unlabelled (-1)
+    jr, tr = np.random.default_rng(3), np.random.default_rng(3)
+    for _ in range(3):
+        for balance in (False, True):
+            want = jtr.rand_train_test_idx(y, 0.5, 0.25, balance=balance, rng=jr)
+            got = ttr.rand_train_test_idx(y, 0.5, 0.25, balance=balance, rng=tr)
+            jm, tm = jsplit_masks(want, len(y)), split_masks(got, len(y))
+            for k in ("train", "valid", "test"):
+                np.testing.assert_array_equal(got[k], want[k])
+                np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]))
+
+
+@pytest.mark.parametrize("name", ["synthetic", "synthetic-large", "synthetic-mid",
+                                  "synthetic-att", "synthetic-walmart"])
+def test_synthetic_datasets_match_jax(name):
+    want = jreg.load_dataset(name, feature_noise=1.0, seed=0)
+    got = treg.load_dataset(name, feature_noise=1.0, seed=0)
+    for k in ("x", "y", "node", "edge"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+    assert (got.num_nodes, got.num_hyperedges) == (want.num_nodes, want.num_hyperedges)
+    assert got.num_classes == want.num_classes
+
+
+def test_real_dataset_names_raise():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        treg.load_dataset("walmart-trips-100")
+    with pytest.raises(ValueError):
+        treg.load_dataset("no-such-dataset")
+
+
+def test_masked_nll_with_unlabelled_nodes_matches_jax():
+    """Labels of -1 (unlabelled nodes) pick nothing, as in the JAX
+    package; the index gather the port used before raised on them."""
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(30, R, 5)).astype(np.float32)
+    y = rng.integers(-1, 5, size=30)
+    mask = rng.random((30, R)) < 0.6
+    want = [float(jtrainer.masked_nll(jnp.asarray(logits[:, r]), jnp.asarray(y),
+                                      jnp.asarray(mask[:, r]))) for r in range(R)]
+    got = masked_nll(torch.from_numpy(logits), torch.from_numpy(y), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    one = masked_nll(torch.from_numpy(logits[:, 0]), torch.from_numpy(y),
+                     torch.from_numpy(mask[:, 0]))
+    np.testing.assert_allclose(one.item(), want[0], rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Per dtype: the JAX model's stacked init over R runs and the vmapped
+    logits; in f32 also the gradient of the runs' summed masked NLL."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ALLSET_PMA_EPILOGUE", "interpret")
+        jb = JBatch.from_hyperdata(_hd(jsyn, jtr), bucket=64)
+        keys = jax.random.split(jax.random.PRNGKey(0), R)
+        for dtype in ("bfloat16", "float32"):
+            jm = JSetGNN(JConfig(**CFG, dtype=dtype))
+            params = jax.jit(jax.vmap(lambda k: jm.init({"params": k}, jb, False)["params"]))(keys)
+            apply = jax.vmap(lambda p: jm.apply({"params": p}, jb, False))
+            out[dtype] = dict(params=params, logits=np.asarray(jax.jit(apply)(params)))
+        loss = lambda P: jnp.sum(jax.vmap(lambda p: jtrainer.masked_nll(
+            jm.apply({"params": p}, jb, False), jb.y, jnp.asarray(MASK)))(P))
+        out["float32"]["grads"] = jax.jit(jax.grad(loss))(out["float32"]["params"])
+    return out
+
+
+def _port_runs(ref, dtype):
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    gens = [torch.Generator().manual_seed(r) for r in range(R)]
+    tm = SetGNN(SetGNNConfig(**CFG, dtype=dtype), gens)
+    tm.load_state_dict(params_from_jax(_np(ref["params"])))  # leading [R] on every leaf
+    return tm, tb
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_runs_setgnn_logits_match_vmapped_jax(jax_runs, dtype, tol):
+    tm, tb = _port_runs(jax_runs[dtype], dtype)
+    with torch.no_grad():
+        got = tm(tb, False)
+    assert got.shape == (N, R, 4)
+    np.testing.assert_allclose(got.numpy(), jax_runs[dtype]["logits"].transpose(1, 0, 2),
+                               atol=tol, rtol=tol)
+
+
+def test_runs_setgnn_gradients_match_vmapped_jax(jax_runs):
+    ref = jax_runs["float32"]
+    tm, tb = _port_runs(ref, "float32")
+    mask = torch.from_numpy(MASK)[:, None].expand(N, R)
+    masked_nll(tm(tb, False), tb.y, mask).sum().backward()
+    want = params_from_jax(_np(ref["grads"]))
+    got = dict(tm.named_parameters())
+    assert set(got) == set(want)
+    for k, g in want.items():
+        assert got[k].shape[0] == R
+        scale = max(g.abs().max().item(), 1e-6)
+        err = (got[k].grad - g).abs().max().item() / scale
+        assert err <= 1e-3, (k, err)
+
+
+def test_runs_model_is_the_stack_of_single_run_models():
+    """Run r of a runs model is the single model built from generator r:
+    the same parameters and the same logits, bit for bit (every dense op
+    runs run by run at a single run's shapes)."""
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    cfg = SetGNNConfig(**CFG)
+    runs = SetGNN(cfg, [torch.Generator().manual_seed(s) for s in (4, 9)])
+    with torch.no_grad():
+        y = runs(tb, False)
+    for r, s in enumerate((4, 9)):
+        one = SetGNN(cfg, torch.Generator().manual_seed(s))
+        for k, p in one.state_dict().items():
+            assert torch.equal(runs.state_dict()[k][r], p), k
+        with torch.no_grad():
+            assert torch.equal(y[:, r], one(tb, False))
+
+
+def test_trainer_fit_matches_jax_trainer(monkeypatch):
+    """2 runs x 3 epochs of both trainers from the same per-run init, with
+    the dropout forward replaced by the deterministic one (train=False) in
+    both, so no dropout mask has to match."""
+    monkeypatch.setenv("ALLSET_PMA_EPILOGUE", "interpret")
+    cfg = {**CFG, "classifier_num_layers": 1}
+    tc = dict(epochs=3, runs=R, lr=1e-2, seed=0)
+    jm = JSetGNN(JConfig(**cfg))
+    jb = JBatch.from_hyperdata(_hd(jsyn, jtr), bucket=64)
+    japply = jtrainer.Trainer._apply
+    monkeypatch.setattr(jtrainer.Trainer, "_apply",
+                        lambda self, b, p, s, train, rng: japply(self, b, p, s, False, None))
+    want = jtrainer.Trainer(jm, jb, jtrainer.TrainConfig(**tc)).fit().metrics
+
+    # the JAX trainer's per-run init: split(PRNGKey(seed), runs)[r] -> split -> [0]
+    inits = [jax.random.split(k)[0] for k in jax.random.split(jax.random.PRNGKey(0), R)]
+    stacked = jax.tree_util.tree_map(
+        lambda *xs: np.stack(xs), *[_np(jm.init({"params": k}, jb, False)["params"])
+                                     for k in inits])
+    state = params_from_jax(stacked)
+
+    def init(self, runs):
+        model = SetGNN(self.model_cfg, [torch.Generator() for _ in runs])
+        model.load_state_dict({k: v[list(runs)] for k, v in state.items()})
+        return model
+
+    monkeypatch.setattr(ttrainer.Trainer, "_init", init)
+    monkeypatch.setattr(ttrainer.Trainer, "_apply",
+                        lambda self, model, train, gens: model(self.batch, False))
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    got = Trainer(SetGNNConfig(**cfg), tb, TrainConfig(**tc)).fit().metrics
+    assert got.shape == want.shape == (R, 3, 6)
+    np.testing.assert_array_equal(got[..., :3], want[..., :3])
+    np.testing.assert_allclose(got[..., 3:], want[..., 3:], rtol=1e-3)
+
+
+def test_grouped_full_and_sequential_fits_agree():
+    data = treg.load_dataset("synthetic", feature_noise=1.0)
+    tb = Batch.from_hyperdata(ttr.norm_construction(ttr.add_self_loops(data), "all_one"))
+    cfg = SetGNNConfig(num_features=data.num_features, num_classes=data.num_classes,
+                       all_num_layers=1, mlp_hidden=64, heads=2, classifier_hidden=32)
+    kw = dict(epochs=4, runs=3, seed=7)
+    full = Trainer(cfg, tb, TrainConfig(**kw)).fit()
+    grouped = Trainer(cfg, tb, TrainConfig(vmap_chunk=2, **kw)).fit()
+    seq = Trainer(cfg, tb, TrainConfig(vmap_runs=False, **kw)).fit()
+    assert (full.groups, grouped.groups, seq.groups) == ([3], [2, 1], [1, 1, 1])
+    for res in (grouped, seq):
+        np.testing.assert_array_equal(res.metrics[..., :3], full.metrics[..., :3])
+        np.testing.assert_allclose(res.metrics[..., 3:], full.metrics[..., 3:], rtol=2e-3)
+    assert full.num_params == seq.num_params > 0
+
+
+def test_results_summary_text_matches_jax():
+    m = np.random.default_rng(0).random((4, 7, 6)).astype(np.float32)
+    want = jtrainer.Results(metrics=m, wall_time=12.345, num_params=451851)
+    got = ttrainer.Results(metrics=m, wall_time=12.345, num_params=451851)
+    assert got.summary() == want.summary()
+    for k in ("highest_train", "highest_valid", "final_train", "final_test"):
+        assert got.best_by_valid()[k] == want.best_by_valid()[k]
+
+
+def test_cli_writes_the_reference_csv_line(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "allset_tpu_torch.cli", "--device", "cpu", "--dname",
+         "synthetic", "--epochs", "2", "--runs", "2", "--res_root", str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "All runs:" in out.stdout and "   Final Test: " in out.stdout
+    lines = (tmp_path / "synthetic_noise_1.csv").read_text().splitlines()
+    assert len(lines) == 1
+    assert re.fullmatch(r"AllSetTransformer_0\.001_0\.0_1,\d\.\d{3} ± \d\.\d{3},"
+                        r"\d\.\d{3} ± \d\.\d{3},\d+, \d+\.\d{2}s, 0\.00s,"
+                        r"\d+\.0min\d+\.\d{2}s", lines[0]), lines[0]
+    assert (tmp_path / "all_args_synthetic_noise_1.csv").exists()
+
+
+def test_cli_never_falls_back_to_the_cpu_and_loads_no_jax(tmp_path):
+    code = (
+        "import sys, torch\n"
+        "from allset_tpu_torch import cli\n"
+        "assert not torch.cuda.is_available()\n"
+        "try:\n"
+        "    cli.main(['--dname', 'synthetic', '--epochs', '1', '--runs', '1'])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e)\n"
+        "else:\n"
+        "    raise SystemExit('the default device ran without a card')\n"
+        f"cli.main(['--device', 'cpu', '--dname', 'synthetic', '--epochs', '1', "
+        f"'--runs', '1', '--preset', '--res_root', {str(tmp_path)!r}])\n"
+        "assert 'jax' not in sys.modules\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    # the preset's depths apply (1 layer, 1-layer classifier: 26,500
+    # parameters, against 64,708 at the CLI defaults); --epochs and --runs
+    # given on the command line override its 500 and 20
+    assert "params: 26500," in out.stdout
+
+
+@pytest.mark.parametrize("flags", [["--method", "AllDeepSets"], ["--add_self_loop", "false"],
+                                   ["--remat"], ["--plot", "x.png"]])
+def test_cli_unported_parts_raise(flags, tmp_path):
+    from allset_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError):
+        cli.main(["--device", "cpu", "--dname", "synthetic", "--epochs", "1", "--runs", "1",
+                  "--res_root", str(tmp_path), *flags])
