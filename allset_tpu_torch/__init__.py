@@ -7,16 +7,19 @@ under ``csrc/`` (built with nvcc for sm_90a at first use, see
 ``ops/_kernels.py``) beside a plain PyTorch version of the same function:
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 
-Ported so far: AllSetTransformer (SetGNN, pma=True, self-loop split,
-masked NLL, torch Adam) and the statistical runs protocol with its CLI
-(``python -m allset_tpu_torch.cli``), through the sorted segment-sum (K1)
-and the fused PMA epilogue forward and backward, for one run (K2, K3)
-and for R runs folded into the width (K2R, K3R).
+Ported so far: AllSetTransformer in every mode of the JAX CLI (SetGNN,
+pma=True, on the self-loop split or the unsplit exchange; GPR, LearnMask,
+All_num_layers=0; masked NLL, torch Adam) and the statistical runs
+protocol with its CLI (``python -m allset_tpu_torch.cli``), through the
+sorted segment-sum (K1), PMA's score+pack (K4 global max, K5 packed
+table) and the fused PMA epilogue forward and backward, for one run (K2,
+K3) and for R runs folded into the width (K2R, K3R).
 
 Layout:
   graph/     Incidence (host build + sorted orders), Batch, transforms, splits
   data/      synthetic hypergraph generators and their registry
-  ops/       segment-sum, exchange (dir_spmm), PMA epilogue, kernel build
+  ops/       segment-sum, exchange (dir_spmm), PMA score+pack and epilogue,
+             kernel build
   nn/        TorchDense, NormLayer, MLP, PMA, HalfNLHconv
   models/    SetGNN
   train/     Trainer (runs protocol), presets, experiment factory

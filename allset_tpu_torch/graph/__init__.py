@@ -4,6 +4,7 @@ from allset_tpu_torch.graph.transforms import (  # noqa: F401
     HyperData,
     add_self_loops,
     coalesce,
+    expand_edge_index,
     norm_construction,
     rand_train_test_idx,
 )

@@ -2,7 +2,8 @@
 
 Counterpart of ``allset_tpu/graph/transforms.py``, limited to what the
 AllSetTransformer runs protocol needs: ``HyperData``, ``coalesce``,
-``add_self_loops``, ``norm_construction`` and ``rand_train_test_idx``.
+``add_self_loops``, ``expand_edge_index``, ``norm_construction`` and
+``rand_train_test_idx``.
 The port keeps its own copy because importing the JAX package's module
 loads jax. Given the same inputs (and the same numpy generator state),
 every function returns the same arrays as the JAX package's.
@@ -126,6 +127,56 @@ def norm_construction(data: HyperData, option: str = "all_one") -> HyperData:
         out.norm = (vn[data.node] * en[data.edge]).astype(np.float32)
     else:
         raise ValueError(f"unknown norm option {option!r}")
+    return out
+
+
+def expand_edge_index(data: HyperData, edge_th: int = 0) -> HyperData:
+    """The 'exclude_self' expansion: each hyperedge of size k is split into
+    k sub-edges, each excluding one member (so a node never aggregates its
+    own feature). Reference ``src/preprocessing.py:22-144``; off by default
+    (``src/train.py:281``). Singleton hyperedges become fresh singletons,
+    in order, so self-loops appended by :func:`add_self_loops` stay the
+    last ``num_sl_edges`` edges (``data.copy()`` keeps that count).
+    """
+    order = np.argsort(data.edge, kind="stable")
+    nodes = data.node[order]
+    edges = data.edge[order]
+    boundaries = np.searchsorted(edges, np.arange(data.num_hyperedges + 1))
+
+    new_node_parts = []
+    new_edge_parts = []
+    cur = 0
+    for e in range(data.num_hyperedges):
+        lo, hi = boundaries[e], boundaries[e + 1]
+        k = hi - lo
+        if k == 0:
+            continue
+        if edge_th > 0 and k > edge_th:
+            continue
+        members = nodes[lo:hi]
+        if k == 1:
+            new_node_parts.append(members)
+            new_edge_parts.append(np.array([cur], dtype=np.int64))
+            cur += 1
+            continue
+        # member i belongs to every sub-edge except its own: the (k, k)
+        # grid minus the diagonal.
+        rep_nodes = np.repeat(members, k)
+        sub_ids = np.tile(np.arange(k, dtype=np.int64), k) + cur
+        grid_i = np.repeat(np.arange(k), k)  # which member
+        grid_j = np.tile(np.arange(k), k)  # which sub-edge
+        keep = grid_i != grid_j
+        new_node_parts.append(rep_nodes[keep])
+        new_edge_parts.append(sub_ids[keep])
+        cur += k
+
+    out = data.copy()
+    out.node = np.concatenate(new_node_parts)
+    out.edge = np.concatenate(new_edge_parts)
+    out.num_hyperedges = cur
+    order = np.argsort(out.node, kind="stable")
+    out.node, out.edge = out.node[order], out.edge[order]
+    out.norm = None
     return out
 
 

@@ -1,12 +1,26 @@
 """SetGNN: the AllSet model, AllSetTransformer mode.
 
-Counterpart of ``allset_tpu/models/setgnn.py`` for ``pma=True`` on the
-self-loop split path. ``All_num_layers`` rounds of V->E then E->V
-attention pooling (HalfNLHconv), then the classifier MLP. The inter-stage
-relu folds into each half-layer's fused epilogue. The fixed input dropout
-0.2 of the reference is kept; it is the identity when ``train=False``.
-Whether a kernel or its plain version runs is decided by the device of
-the batch alone.
+Counterpart of ``allset_tpu/models/setgnn.py`` for ``pma=True``.
+``All_num_layers`` rounds of V->E then E->V attention pooling
+(HalfNLHconv), then the classifier MLP; ``All_num_layers=0`` is the
+classifier alone. The inter-stage relu folds into each half-layer's fused
+epilogue. Whether a kernel or its plain version runs is decided by the
+device of the batch alone.
+
+  * The exchange takes the self-loop split (N-slot layout) when the
+    incidence has one, and the unsplit Directions when it has none
+    (``add_self_loop=False``) or under ``learn_mask``.
+  * Without GPR the fixed input dropout 0.2 of the reference is kept; it
+    is the identity when ``train=False``.
+  * ``gpr`` (reference ``src/models.py:389-397,457-471``): the relu'd
+    output of ``gpr_mlp`` on the features (f32, whatever ``dtype``) and
+    every E->V output are stacked [N, hid, L+1] in f32 and mixed by the
+    learned ``GPRweights`` [L+1, 1] before the classifier.
+  * ``learn_mask``: a per-entry ``importance`` [nnz_padded] of ones. The
+    JAX model multiplies it into the entry norm, which PMA never reads, so
+    it changes no logit and its gradient is zero. The port does not form
+    the product; it gives importance an explicit zero gradient, so Adam's
+    weight decay still moves it as the JAX package's torch_adam does.
 
 Statistical runs: built with a list of R generators, one per run, every
 parameter carries a leading [R] axis (the JAX package's vmapped tree) and
@@ -23,16 +37,19 @@ from torch import nn
 
 from allset_tpu_torch.graph.batch import Batch
 from allset_tpu_torch.nn.init import Generators
-from allset_tpu_torch.nn.modules import MLP, HalfNLHconv, dropout, runs_of
+from allset_tpu_torch.nn.modules import MLP, HalfNLHconv, TorchDense, dropout, runs_of
 
-_LATER = "comes with the AllDeepSets/GPR/LearnMask port (ROADMAP Queue 1 item 6)"
+_LATER = "comes with the AllDeepSets port (ROADMAP Queue 1 item 6)"
 
 
 @dataclasses.dataclass(frozen=True)
 class SetGNNConfig:
     """Hyperparameters of SetGNN: the JAX package's field names, limited
     to what the AllSetTransformer path reads or rejects. ``aggregate`` is
-    the Deep Sets reduce; the attention path does not read it."""
+    the Deep Sets reduce; the attention path does not read it.
+    ``nnz_padded`` is the incidence's padded entry count, which sizes
+    LearnMask's importance (the JAX model reads it from the batch at
+    init)."""
 
     num_features: int
     num_classes: int
@@ -49,6 +66,21 @@ class SetGNNConfig:
     gpr: bool = False
     learn_mask: bool = False
     dtype: str = "float32"  # or 'bfloat16': bf16 activations, f32 params
+    nnz_padded: int = 0
+
+
+class _ZeroGrad(torch.autograd.Function):
+    """The identity on ``out`` that gives ``param`` a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, out, param):
+        ctx.save_for_backward(param)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        (param,) = ctx.saved_tensors
+        return g, torch.zeros_like(param)
 
 
 class SetGNN(nn.Module):
@@ -56,23 +88,32 @@ class SetGNN(nn.Module):
         super().__init__()
         if not cfg.pma:
             raise NotImplementedError(f"AllDeepSets {_LATER}")
-        if cfg.gpr or cfg.learn_mask:
-            raise NotImplementedError(f"gpr / learn_mask {_LATER}")
-        if cfg.all_num_layers < 1:
-            raise NotImplementedError(f"all_num_layers=0 {_LATER}")
         if cfg.normalization == "bn":
             raise NotImplementedError(f"normalization='bn' {_LATER}")
         self.cfg = cfg
         self.runs = runs_of(generator)
+        lead = () if self.runs is None else (self.runs,)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
-        for i in range(cfg.all_num_layers):
+        L = cfg.all_num_layers
+        if cfg.learn_mask:
+            if cfg.nnz_padded <= 0:
+                raise ValueError("learn_mask needs nnz_padded (the incidence's nnz_padded)")
+            self.importance = nn.Parameter(torch.ones(lead + (cfg.nnz_padded,)))
+        if cfg.gpr and L > 0:
+            self.gpr_mlp = MLP(cfg.num_features, cfg.mlp_hidden, cfg.mlp_hidden,
+                               cfg.mlp_num_layers, generator,
+                               normalization=cfg.normalization, dropout=cfg.dropout)
+        for i in range(L):
             for name, in_dim in ((f"V2E_{i}", cfg.num_features if i == 0 else cfg.mlp_hidden),
                                  (f"E2V_{i}", cfg.mlp_hidden)):
                 self.add_module(name, HalfNLHconv(
                     in_dim, cfg.mlp_hidden, cfg.mlp_hidden, cfg.mlp_num_layers,
                     cfg.heads, generator, dtype=dtype, fold_relu=True,
                 ))
-        self.classifier = MLP(cfg.mlp_hidden, cfg.classifier_hidden, cfg.num_classes,
+        if cfg.gpr and L > 0:
+            self.GPRweights = TorchDense(L + 1, 1, generator, use_bias=False)
+        self.classifier = MLP(cfg.mlp_hidden if L > 0 else cfg.num_features,
+                              cfg.classifier_hidden, cfg.num_classes,
                               cfg.classifier_num_layers, generator, dtype=dtype,
                               normalization=cfg.normalization, dropout=cfg.dropout)
 
@@ -81,20 +122,37 @@ class SetGNN(nn.Module):
         """Logits [N, num_classes] ([N, R, num_classes] with runs) in
         float32. ``generator`` drives the dropout masks when ``train``:
         one generator, or with runs a list of R."""
-        inc = batch.inc
-        if inc.real is None:
-            raise NotImplementedError(
-                "SetGNN needs the self-loop split (add_self_loops); the "
-                f"unsplit exchange {_LATER}"
-            )
+        cfg, inc = self.cfg, batch.inc
         if train and self.runs is not None and runs_of(generator) != self.runs:
             raise ValueError(f"train=True with {self.runs} runs needs {self.runs} generators")
-        d_v2e, d_e2v = inc.v2e_split(), inc.e2v_split()
-        p = self.cfg.dropout
-        h = dropout(batch.x, 0.2, train, generator)  # fixed input dropout
-        for i in range(self.cfg.all_num_layers):
+        if cfg.learn_mask and self.importance.shape[-1] != inc.nnz_padded:
+            raise ValueError(f"importance has {self.importance.shape[-1]} entries, the "
+                             f"incidence {inc.nnz_padded}")
+        logits = self._logits(batch, train, generator)
+        return _ZeroGrad.apply(logits, self.importance) if cfg.learn_mask else logits
+
+    def _logits(self, batch: Batch, train: bool, generator) -> torch.Tensor:
+        cfg, inc = self.cfg, batch.inc
+        p = cfg.dropout
+        if cfg.all_num_layers == 0:
+            return self.classifier(batch.x, train, generator).float()
+        if cfg.learn_mask or inc.real is None:
+            d_v2e, d_e2v = inc.v2e(), inc.e2v()
+        else:
+            d_v2e, d_e2v = inc.v2e_split(), inc.e2v_split()
+        if cfg.gpr:
+            xs = [torch.relu(self.gpr_mlp(batch.x, train, generator))]
+            h = batch.x
+        else:
+            h = dropout(batch.x, 0.2, train, generator)  # fixed input dropout
+        for i in range(cfg.all_num_layers):
             h = getattr(self, f"V2E_{i}")(h, d_v2e)  # relu folded in
             h = dropout(h, p, train, generator)
             h = getattr(self, f"E2V_{i}")(h, d_e2v)
+            if cfg.gpr:
+                xs.append(h)
             h = dropout(h, p, train, generator)
+        if cfg.gpr:
+            stacked = torch.stack([t.float() for t in xs], dim=-1)  # [N, (R,) hid, L+1]
+            h = self.GPRweights(stacked).squeeze(-1)
         return self.classifier(h, train, generator).float()

@@ -11,13 +11,14 @@ Statistical runs: built with a list of R generators (one per run), every
 parameter carries a leading [R] axis, the counterpart of the JAX
 package's vmapped parameter tree. Activations are then [rows, R, F]; a
 shared input [rows, F] (the features, before any dropout) is accepted
-too. The sparse exchange and the fused epilogue see the runs folded into
-the width, [rows, R * F]: one launch serves all runs, and each run's
-columns come out as a single run's would. Every dense op (GEMMs,
-LayerNorm, the score and pack math) runs run by run on contiguous [rows,
-F] tensors, so its shapes, and with them the library's choice of kernel
-and summation order, do not depend on R: a run gives the same bits
-whether it is trained alone or folded with others.
+too. The score+pack kernels, the sparse exchange and the fused epilogue
+see the runs folded into the width, [rows, R * F]: one launch serves all
+runs, and each run's columns come out as a single run's would. Every
+dense op (GEMMs, LayerNorm, the plain versions' score and pack math) runs
+run by run on contiguous [rows, F] tensors, so its shapes, and with them
+the library's choice of kernel and summation order, do not depend on R:
+a run gives the same bits whether it is trained alone or folded with
+others.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from allset_tpu_torch.graph.incidence import Direction
@@ -36,10 +36,10 @@ from allset_tpu_torch.nn.init import (
     torch_linear_kernel,
     xavier_uniform_torch_fans,
 )
+from allset_tpu_torch.ops.cuda_pack import pma_pack
 from allset_tpu_torch.ops.cuda_pma import pma_epilogue, pma_epilogue_runs
 from allset_tpu_torch.ops.exchange import dir_spmm
 
-NEGATIVE_SLOPE = 0.2  # PMA's leaky_relu on the seed scores
 LN_EPS = 1e-5  # torch/flax LayerNorm default
 
 
@@ -93,29 +93,32 @@ def packed_width(HC: int, H: int) -> int:
 
 
 class TorchDense(nn.Module):
-    """Dense layer with torch ``nn.Linear`` default init; kernel [in, out].
+    """Dense layer with torch ``nn.Linear`` default init; kernel [in, out],
+    and a bias unless ``use_bias=False``.
 
     bf16 rounding points of the JAX layer: the product is rounded to the
     activation dtype, then the bias is added in that dtype."""
 
     def __init__(self, fan_in: int, features: int, generator: Generators,
                  kernel_init=torch_linear_kernel,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(kernel_init((fan_in, features), generator))
-        self.bias = nn.Parameter(torch_linear_bias(fan_in, (features,), generator))
-        self.dtype = dtype
+        if use_bias:
+            self.bias = nn.Parameter(torch_linear_bias(fan_in, (features,), generator))
+        self.use_bias, self.dtype = use_bias, dtype
 
-    def _dense(self, x, k, b):
+    def _dense(self, x, k, b=None):
         if self.dtype is not None:
             x, k = x.to(self.dtype), k.to(self.dtype)
         y = x @ k
-        return y + b.to(y.dtype)
+        return y if b is None else y + b.to(y.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = (self.kernel, self.bias) if self.use_bias else (self.kernel,)
         if self.kernel.dim() == 2:
-            return self._dense(x, self.kernel, self.bias)
-        return runs_apply(self._dense, x, self.kernel, self.bias)
+            return self._dense(x, *params)
+        return runs_apply(self._dense, x, *params)
 
 
 class LNParams(nn.Module):
@@ -220,11 +223,14 @@ class PMA(nn.Module):
     A global shift per head is exactly the softmax in real arithmetic; it
     makes e a per-source quantity, so the weighting happens on the source
     table before the gather. lin_K enters only through alpha, so it is
-    folded into one [in, H] kernel: Wa = W_K @ proj, ba = b_K @ proj.
+    folded into one [in, H] kernel: Wa = W_K @ proj, ba = b_K @ proj. One
+    GEMM gives yf = [x_V | alpha | 0], padded with zero kernel columns to
+    the packed width; the score+pack kernels (K4, K5) turn it into the
+    packed table [x_V * e | e | 0].
 
-    With R runs the packed tables are built run by run and folded to
-    [rows, R*WP] for the exchange and the fused epilogue (K2R/K3R); the
-    output is [M, R, out].
+    With R runs the GEMMs run run by run and their outputs are stacked
+    [rows, R, WP]; K4/K5 fold them to [rows, R*WP] for the exchange and the
+    fused epilogue (K2R/K3R); the output is [M, R, out].
     """
 
     def __init__(self, in_dim: int, hid_dim: int, out_dim: int, num_layers: int,
@@ -247,8 +253,9 @@ class PMA(nn.Module):
         self.ln1 = LNParams(out_dim, _lead(generator))
         self.runs = runs_of(generator)
 
-    def _pack(self, x, WK, bK, WV, bV, att_flat):
-        """One run's packed exchange table [N, WP] = [x_V * e | e | 0]."""
+    def _scores(self, x, WK, bK, WV, att_flat):
+        """One run's [lin_V | Wa] GEMM, padded with zero kernel columns to
+        the packed width -> (yf [N, WP] without biases, ba [H])."""
         H = self.heads
         HC = att_flat.shape[0]
         C = HC // H
@@ -258,36 +265,28 @@ class PMA(nn.Module):
         Wa = WK @ proj  # [in_dim, H], f32 parameter math
         ba = bK @ proj  # [H]
         xc = x.to(self.dtype) if self.dtype is not None else x
-        # one GEMM for [values | seed scores]
-        Wf = torch.cat([WV, Wa], dim=1)
-        yf = xc @ Wf.to(xc.dtype)
-        x_V = yf[:, :HC] + bV.to(yf.dtype)
-        alpha = F.leaky_relu(yf[:, HC:].float() + ba, NEGATIVE_SLOPE)
-        # shift over ALL source rows (N-slot hole rows included on E->V)
-        gmax = alpha.detach().amax(dim=0).clamp_min(0.0)
-        e = torch.exp(alpha - gmax).to(x_V.dtype)  # <= 1
-        # per-head column expansion as a broadcast: its backward is a plain
-        # sum over C (repeat_interleave's may scatter with atomics)
-        e_cols = e[:, :, None].expand(-1, H, C).reshape(-1, HC)
-        parts = [x_V * e_cols, e]
-        pad = packed_width(HC, H) - HC - H
-        if pad:
-            parts.append(x_V.new_zeros(x_V.shape[0], pad))
-        return torch.cat(parts, dim=1)
+        Wf = torch.cat([WV, Wa, WV.new_zeros(WV.shape[0], packed_width(HC, H) - HC - H)],
+                       dim=1)
+        return xc @ Wf.to(xc.dtype), ba
 
     def forward(self, x: torch.Tensor, d: Direction) -> torch.Tensor:
         R = self.runs
         HC = self.lin_V.kernel.shape[-1]
         att_flat = self.att_r.reshape(self.att_r.shape[:-3] + (HC,))  # [(R,) HC]
-        params = (self.lin_K.kernel, self.lin_K.bias, self.lin_V.kernel,
-                  self.lin_V.bias, att_flat)
+        params = (self.lin_K.kernel, self.lin_K.bias, self.lin_V.kernel, att_flat)
         Wrff, brff = self.rFF.stacked()
         epi = (att_flat, self.ln0.scale, self.ln0.bias, Wrff, brff, self.ln1.scale,
                self.ln1.bias, self.heads, self.fold_relu)
         if R is None:
-            return pma_epilogue(dir_spmm(self._pack(x, *params), d), *epi)
-        w = runs_apply(self._pack, x, *params)  # [N, R, WP]
-        agg = dir_spmm(w.reshape(w.shape[0], -1), d)  # runs folded: [M, R*WP]
+            yf, ba = self._scores(x, *params)
+            return pma_epilogue(dir_spmm(pma_pack(yf, self.lin_V.bias, ba, self.heads), d),
+                                *epi)
+        outs = [self._scores(x_r, *p) for x_r, *p in
+                zip(per_run(x, R), *(t.unbind(0) for t in params))]
+        yf = torch.stack([o[0] for o in outs], dim=1)  # [N, R, WP]
+        ba = torch.stack([o[1] for o in outs])  # [R, H]
+        w = pma_pack(yf, self.lin_V.bias, ba, self.heads)  # runs folded: [N, R*WP]
+        agg = dir_spmm(w, d)
         return pma_epilogue_runs(agg, *epi).view(agg.shape[0], R, -1)
 
 

@@ -33,7 +33,7 @@ BUILD_DIR = osp.join(_PKG, "_build")
 _SO = osp.join(BUILD_DIR, "libkernels.so")
 
 KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
-           "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs")
+           "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "allset_segment_sum": [P, P, P, I, I, I, P],
     "allset_pma_epilogue_fwd": [P] * 9 + [I] * 8 + [P],
     "allset_pma_epilogue_bwd": [P] * 17 + [I] * 11 + [P],
+    "allset_pma_gmax": [P] * 3 + [I] * 6 + [P],
+    "allset_pma_pack": [P] * 5 + [I] * 6 + [P],
 }
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``allset_tpu/train/factory.py`` for AllSetTransformer:
 the typed flag surface of the reference (``src/train.py:221-287``) and
-the host preprocessing the method needs (self-loops, entry norms), then
-the device Batch and the model configuration. The other methods raise,
+the host preprocessing the method needs (self-loops, the exclude_self
+expansion, entry norms), then the device Batch and the model
+configuration. The other methods raise,
 naming the ROADMAP item that ports them.
 """
 
@@ -15,7 +16,12 @@ from typing import Tuple
 import torch
 
 from allset_tpu_torch.graph.batch import Batch
-from allset_tpu_torch.graph.transforms import HyperData, add_self_loops, norm_construction
+from allset_tpu_torch.graph.transforms import (
+    HyperData,
+    add_self_loops,
+    expand_edge_index,
+    norm_construction,
+)
 from allset_tpu_torch.models.setgnn import SetGNNConfig
 
 METHODS = (
@@ -83,15 +89,12 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
         raise NotImplementedError(
             f"--method {cfg.method} is not ported yet "
             f"({_QUEUE.get(cfg.method, 'ROADMAP Queue 1 item 9')})")
-    if not cfg.add_self_loop:
-        raise NotImplementedError(
-            "AllSetTransformer without self-loops needs the unsplit exchange "
-            "(ROADMAP Queue 1 item 6)")
+    d = data
+    if cfg.add_self_loop:
+        d = add_self_loops(d)
     if cfg.exclude_self:
-        raise NotImplementedError(
-            "exclude_self (the expanded edge index) is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
-    d = norm_construction(add_self_loops(data), option=cfg.normtype)
+        d = expand_edge_index(d)
+    d = norm_construction(d, option=cfg.normtype)
     batch = Batch.from_hyperdata(d, device=device, bucket=cfg.bucket)
     mcfg = SetGNNConfig(
         num_features=data.num_features,
@@ -108,5 +111,6 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
         gpr=cfg.gpr,
         learn_mask=cfg.learn_mask,
         dtype=cfg.dtype,
+        nnz_padded=batch.inc.nnz_padded,
     )
     return mcfg, batch

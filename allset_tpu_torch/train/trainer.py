@@ -170,23 +170,38 @@ class Trainer:
     # --- group sizing ---
 
     def _bytes_per_run(self) -> int:
-        """Device bytes one folded run adds at its peak: one gathered
-        [nnz, WP] message table, about four [rows, WP]-wide tables per
-        half-layer kept for the backward (packed input, aggregate, output,
-        values), and K3R's per-run scratch (the rFF inputs and output
-        gradients). On an H100 at the walmart preset in f32 this gives
-        1.98 GiB against a measured peak of 1.94-1.98 GiB per run
-        (PERF.md)."""
+        """Device bytes one folded run adds at its peak: the classifier's
+        hidden and output tables; one gathered [nnz, WP] message table,
+        about three [rows, WP]-wide tables per half-layer kept for the
+        backward (the pack's GEMM output, the aggregate, the output) and
+        K3R's per-run scratch (the rFF inputs and output gradients); under
+        GPR the f32 [N, hid, L+1] stack and about four [N, hid] f32 tables
+        of gpr_mlp; LearnMask's importance and its two Adam moments. The
+        exchange is unsplit under LearnMask or without the self-loop split:
+        then the V->E output has one row per hyperedge instead of the
+        N-slot layout's real edges + N. On an H100 at the walmart preset in
+        f32 this gives 1.78, 2.29, 1.88 and 1.18 GiB (the preset, GPR,
+        LearnMask, no self-loops) against measured peaks of 1.69, 2.18,
+        1.78 and 1.09 GiB per run (PERF.md)."""
         mc, inc = self.model_cfg, self.batch.inc
         item = 2 if mc.dtype == "bfloat16" else 4
-        HC = mc.mlp_hidden
+        HC, L = mc.mlp_hidden, mc.all_num_layers
         WP = packed_width(HC, mc.heads)
-        real = inc.real if inc.real is not None else inc
-        rows_v2e = real.num_edges + inc.num_nodes
-        rows = rows_v2e + inc.num_nodes
-        tables = item * WP * (real.nnz + 4 * rows * mc.all_num_layers)
-        k3 = mc.mlp_num_layers * rows_v2e * HC * (item + 4)
-        return tables + k3
+        N = inc.num_nodes
+        if inc.real is None or mc.learn_mask:
+            nnz, rows_v2e = inc.nnz, inc.num_edges
+        else:
+            nnz, rows_v2e = inc.real.nnz, inc.real.num_edges + N
+        rows = rows_v2e + N
+        total = 4 * N * (mc.classifier_hidden + mc.num_classes)
+        if L > 0:
+            total += item * WP * (nnz + 3 * rows * L)  # tables
+            total += mc.mlp_num_layers * rows_v2e * HC * (item + 4)  # K3R scratch
+        if mc.gpr and L > 0:
+            total += 4 * N * HC * (L + 5)
+        if mc.learn_mask:
+            total += 3 * 4 * inc.nnz_padded
+        return total
 
     def _group_size(self) -> int:
         cfg = self.cfg

@@ -10,27 +10,37 @@ Phases (any failure raises and exits non-zero):
      unread padded tail rows; widths up to 20 runs x 264), K2/K3 the PMA
      epilogue and K2R/K3R its runs grids (R in {2, 5}; L in {1, 2}, relu
      on/off, rows not a multiple of the tile; each run of K2R/K3R also
-     bit for bit against a K2/K3 launch on its slice), and at the main
-     paths' shapes, with the kernel and plain times;
+     bit for bit against a K2/K3 launch on its slice), K4/K5 the PMA
+     score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4)}, rows not a
+     multiple of the tile; gmax bit-equal, w within 2 f32 / 1 bf16 ulps,
+     a NaN score reaching gmax, R in {2, 5} bit for bit against single
+     launches), and at the main paths' shapes, with the kernel and
+     plain times;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
-     nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps:
-     the loss is finite and falls, each step launches K1 4 times and
-     K2, K3 twice, and two runs from one state give identical losses;
-  5. a small f32 graph: one step through the kernels against one step
-     of the plain versions (on the CPU) from the same parameters;
+     nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
+     the bench step, with GPR and with LearnMask (the unsplit exchange
+     over all 582,248 entries): the loss is finite and falls, each step
+     launches K1 4 times and K2, K3, K4, K5 twice, and two runs from one
+     state give identical losses;
+  5. a small f32 graph, as the bench step, with GPR and with LearnMask:
+     one step through the kernels against one step of the plain
+     versions (on the CPU) from the same parameters, on a loss without
+     the nodes a relu argument within rounding of 0 reaches;
   6. the runs protocol through the CLI (allset_tpu_torch.cli) on
      synthetic-walmart with the tuned preset (hidden 256, 8 heads, f32):
      20 runs folded into each launch for a few epochs; per group and
-     epoch 6 K1, 4 K2R and 2 K3R launches whatever the number of runs;
-     finite metrics, a falling training loss; 2 runs folded against 2
-     runs one by one: equal accuracies, losses within rtol 2e-3;
+     epoch 6 K1, 4 K2R, 2 K3R, 4 K4 and 4 K5 launches whatever the
+     number of runs; finite metrics, a falling training loss; 2 runs
+     folded against 2 runs one by one: equal accuracies, losses within
+     rtol 2e-3; 20 runs x 2 epochs with --GPR, --LearnMask and
+     --add_self_loop false, and one run of --exclude_self on synthetic;
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
 The line before the last is a JSON object of per-kernel results (K1,
-K2R, K3R from phase 6's run, K2, K3 from phase 4's); the last line is
-{"ok": true, "device": {...}}.
+K2R, K3R from phase 6's run, K2, K3, K4, K5 from phase 4's bench step);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -246,6 +256,122 @@ def check_runs_epilogue(dev, gen):
     _kernels.reset_launches()
 
 
+def ulps(got, want) -> float:
+    """Max |got - want| in units in the last place of want (in want's
+    dtype); an exact 0 must come out 0."""
+    bits = {torch.float32: 23, torch.bfloat16: 7}[want.dtype]
+    g, w = got.float(), want.float()
+    exp = torch.frexp(w).exponent
+    ulp = torch.ldexp(torch.ones_like(w), exp - 1 - bits)
+    ulp = torch.where(w == 0, torch.full_like(w, torch.finfo(want.dtype).tiny), ulp)
+    return ((g - w).abs() / ulp).max().item() if w.numel() else 0.0
+
+
+PACK_ULPS = {torch.float32: 2, torch.bfloat16: 1}
+
+
+def pack_inputs(M, HC, H, dtype, dev, gen, R=None):
+    """yf as the padded GEMM emits it, [M, WP] ([M, R, WP] with runs):
+    values, scores and zero pad; bV, ba with a leading [R] with runs."""
+    from allset_tpu_torch.nn.modules import packed_width
+
+    lead = () if R is None else (R,)
+    WP = packed_width(HC, H)
+    yf = torch.zeros((M,) + lead + (WP,))
+    yf[..., :HC] = torch.randn((M,) + lead + (HC,), generator=gen)
+    yf[..., HC:HC + H] = 2.0 * torch.randn((M,) + lead + (H,), generator=gen)
+    bV = 0.1 * torch.randn(lead + (HC,), generator=gen)
+    ba = 0.1 * torch.randn(lead + (H,), generator=gen)
+    return yf.to(dtype).to(dev), bV.to(dev), ba.to(dev)
+
+
+def check_pack(dev, gen):
+    """K4/K5 against their plain versions: gmax bit-equal, w within
+    PACK_ULPS, a NaN score propagated to gmax; the runs grid (R in {2, 5})
+    bit for bit against single-run launches on each slice."""
+    from allset_tpu_torch.ops import _kernels, cuda_pack as ck
+
+    M = 1000  # not a multiple of K5's 32-row tile
+    for dtype in (torch.float32, torch.bfloat16):
+        for HC, H in ((256, 8), (64, 1), (128, 4)):
+            yf, bV, ba = pack_inputs(M, HC, H, dtype, dev, gen)
+            g = ck.gmax_cuda(yf, ba, H, HC)
+            w = ck.pack_cuda(yf, bV, ba, g, H)
+            g_ref = ck.gmax_plain(yf, ba, H, HC)
+            w_ref = ck.pack_plain(yf, bV, ba, H)
+            torch.cuda.synchronize()
+            require(torch.equal(g, g_ref), f"K4 gmax differs ({dtype}, HC={HC}, H={H})")
+            u = ulps(w, w_ref)
+            err, _ = scaled_err(w, w_ref)
+            require(u <= PACK_ULPS[dtype], f"K5 off by {u} ulps ({dtype}, HC={HC}, H={H})")
+            require(not w[:, HC + H:].any(), "K5 pad columns not zero")
+            yf[123, HC + H - 1] = float("nan")
+            g_nan, g_nan_ref = ck.gmax_cuda(yf, ba, H, HC), ck.gmax_plain(yf, ba, H, HC)
+            require(bool(torch.isnan(g_nan[H - 1])) and bool(torch.isnan(g_nan_ref[H - 1]))
+                    and torch.equal(g_nan[:H - 1], g_nan_ref[:H - 1]),
+                    f"K4 does not propagate NaN ({dtype}, HC={HC}, H={H})")
+            msg = []
+            for R in (2, 5):
+                yr, bVr, bar = pack_inputs(M, HC, H, dtype, dev, gen, R=R)
+                gr = ck.gmax_cuda(yr, bar, H, HC)
+                wr = ck.pack_cuda(yr, bVr, bar, gr, H)
+                WP = yr.shape[-1]
+                ur = ulps(wr, ck.pack_runs_plain(yr, bVr, bar, H))
+                require(ur <= PACK_ULPS[dtype], f"K5 runs off by {ur} ulps (R={R})")
+                for r in range(R):
+                    y1 = yr[:, r].contiguous()
+                    g1 = ck.gmax_cuda(y1, bar[r], H, HC)
+                    require(torch.equal(gr[r], g1) and torch.equal(
+                        wr[:, r * WP:(r + 1) * WP], ck.pack_cuda(y1, bVr[r], bar[r], g1, H)),
+                        f"K4/K5 run {r} of {R} differs from a single launch ({dtype}, HC={HC})")
+                msg.append(f"R={R} {ur:g} ulps")
+            log(f"  K4/K5 {str(dtype)[6:]:8s} HC={HC:3d} H={H}: gmax bit-equal, NaN "
+                f"propagated; w max_abs_err={err:.3e}, {u:g} ulps (tol {PACK_ULPS[dtype]}); "
+                f"runs {', '.join(msg)}, every run bit-identical to a single launch")
+    _kernels.reset_launches()
+
+
+def time_pack(rows_list, R, dtype, dev, gen, per_launch):
+    """K4 and K5 against their plain versions at the given row counts (one
+    pack per half-layer), HC 256, 8 heads; times summed over a step's or
+    an epoch's launches (per_launch of each half-layer). K4's plain
+    version is the column max, K5's the whole plain chain (which takes
+    its own column max). Returns {name: (ms, plain_ms, max_abs_err)}."""
+    from allset_tpu_torch.ops import _kernels, cuda_pack as ck
+
+    HC, H = 256, 8
+    tot = {"pma_gmax": [0.0, 0.0, 0.0], "pma_pack": [0.0, 0.0, 0.0]}
+    for rows in rows_list:
+        yf, bV, ba = pack_inputs(rows, HC, H, dtype, dev, gen, R=R)
+        plain = ck.pack_plain if R is None else ck.pack_runs_plain
+        gplain = (ck.gmax_plain if R is None else
+                  lambda y, a, h, c: torch.stack([ck.gmax_plain(y[:, r], a[r], h, c)
+                                                  for r in range(R)]))
+        g = ck.gmax_cuda(yf, ba, H, HC)
+        k4 = cuda_ms(lambda: ck.gmax_cuda(yf, ba, H, HC))
+        p4 = cuda_ms(lambda: gplain(yf, ba, H, HC), iters=3)
+        k5 = cuda_ms(lambda: ck.pack_cuda(yf, bV, ba, g, H))
+        p5 = cuda_ms(lambda: plain(yf, bV, ba, H), iters=3)
+        w, w_ref = ck.pack_cuda(yf, bV, ba, g, H), plain(yf, bV, ba, H)
+        g_ref = gplain(yf, ba, H, HC)
+        require(torch.equal(g, g_ref), f"K4 differs at rows={rows}")
+        err4 = (g - g_ref).abs().max().item()
+        u = ulps(w, w_ref)
+        require(u <= PACK_ULPS[dtype], f"K5 off by {u} ulps at rows={rows}")
+        err, _ = scaled_err(w, w_ref)
+        del w, w_ref
+        for name, k, p, e in (("pma_gmax", k4, p4, err4), ("pma_pack", k5, p5, err)):
+            t = tot[name]
+            t[0], t[1], t[2] = t[0] + per_launch * k, t[1] + per_launch * p, max(t[2], e)
+        runs = "" if R is None else f", R={R}"
+        log(f"  K4 at [{rows}, {'' if R is None else f'{R}x'}{yf.shape[-1]}]{runs}: kernel "
+            f"{k4:.3f} ms, plain {p4:.3f} ms; K5: kernel {k5:.3f} ms, plain chain {p5:.3f} ms, "
+            f"max_abs_err {err:.3e} ({u:g} ulps)")
+        del yf
+    _kernels.reset_launches()
+    return {k: tuple(v) for k, v in tot.items()}
+
+
 def time_main_shapes(batch, dev, gen):
     """Kernel and plain times at the main path's shapes (bf16): K1 on the
     two reduce orders of the real incidence at the packed width, K2/K3 at
@@ -298,6 +424,9 @@ def time_main_shapes(batch, dev, gen):
             f"max_abs_err {eb:.3e}; scaled max {bmsg}")
     out["pma_epilogue_fwd"] = (tf, pf, errf)
     out["pma_epilogue_bwd"] = (tb, pb, errb)
+    # K4/K5: V->E packs the N node rows, E->V the real edges + N-slot rows
+    out.update(time_pack((batch.inc.num_nodes, inc.num_edges + batch.inc.num_nodes), None,
+                         torch.bfloat16, dev, gen, per_launch=1))
     _kernels.reset_launches()
     return out
 
@@ -315,13 +444,14 @@ def bench_batch(dev):
     return Batch.from_hyperdata(hd, device=dev, bucket=1024)
 
 
-def bench_model(seed: int):
+def bench_model(seed: int, nnz_padded: int, **mode):
+    """The bench configuration; ``mode`` adds gpr=True or learn_mask=True."""
     from allset_tpu_torch.models import SetGNN, SetGNNConfig
 
     cfg = SetGNNConfig(
         num_features=256, num_classes=8, all_num_layers=1, mlp_hidden=256,
         classifier_num_layers=1, heads=8, dropout=0.0,
-        dtype="bfloat16",
+        dtype="bfloat16", nnz_padded=nnz_padded, **mode,
     )
     return SetGNN(cfg, torch.Generator().manual_seed(seed))
 
@@ -340,37 +470,44 @@ def run_steps(model, batch, mask, steps):
     return torch.cat(losses), times
 
 
-def main_path(batch, dev, card):
+PER_STEP = {"segment_sum": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2,
+            "pma_gmax": 2, "pma_pack": 2}
+
+
+def main_path(batch, dev, card, **mode):
+    """8 bench steps (``mode``: the bench step, gpr=True or learn_mask=True)
+    with every launch count set to 0 just before; returns the counts and
+    the median step time."""
     from allset_tpu_torch.ops import _kernels
 
     steps = 8
+    label = ", ".join(mode) or "bench step"
     mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
-    model = bench_model(0).to(dev)
+    model = bench_model(0, batch.inc.nnz_padded, **mode).to(dev)
     state = {k: v.clone() for k, v in model.state_dict().items()}
     # warm-up on a throwaway copy: first-call allocations, cuBLAS handles
-    warm = bench_model(0).to(dev)
+    warm = bench_model(0, batch.inc.nnz_padded, **mode).to(dev)
     run_steps(warm, batch, mask, 1)
     del warm
     _kernels.reset_launches()
     losses, times = run_steps(model, batch, mask, steps)
     counts = dict(_kernels.launches)
-    log(f"  launches over {steps} steps: {counts}")
-    per_step = {"segment_sum": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2}
-    for k, n in per_step.items():
-        require(counts[k] == n * steps, f"{k}: {counts[k]} launches, expected {n * steps}")
+    log(f"  [{label}] launches over {steps} steps: {counts}")
+    for k in _kernels.KERNELS:
+        n = PER_STEP.get(k, 0) * steps
+        require(counts[k] == n, f"{label}: {k} launched {counts[k]} times, expected {n}")
     lo = losses.cpu()
-    log(f"  losses: {[round(v, 6) for v in lo.tolist()]}")
-    require(bool(torch.isfinite(lo).all()), "non-finite loss")
-    require(lo[-1] < lo[0], "loss did not fall")
-    model2 = bench_model(1).to(dev)
+    log(f"  [{label}] losses: {[round(v, 6) for v in lo.tolist()]}")
+    require(bool(torch.isfinite(lo).all()), f"{label}: non-finite loss")
+    require(lo[-1] < lo[0], f"{label}: loss did not fall")
+    model2 = bench_model(1, batch.inc.nnz_padded, **mode).to(dev)
     model2.load_state_dict(state)
     losses2, _ = run_steps(model2, batch, mask, steps)
-    require(torch.equal(losses, losses2), "two runs from one state differ")
-    log("  two runs from one state: bit-identical losses")
+    require(torch.equal(losses, losses2), f"{label}: two runs from one state differ")
     ms = statistics.median(times) * 1e3
     nnz = batch.inc.nnz
-    log(f"  nnz {nnz}; median step {ms:.3f} ms; {nnz / (ms / 1e3):,.0f} edges/s "
-        f"[{card}] (smoke, not a benchmark)")
+    log(f"  [{label}] two runs from one state: bit-identical losses; nnz {nnz}; median step "
+        f"{ms:.3f} ms; {nnz / (ms / 1e3):,.0f} edges/s [{card}] (smoke, not a benchmark)")
     return counts, ms
 
 
@@ -433,17 +570,24 @@ def time_runs_shapes(batch, dev, gen, R=20):
             f"max_abs_err {eb:.3e}; scaled max {bmsg}")
     out["pma_epilogue_fwd_runs"] = (tf, pf, errf)
     out["pma_epilogue_bwd_runs"] = (tb, pb, errb)
+    pack = time_pack((batch.num_nodes, inc.num_edges + batch.num_nodes), R, dt, dev, gen,
+                     per_launch=2)  # train and eval forward
+    log(f"  K4+K5 per {R}-run epoch: kernels "
+        f"{pack['pma_gmax'][0] + pack['pma_pack'][0]:.3f} ms, plain chain "
+        f"{pack['pma_pack'][1]:.3f} ms")
+    out.update({f"{k}_runs": v for k, v in pack.items()})
     _kernels.reset_launches()
     return out
 
 
 PER_GROUP_EPOCH = {"segment_sum": 6, "pma_epilogue_fwd_runs": 4, "pma_epilogue_bwd_runs": 2,
-                   "pma_epilogue_fwd": 0, "pma_epilogue_bwd": 0}
+                   "pma_epilogue_fwd": 0, "pma_epilogue_bwd": 0, "pma_gmax": 4, "pma_pack": 4}
 
 
-def cli_run(argv, epochs):
+def cli_run(argv, epochs, layers=1):
     """One CLI run with every launch count set to 0 just before; returns
-    the Results and the counts of that run, checked per group and epoch."""
+    the Results and the counts of that run, checked per group and epoch
+    (PER_GROUP_EPOCH for each of ``layers`` V->E, E->V rounds)."""
     from allset_tpu_torch import cli
     from allset_tpu_torch.ops import _kernels
 
@@ -452,8 +596,8 @@ def cli_run(argv, epochs):
     torch.cuda.synchronize()
     counts = dict(_kernels.launches)
     n = len(res.groups) * epochs
-    per = {k: counts[k] / n for k in PER_GROUP_EPOCH}
-    require(per == PER_GROUP_EPOCH, f"launches per group and epoch {per}, expected "
+    per = {k: counts[k] / n / layers for k in PER_GROUP_EPOCH}
+    require(per == PER_GROUP_EPOCH, f"launches per group, epoch and layer {per}, expected "
             f"{PER_GROUP_EPOCH} (groups {res.groups})")
     require(bool(math.isfinite(res.metrics.sum())), "non-finite metrics")
     return res, counts
@@ -486,6 +630,18 @@ def runs_protocol(card, tmp):
     require(rel.max() <= 2e-3, f"folded and sequential losses differ: {rel.max()}")
     log(f"  2 runs x 3 epochs folded vs one by one: equal accuracies, losses within "
         f"{rel.max():.2e} (rtol 2e-3)")
+    for flags in (["--GPR"], ["--LearnMask"], ["--add_self_loop", "false"]):
+        res_m, counts_m = cli_run(base + ["--epochs", "2", *flags], 2)
+        log(f"  {' '.join(flags)}: {res_m.metrics.shape[0]} runs in groups {res_m.groups}, "
+            f"launches {counts_m}; params {res_m.num_params}; "
+            f"{res_m.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included) "
+            f"[{card}]")
+    # the CLI's defaults: 2 layers, hidden 64, 1 head (HC + H = 65, WP = 72)
+    res_x, counts_x = cli_run(["--dname", "synthetic", "--exclude_self", "--runs", "1",
+                               "--epochs", "2", "--device", "cuda", "--res_root", tmp], 2,
+                              layers=2)
+    log(f"  --exclude_self on synthetic: 1 run x 2 epochs, launches {counts_x}, final test "
+        f"{res_x.best_by_valid()['final_test'][0]:.2f}")
     return counts, per_epoch
 
 
@@ -509,9 +665,80 @@ def band_replay(card, tmp, runs=5):
     require(abs(mean - band["final_test_mean"]) <= tol, "outside the accuracy band")
 
 
-def small_parity(dev):
+TIE_MARGIN = 1e-5  # a relu or leaky_relu argument closer to 0 is a tie
+
+
+def tied_nodes(model, batch, margin=TIE_MARGIN):
+    """Nodes whose loss reaches a relu or leaky_relu argument within
+    ``margin`` of 0 in a forward of ``model`` (one run) on ``batch``.
+
+    At such an argument the derivative jumps, and two correct
+    implementations that round in another order may take opposite sides
+    (PERF.md, Findings): one element moves the gradient of every
+    parameter its row reaches. A loss without these nodes gives the tied
+    rows a zero cotangent on both sides, as relu_safe does for K3. The
+    arguments: each PMA's seed scores (by source row), its epilogue's rFF
+    and folded-relu arguments (by destination row), and the relus of the
+    MLPs and of GPR (by node). A destination row is tainted when it holds
+    a tie or gathers a tainted source row."""
+    from allset_tpu_torch.nn import modules
+    from allset_tpu_torch.ops import cuda_pma as cp
+    from allset_tpu_torch.ops.exchange import dir_spmm
+
+    def near(t):
+        return (t.detach().float().abs() < margin).reshape(t.shape[0], -1).any(dim=1)
+
+    pmas, node_ties = [], []  # per PMA: [score ties, Direction, epilogue ties]
+    orig = modules.pma_pack, modules.dir_spmm, modules.pma_epilogue
+
+    def pack(yf, bV, ba, H):
+        HC = bV.shape[0]
+        pmas.append([near(yf[:, HC:HC + H].float() + ba)])
+        return orig[0](yf, bV, ba, H)
+
+    def spmm(w, d):
+        pmas[-1].append(d)
+        return orig[1](w, d)
+
+    def epilogue(agg, seed, g0, b0, W, b, g1, b1, H, relu):
+        rec = cp._fwd_recompute(agg, seed, g0, b0, W, b, g1, b1, H)
+        tie = near(rec["y"]) if relu else torch.zeros_like(rec["y"][:, 0], dtype=torch.bool)
+        for p in rec["pres"]:
+            tie |= near(p)
+        pmas[-1].append(tie)
+        return orig[2](agg, seed, g0, b0, W, b, g1, b1, H, relu)
+
+    relu_args = [getattr(m, f"lin{i}") for m in model.modules()
+                 if isinstance(m, modules.MLP) for i in range(m.num_layers - 1)]
+    if hasattr(model, "gpr_mlp"):
+        relu_args.append(model.gpr_mlp)
+    hooks = [m.register_forward_hook(lambda m, i, o: node_ties.append(near(o)))
+             for m in relu_args]
+    modules.pma_pack, modules.dir_spmm, modules.pma_epilogue = pack, spmm, epilogue
+    try:
+        with torch.no_grad():
+            model(batch, False)
+    finally:
+        modules.pma_pack, modules.dir_spmm, modules.pma_epilogue = orig
+        for h in hooks:
+            h.remove()
+    hit = None  # tainted rows of the current activation; the features have none
+    for score_tie, d, epi_tie in pmas:
+        src = score_tie if hit is None else score_tie | hit
+        hit = (dir_spmm(src.float()[:, None].expand(-1, 8).contiguous(), d)[:, 0] > 0) | epi_tie
+    if hit is None:
+        hit = torch.zeros(batch.num_nodes, dtype=torch.bool, device=batch.x.device)
+    for t in node_ties:
+        hit |= t
+    return hit
+
+
+def small_parity(dev, **mode):
     """One f32 step through the kernels (card) against one through the
-    plain versions (CPU), from the same parameters."""
+    plain versions (CPU), from the same parameters; ``mode`` as in
+    main_path. The loss is taken on the even nodes less tied_nodes. The
+    losses agree to 1e-5, and every gradient, scaled by its tensor's max
+    |.|, to 1e-3."""
     from allset_tpu_torch.data import synthetic_hypergraph
     from allset_tpu_torch.graph import Batch, add_self_loops, norm_construction
     from allset_tpu_torch.models import SetGNN, SetGNNConfig
@@ -520,29 +747,39 @@ def small_parity(dev):
     hd = synthetic_hypergraph(num_nodes=3000, num_hyperedges=1500,
                               feature_dim=64, seed=3)
     hd = norm_construction(add_self_loops(hd), "all_one")
-    cfg = SetGNNConfig(num_features=64, num_classes=4, all_num_layers=1,
-                       mlp_hidden=128, classifier_num_layers=1, heads=4,
-                       dropout=0.0)
-    out = {}
+    label = ", ".join(mode) or "bench step"
+    built = {}
     for device in ("cpu", dev):
-        model = SetGNN(cfg, torch.Generator().manual_seed(5)).to(device)
         batch = Batch.from_hyperdata(hd, device=device)
-        mask = torch.arange(batch.num_nodes, device=device) % 2 == 0
-        loss = masked_nll(model(batch, False), batch.y, mask)
+        cfg = SetGNNConfig(num_features=64, num_classes=4, all_num_layers=1,
+                           mlp_hidden=128, classifier_num_layers=1, heads=4,
+                           dropout=0.0, nnz_padded=batch.inc.nnz_padded, **mode)
+        built[device] = SetGNN(cfg, torch.Generator().manual_seed(5)).to(device), batch
+    # a tie on either device: each rounds its arguments its own way
+    tied = torch.stack([tied_nodes(*built[d]).cpu() for d in built]).any(dim=0)
+    even = torch.arange(hd.num_nodes) % 2 == 0
+    mask = even & ~tied
+    log(f"  [{label}] {int((even & tied).sum())} of {int(even.sum())} loss nodes left out: "
+        f"a relu argument within {TIE_MARGIN:g} of 0 upstream")
+    out = {}
+    for device, (model, batch) in built.items():
+        loss = masked_nll(model(batch, False), batch.y, mask.to(device))
         loss.backward()
         out[str(device)] = (loss.item(),
                             {k: p.grad.cpu() for k, p in model.named_parameters()})
     (l_ref, g_ref), (l_k, g_k) = out["cpu"], out[str(dev)]
     rel = abs(l_k - l_ref) / abs(l_ref)
-    log(f"  small f32 step: loss kernel {l_k:.7f} plain {l_ref:.7f} rel {rel:.2e} (tol 1e-5)")
-    require(rel <= 1e-5, "small-graph loss disagrees")
-    worst = 0.0
+    log(f"  [{label}] small f32 step: loss kernel {l_k:.7f} plain {l_ref:.7f} rel {rel:.2e} "
+        f"(tol 1e-5)")
+    require(rel <= 1e-5, f"{label}: small-graph loss disagrees")
+    worst = (0.0, "")
     for k in g_ref:
         scale = max(g_ref[k].abs().max().item(), 1e-6)
         e = (g_k[k] - g_ref[k]).abs().max().item() / scale
-        worst = max(worst, e)
-        require(e <= 1e-3, f"gradient {k} disagrees: {e}")
-    log(f"  small f32 step: worst scaled gradient error {worst:.2e} (tol 1e-3)")
+        require(e <= 1e-3, f"{label}: gradient {k} disagrees: {e}")
+        worst = max(worst, (e, k))
+    log(f"  [{label}] small f32 step: worst scaled gradient error {worst[0]:.2e} ({worst[1]}; "
+        f"tol 1e-3 for each tensor)")
 
 
 def main() -> int:
@@ -567,6 +804,7 @@ def main() -> int:
     check_segment_sum(dev, gen)
     check_epilogue(dev, gen)
     check_runs_epilogue(dev, gen)
+    check_pack(dev, gen)
 
     log("phase 4: main path at bench size (bf16)")
     t0 = time.perf_counter()
@@ -575,10 +813,13 @@ def main() -> int:
         f"nnz {batch.inc.nnz}, real edges {batch.inc.real.num_edges}")
     timings = time_main_shapes(batch, dev, gen)
     counts, _ = main_path(batch, dev, card)
+    for mode in ("gpr", "learn_mask"):
+        main_path(batch, dev, card, **{mode: True})
     require("jax" not in sys.modules, "the port loaded jax")
 
     log("phase 5: small f32 graph, kernels against plain")
-    small_parity(dev)
+    for mode in ((), ("gpr",), ("learn_mask",)):
+        small_parity(dev, **{m: True for m in mode})
 
     del batch
     torch.cuda.empty_cache()
@@ -607,6 +848,10 @@ def main() -> int:
                                   "allset_tpu/ops/pallas_pma.py:365", runs_counts),
         "pma_epilogue_bwd_runs": ("allset_tpu_torch/csrc/pma_epilogue.cu",
                                   "allset_tpu/ops/pallas_pma.py:424", runs_counts),
+        "pma_gmax": ("allset_tpu_torch/csrc/pma_pack.cu",
+                     "allset_tpu/ops/pallas_pack.py:94", counts),
+        "pma_pack": ("allset_tpu_torch/csrc/pma_pack.cu",
+                     "allset_tpu/ops/pallas_pack.py:109", counts),
     }
     kernels = []
     for name, (src, rep, cnt) in sources.items():

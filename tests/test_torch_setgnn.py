@@ -133,10 +133,164 @@ def test_train_mode_dropout_follows_its_generator(jax_ref):
     np.testing.assert_allclose(d.numpy(), jax_ref["float32"]["logits"], atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.parametrize("override", [
-    dict(pma=False), dict(gpr=True), dict(learn_mask=True),
-    dict(all_num_layers=0), dict(normalization="bn"),
-])
+@pytest.mark.parametrize("override", [dict(pma=False), dict(normalization="bn")])
 def test_other_modes_raise(override):
     with pytest.raises(NotImplementedError):
         SetGNN(SetGNNConfig(**{**CFG, **override}), torch.Generator().manual_seed(0))
+
+
+# --- the other AllSetTransformer modes ------------------------------------
+#
+# Each mode: (model overrides, host preprocessing). The JAX model takes the
+# unsplit Direction.plain exchange here (8-device CPU mesh); the port takes
+# the unsplit Directions under learn_mask and without self-loops, and the
+# split ones otherwise (gpr, exclude_self: the expansion keeps the
+# self-loops as the last edges).
+MODE_CFG = {**CFG, "classifier_num_layers": 2, "classifier_hidden": 32}
+MODES = {
+    "gpr": (dict(gpr=True), ("self_loops",)),
+    "learn_mask": (dict(learn_mask=True), ("self_loops",)),
+    "no_self_loop": ({}, ()),
+    "all_num_layers_0": (dict(all_num_layers=0), ("self_loops",)),
+    "exclude_self": ({}, ("self_loops", "exclude_self")),
+}
+WD = {"learn_mask": 5e-4}  # Adam's weight decay moves importance, whose gradient is 0
+
+
+def _mode_hd(syn, tr, steps):
+    g = syn.synthetic_hypergraph(num_nodes=N, num_hyperedges=150, feature_dim=16, seed=1)
+    if "self_loops" in steps:
+        g = tr.add_self_loops(g)
+    if "exclude_self" in steps:
+        g = tr.expand_edge_index(g)
+    return tr.norm_construction(g, "all_one")
+
+
+@pytest.fixture(scope="module", params=list(MODES))
+def jax_mode(request):
+    """Per mode, as jax_ref: parameters and logits per dtype; in f32 the
+    step-0 loss and gradients, and three torch_adam steps (the losses and
+    the final parameters)."""
+    mode = request.param
+    over, steps = MODES[mode]
+    out = dict(mode=mode)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ALLSET_PMA_EPILOGUE", "interpret")
+        jb = JBatch.from_hyperdata(_mode_hd(jsyn, jtr, steps), bucket=64)
+        for dtype in ("bfloat16", "float32"):
+            jm = JSetGNN(JConfig(**{**MODE_CFG, **over}, dtype=dtype))
+            params = jax.jit(lambda k: jm.init({"params": k}, jb, False))(
+                jax.random.PRNGKey(0))["params"]
+            apply = jax.jit(lambda p: jm.apply({"params": p}, jb, False))
+            out[dtype] = dict(params=params, logits=np.asarray(apply(params)))
+        vg = jax.jit(jax.value_and_grad(
+            lambda p: jax_nll(jm.apply({"params": p}, jb, False), jb.y, jnp.asarray(MASK))))
+        p = out["float32"]["params"]
+        l0, g0 = vg(p)
+        tx = torch_adam(1e-3, WD.get(mode, 0.0))
+        state, losses = tx.init(p), []
+        for _ in range(3):
+            loss, g = vg(p)
+            u, state = tx.update(g, state, p)
+            p = optax.apply_updates(p, u)
+            losses.append(float(loss))
+        out["float32"].update(loss0=float(l0), grads0=g0, adam_losses=losses, adam_params=p)
+        if mode == "learn_mask":
+            imp = 1 + 0.5 * np.random.default_rng(7).normal(size=jb.inc.nnz_padded)
+            pert = dict(out["float32"]["params"], importance=jnp.asarray(imp, jnp.float32))
+            out["perturbed"] = dict(params=pert, logits=np.asarray(apply(pert)))
+    return out
+
+
+def _port_mode(ref, mode, dtype, params=None):
+    over, steps = MODES[mode]
+    tb = Batch.from_hyperdata(_mode_hd(tsyn, ttr, steps), bucket=64)
+    cfg = SetGNNConfig(**{**MODE_CFG, **over}, dtype=dtype, nnz_padded=tb.inc.nnz_padded)
+    tm = SetGNN(cfg, torch.Generator().manual_seed(0))
+    tm.load_state_dict(params_from_jax(jax.tree_util.tree_map(
+        np.asarray, ref["params"] if params is None else params)))
+    return tm, tb
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_mode_logits_match_jax(jax_mode, dtype, tol):
+    mode = jax_mode["mode"]
+    tm, tb = _port_mode(jax_mode[dtype], mode, dtype)
+    unsplit = mode in ("learn_mask", "no_self_loop")
+    assert (tb.inc.real is None) == (mode == "no_self_loop")
+    assert not unsplit or tm.cfg.learn_mask or tb.inc.real is None
+    with torch.no_grad():
+        got = tm(tb, False)
+    assert got.dtype == torch.float32 and got.shape == (N, 4)
+    np.testing.assert_allclose(got.numpy(), jax_mode[dtype]["logits"], atol=tol, rtol=tol)
+
+
+def test_mode_step0_gradients_match_jax(jax_mode):
+    ref = jax_mode["float32"]
+    tm, tb = _port_mode(ref, jax_mode["mode"], "float32")
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, ref["grads0"]))
+    tl = masked_nll(tm(tb, False), tb.y, torch.from_numpy(MASK))
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), ref["loss0"], rtol=1e-5)
+    got = dict(tm.named_parameters())
+    assert set(got) == set(want)
+    for k, g in want.items():
+        scale = max(g.abs().max().item(), 1e-6)
+        err = (got[k].grad - g).abs().max().item() / scale
+        assert err <= 1e-3, (k, err)
+
+
+def test_mode_three_adam_steps_match_jax_torch_adam(jax_mode):
+    """The losses; under learn_mask (wd 5e-4) every parameter too,
+    importance included: its zero gradient plus weight decay."""
+    mode, ref = jax_mode["mode"], jax_mode["float32"]
+    tm, tb = _port_mode(ref, mode, "float32")
+    opt = torch.optim.Adam(tm.parameters(), lr=1e-3, weight_decay=WD.get(mode, 0.0))
+    got = train_steps(tm, tb, torch.from_numpy(MASK), 3, optimizer=opt)
+    np.testing.assert_allclose(got.numpy(), ref["adam_losses"], rtol=1e-4, atol=1e-4)
+    assert got[-1] < got[0]
+    if mode == "learn_mask":
+        want = params_from_jax(jax.tree_util.tree_map(np.asarray, ref["adam_params"]))
+        for k, p in tm.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), want[k].numpy(), atol=1e-4,
+                                       rtol=1e-4, err_msg=k)
+        assert not torch.equal(tm.importance.detach(), torch.ones_like(tm.importance))
+
+
+@pytest.mark.parametrize("jax_mode", ["learn_mask"], indirect=True)
+def test_learn_mask_importance_changes_no_logit(jax_mode):
+    """PMA never reads the entry norm: an importance of 1 + 0.5 N(0, 1)
+    leaves the logits as they were, in both packages."""
+    pert = jax_mode["perturbed"]
+    np.testing.assert_array_equal(pert["logits"], jax_mode["float32"]["logits"])
+    tm, tb = _port_mode(jax_mode["float32"], "learn_mask", "float32")
+    tp, _ = _port_mode(jax_mode["float32"], "learn_mask", "float32", params=pert["params"])
+    assert not torch.equal(tp.importance, tm.importance)
+    with torch.no_grad():
+        assert torch.equal(tp(tb, False), tm(tb, False))
+        np.testing.assert_allclose(tp(tb, False).numpy(), pert["logits"], atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("seed,sizes", [(1, None), (4, (1, 1, 3, 5, 2))])
+def test_expand_edge_index_matches_jax(seed, sizes):
+    """On a synthetic graph with self-loops, and on a hand-made one with
+    singleton and empty hyperedges."""
+    if sizes is None:
+        jg = jtr.add_self_loops(jsyn.synthetic_hypergraph(
+            num_nodes=N, num_hyperedges=150, feature_dim=16, seed=seed))
+        tg = ttr.add_self_loops(tsyn.synthetic_hypergraph(
+            num_nodes=N, num_hyperedges=150, feature_dim=16, seed=seed))
+    else:
+        rng = np.random.default_rng(seed)
+        edge = np.repeat(np.arange(len(sizes) + 1), list(sizes) + [0])
+        node = np.concatenate([rng.choice(9, k, replace=False) for k in sizes])
+        x, y = np.zeros((9, 2), np.float32), np.zeros(9, np.int64)
+        jg = jtr.HyperData(x=x, y=y, node=node, edge=edge, num_nodes=9,
+                           num_hyperedges=len(sizes) + 1)
+        tg = ttr.HyperData(x=x, y=y, node=node, edge=edge, num_nodes=9,
+                           num_hyperedges=len(sizes) + 1)
+    want, got = jtr.expand_edge_index(jg), ttr.expand_edge_index(tg)
+    np.testing.assert_array_equal(got.node, want.node)
+    np.testing.assert_array_equal(got.edge, want.edge)
+    assert (got.num_hyperedges, got.num_sl_edges, got.norm) == (
+        want.num_hyperedges, want.num_sl_edges, None)

@@ -150,12 +150,14 @@ def test_runs_setgnn_gradients_match_vmapped_jax(jax_runs):
         assert err <= 1e-3, (k, err)
 
 
-def test_runs_model_is_the_stack_of_single_run_models():
+@pytest.mark.parametrize("mode", [{}, dict(gpr=True, learn_mask=True, dtype="bfloat16"),
+                                  dict(all_num_layers=0, learn_mask=True)])
+def test_runs_model_is_the_stack_of_single_run_models(mode):
     """Run r of a runs model is the single model built from generator r:
     the same parameters and the same logits, bit for bit (every dense op
-    runs run by run at a single run's shapes)."""
+    runs run by run at a single run's shapes), in every mode."""
     tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
-    cfg = SetGNNConfig(**CFG)
+    cfg = SetGNNConfig(**{**CFG, **mode}, nnz_padded=tb.inc.nnz_padded)
     runs = SetGNN(cfg, [torch.Generator().manual_seed(s) for s in (4, 9)])
     with torch.no_grad():
         y = runs(tb, False)
@@ -268,11 +270,55 @@ def test_cli_never_falls_back_to_the_cpu_and_loads_no_jax(tmp_path):
     assert "params: 26500," in out.stdout
 
 
-@pytest.mark.parametrize("flags", [["--method", "AllDeepSets"], ["--add_self_loop", "false"],
-                                   ["--remat"], ["--plot", "x.png"]])
+@pytest.mark.parametrize("flags", [["--method", "AllDeepSets"], ["--remat"], ["--plot", "x.png"]])
 def test_cli_unported_parts_raise(flags, tmp_path):
     from allset_tpu_torch import cli
 
     with pytest.raises(NotImplementedError):
         cli.main(["--device", "cpu", "--dname", "synthetic", "--epochs", "1", "--runs", "1",
                   "--res_root", str(tmp_path), *flags])
+
+
+class _Prepared(Exception):
+    pass
+
+
+def _jax_cli_params(argv, monkeypatch):
+    """The parameter count the JAX CLI reports for argv: its own flag
+    parsing and model preparation, stopped before training; the count of
+    the initialised parameter tree (count_params)."""
+    import allset_tpu.cli as jcli
+    import allset_tpu.train.factory as jfactory
+
+    prepare, seen = jfactory.prepare, {}
+
+    def stop(cfg, data):
+        seen["model"], seen["batch"], _ = prepare(cfg, data)
+        raise _Prepared
+
+    monkeypatch.setattr(jfactory, "prepare", stop)
+    with pytest.raises(_Prepared):
+        jcli.main(argv)
+    shapes = jax.eval_shape(lambda k: seen["model"].init({"params": k}, seen["batch"], False),
+                            jax.random.PRNGKey(0))["params"]
+    return jtrainer.count_params(shapes, False)
+
+
+@pytest.mark.parametrize("flags,jax_flags", [
+    (["--GPR"], ["--GPR"]),
+    (["--LearnMask"], ["--LearnMask"]),
+    (["--add_self_loop", "false"], ["--add_self_loop"]),  # the JAX flag is store_false
+    (["--exclude_self"], ["--exclude_self"]),
+])
+def test_cli_modes_run_and_count_the_jax_parameters(flags, jax_flags, tmp_path, monkeypatch,
+                                                    capsys):
+    from allset_tpu_torch import cli
+
+    base = ["--dname", "synthetic", "--epochs", "1", "--runs", "2",
+            "--res_root", str(tmp_path)]
+    res = cli.run(["--device", "cpu", *base, *flags])
+    out = capsys.readouterr().out
+    assert res.metrics.shape == (2, 1, 6) and np.isfinite(res.metrics).all()
+    want = _jax_cli_params(base + jax_flags, monkeypatch)
+    assert f"params: {want}," in out
+    assert res.num_params == want
