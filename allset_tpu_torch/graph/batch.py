@@ -1,7 +1,9 @@
 """Batch: the bundle every model consumes, on an explicit device.
 
 Counterpart of ``allset_tpu/graph/batch.py``: features, labels and the
-incidence, all tensors on one device; and ``split_masks``.
+incidence, all tensors on one device; and ``split_masks``. The device is
+the card unless the caller names another; without a card that default
+raises, it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ class Batch:
 
     @classmethod
     def from_hyperdata(
-        cls, data: HyperData, device="cpu", bucket: int = 256
+        cls, data: HyperData, device="cuda", bucket: int = 256
     ) -> "Batch":
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Batch.from_hyperdata: no CUDA device is available "
+                               "(pass device='cpu' for the plain versions)")
         return cls(
             x=torch.as_tensor(data.x, dtype=torch.float32).to(device),
             y=torch.as_tensor(data.y, dtype=torch.int64).to(device),

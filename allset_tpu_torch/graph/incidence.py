@@ -14,9 +14,10 @@ torch tensors and moved to a device with :meth:`Incidence.to`.
     backward of every gather.
 
 What the port adds: a per-segment CSR ``indptr`` (length ``num_dst + 1``)
-over the VALID entries only, for the CUDA segment-sum. Because padding
-sorts to the tail of both orders, the exchange gathers and reduces only
-the first ``nnz`` entries and never reads an out-of-range id.
+over the VALID entries only, for the CUDA segment-sum, and that kernel's
+chunk plan over it (:func:`chunk_plan`). Because padding sorts to the
+tail of both orders, the exchange gathers and reduces only the first
+``nnz`` entries and never reads an out-of-range id.
 """
 
 from __future__ import annotations
@@ -58,6 +59,91 @@ def _indptr(sorted_ids: np.ndarray, num_seg: int) -> Tensor:
     )
 
 
+# K1's chunk plan: at most ROW_BUDGET items (entries and segment ends) per
+# chunk; chunk bounds snap to segment starts on a grid of ROW_BUDGET // 2
+ROW_BUDGET = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SegPlan:
+    """The sorted segment-sum's split of its work into chunks (see
+    ``csrc/segment_sum.cu``): at most ROW_BUDGET rows and ROW_BUDGET + 1
+    segments each. It depends on ``indptr`` alone, never on the row width.
+
+    chunks: i32[K, 6] = row0, row1 (the chunk's entries, possibly none),
+        seg_lo, seg_hi (the segments it writes: whole ones to the output,
+        a segment cut at its start to partial row head_row, one cut only
+        at its end to partial row tail_row; -1 where unused);
+    cuts: i32[Q, 3] = seg, first partial row, count: segment seg is the
+        in-order sum of partial rows [first, first + count), one per chunk
+        it touches, in chunk order.
+    """
+
+    chunks: Tensor
+    cuts: Tensor
+    num_partials: int
+
+    def to(self, device) -> "SegPlan":
+        return _to(self, device)
+
+
+def chunk_plan(indptr, budget: int = ROW_BUDGET) -> SegPlan:
+    """Cut the merged sequence of entries and segment ends (segment s's
+    rows, then its end: the merge path of ``indptr`` and the entries) into
+    chunks of at most ``budget`` items, so that neither a long segment nor
+    a run of empty segments is one thread's walk. Chunk bounds are the
+    starts of the segments that hold every ``budget // 2``-th item, so most
+    chunks hold whole segments; a longer gap (a long segment) is cut every
+    ``budget`` items, and a cut on a segment's end item moves past it, so
+    that chunk holds ``budget + 1`` items and at most ``budget`` rows. Rows
+    past ``indptr[-1]`` are never planned."""
+    ip = np.asarray(indptr, dtype=np.int64)
+    num_seg = ip.shape[0] - 1
+    n = int(ip[-1])
+    total = n + num_seg
+    if total == 0:  # one empty chunk
+        sb = rb = np.zeros(2, np.int64)
+    else:
+        first_item = ip[:-1] + np.arange(num_seg)  # segment s's first item
+        pts = np.arange(0, total, max(budget // 2, 1))
+        b = np.unique(np.append(
+            first_item[np.searchsorted(first_item, pts, side="right") - 1], total))
+        extra = (np.diff(b) - 1) // budget  # cuts inside each long gap
+        gap = np.repeat(np.arange(b.shape[0] - 1), extra)
+        k = np.arange(gap.shape[0]) - np.repeat(np.cumsum(extra) - extra, extra) + 1
+        d = np.concatenate([b, b[gap] + budget * k])
+        # item d -> (segment sb, row rb); on the end item of a segment with
+        # rows (or past the last), the start of the next segment
+        sb = np.searchsorted(first_item, d, side="right") - 1
+        off = d - first_item[sb]
+        rows = ip[sb + 1] - ip[sb]
+        past = (off > rows) | ((off == rows) & (rows > 0))
+        sb = sb + past
+        rb = np.where(past, ip[sb], ip[np.minimum(sb, num_seg - 1)] + off)
+        _, keep = np.unique(sb + rb, return_index=True)
+        sb, rb = sb[keep], rb[keep]
+    r0, r1 = rb[:-1], rb[1:]
+    K = r0.shape[0]
+    lo = sb[:-1]  # the first segment the chunk writes
+    head = ip[lo] < r0  # lo is cut at the chunk's start
+    hi = np.empty(K, np.int64)
+    hi[:-1] = lo[1:] + head[1:]
+    hi[-1] = num_seg  # the last chunk also writes the trailing empty segments
+    head_row = np.full(K, -1, np.int64)
+    tail_row = np.full(K, -1, np.int64)
+    hc = np.nonzero(head)[0]  # chunk c >= 1 inside a segment begun before it
+    new = np.r_[True, lo[hc][1:] != lo[hc][:-1]] if hc.size else np.zeros(0, bool)
+    gid = np.cumsum(new) - 1
+    first = hc[new]  # per cut segment: its first head-cut chunk
+    count = np.bincount(gid, minlength=first.shape[0]) + 1
+    row = np.cumsum(count) - count
+    head_row[hc] = row[gid] + hc - (first[gid] - 1)
+    tail_row[first - 1] = row  # the chunk where the segment starts
+    chunks = np.stack([r0, r1, lo, hi, head_row, tail_row], axis=1).astype(np.int32)
+    cuts = np.stack([lo[first], row, count], axis=1).astype(np.int32).reshape(-1, 3)
+    return SegPlan(chunks=_t(chunks), cuts=_t(cuts), num_partials=int(count.sum()))
+
+
 def _to(obj, device):
     """Move every tensor field of a dataclass (recursively) to ``device``."""
     changes = {}
@@ -86,9 +172,11 @@ class Incidence:
     num_edges: int
     nnz: int
     # CSR over the valid entries: edge_indptr in canonical order,
-    # node_indptr in node-sorted order
+    # node_indptr in node-sorted order, and K1's chunk plan over each
     edge_indptr: Tensor  # i32[num_edges + 1]
     node_indptr: Tensor  # i32[num_nodes + 1]
+    edge_plan: SegPlan
+    node_plan: SegPlan
     # node-sorted second order: node_perm maps canonical -> node order
     node_perm: Tensor  # i64[nnz_pad]
     inv_node_perm: Tensor  # i64[nnz_pad]
@@ -181,6 +269,8 @@ class Incidence:
         inv = np.empty_like(nperm)
         inv[nperm] = np.arange(npad, dtype=np.int32)
         nsorted = node[nperm]
+        edge_indptr = _indptr(edge[:nnz], int(num_edges))
+        node_indptr = _indptr(nsorted[:nnz], int(num_nodes))
 
         return cls(
             node=_ids(node),
@@ -190,8 +280,10 @@ class Incidence:
             num_nodes=int(num_nodes),
             num_edges=int(num_edges),
             nnz=nnz,
-            edge_indptr=_indptr(edge[:nnz], int(num_edges)),
-            node_indptr=_indptr(nsorted[:nnz], int(num_nodes)),
+            edge_indptr=edge_indptr,
+            node_indptr=node_indptr,
+            edge_plan=chunk_plan(edge_indptr.numpy()),
+            node_plan=chunk_plan(node_indptr.numpy()),
             node_perm=_ids(nperm),
             inv_node_perm=_ids(inv),
             node_sorted=_ids(nsorted),
@@ -217,6 +309,8 @@ class Incidence:
             dst_count=self.edge_count,
             indptr=self.edge_indptr,
             src_indptr=self.node_indptr,
+            plan=self.edge_plan,
+            src_plan=self.node_plan,
             dst_srcsort=self.edge_by_node,
             num_src=self.num_nodes,
             num_dst=self.num_edges,
@@ -233,6 +327,8 @@ class Incidence:
             dst_count=self.node_count,
             indptr=self.node_indptr,
             src_indptr=self.edge_indptr,
+            plan=self.node_plan,
+            src_plan=self.edge_plan,
             dst_srcsort=self.node,
             num_src=self.num_edges,
             num_dst=self.num_nodes,
@@ -291,6 +387,8 @@ class Direction:
     dst_count: Tensor  # f32[num_dst or num_dst_total]
     indptr: Tensor  # i32[num_dst + 1] over valid entries, by dst
     src_indptr: Tensor  # i32[num_src + 1] over valid entries, by src
+    plan: SegPlan  # K1's chunk plan over indptr
+    src_plan: SegPlan  # and over src_indptr
     dst_srcsort: Tensor  # i64[nnz_pad] dst of each entry in src-sorted order
     num_src: int
     num_dst: int

@@ -38,12 +38,13 @@ launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
 build_seconds = 0.0
+build_log = ""  # nvcc's stderr of the last build: -Xptxas -v registers and spills
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 _SIGNATURES = {
-    "allset_segment_sum": [P, P, P, I, I, I, P],
-    "allset_pma_epilogue_fwd": [P] * 9 + [I] * 8 + [P],
+    "allset_segment_sum": [P, P, P, I, P, I, P, P, I, I, P],
+    "allset_pma_epilogue_fwd": [P] * 10 + [I] * 8 + [P],
     "allset_pma_epilogue_bwd": [P] * 17 + [I] * 11 + [P],
     "allset_pma_gmax": [P] * 3 + [I] * 6 + [P],
     "allset_pma_pack": [P] * 5 + [I] * 6 + [P],
@@ -68,7 +69,7 @@ def _nvcc() -> str:
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into the shared library if it is missing or
     older than a source; returns its path."""
-    global build_seconds
+    global build_seconds, build_log
     srcs = sorted(glob.glob(osp.join(_CSRC, "*.cu")))
     newest = max(osp.getmtime(s) for s in srcs)
     if not force and osp.exists(_SO) and osp.getmtime(_SO) >= newest:
@@ -76,14 +77,15 @@ def build(force: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC"]
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     objs = [osp.join(BUILD_DIR, osp.basename(s)[:-3] + f".{tag}.o") for s in srcs]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for s, o in zip(srcs, objs)]
-    errs = [(s, p.communicate()[1]) for s, p in zip(srcs, procs)]
-    errs = [(s, e) for (s, e), p in zip(errs, procs) if p.returncode != 0]
+    logs = [(s, p.communicate()[1]) for s, p in zip(srcs, procs)]
+    build_log = "".join(e for _, e in logs)
+    errs = [(s, e) for (s, e), p in zip(logs, procs) if p.returncode != 0]
     tmp = f"{_SO}.{tag}"
     if not errs:
         r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,

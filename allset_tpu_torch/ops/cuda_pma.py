@@ -12,13 +12,15 @@ vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
     y    = relu(y)                       when ``relu`` (SetGNN's folded
                                          inter-stage activation)
 
-On the H100 the forward is bound by the bytes of one read of ``agg`` and
-one write of ``y``; the kernel keeps every intermediate of a 16-row tile
-in shared memory, runs the bf16 rFF products on the tensor cores (WMMA,
-f32 accumulation) and the f32 ones as full-f32 FMA. The backward
-recomputes the forward per tile and sums the parameter gradients through
-per-block f32 partials and a second reduce kernel, so they repeat bit for
-bit (see the CUDA source).
+On the H100 the rFF products bound it. The kernels keep each 64-row
+tile's intermediates in registers (16 warps: two row halves, each warp
+an eighth of the columns), stage the tile's rows and the weights in
+shared memory, and run every product on the tensor cores: bf16 operands as bf16 MMA
+with f32 accumulation, the products the JAX package takes in f32 as
+3xTF32 (operands split into two TF32 parts, three products; f32
+accuracy, see the source note). The backward recomputes the forward per
+tile and sums the parameter gradients through per-block f32 partials and
+second reduce kernels, so they repeat bit for bit.
 
 With R runs folded into the width, ``agg`` is ``[M, R*WP]`` (run r in
 columns ``[r*WP, (r+1)*WP)``), ``y`` is ``[M, R*HC]``, every parameter
@@ -45,7 +47,8 @@ Tensor = torch.Tensor
 EPS = 1e-5  # torch/flax LayerNorm default
 DEN_FLOOR = 1e-16  # softmax denominator clamp
 
-_BWD_MAX_BLOCKS = 1024  # row-kernel blocks (= small-grad partials) of K3
+TILE_ROWS = 64  # rows per tile of the kernels
+_BWD_MAX_BLOCKS = 264  # row-kernel blocks (= small-grad partials) of K3: 2 waves of 132
 _BWD_MAX_CHUNKS = 64  # row chunks (= dW partials) of K3
 
 
@@ -66,6 +69,12 @@ def _ln_bwd(gy, xhat, rstd, g):
     return dx, (gy * xhat).sum(dim=0), gy.sum(dim=0)
 
 
+def _mm(a, b):
+    """The plain versions' rFF products, in f32 (the kernels: bf16 MMA or
+    3xTF32, see the CUDA source; the tests emulate the split here)."""
+    return a @ b
+
+
 def _fwd_recompute(agg, seed, g0, b0, Wrff, brff, g1, b1, H):
     """Forward chain in f32 with the kernel's rounding points; returns
     every intermediate the backward needs."""
@@ -84,7 +93,7 @@ def _fwd_recompute(agg, seed, g0, b0, Wrff, brff, g1, b1, H):
     for l in range(Wrff.shape[0]):
         # TorchDense rounding: f32 accumulation of the rounded operands,
         # output rounded to the activation dtype, bias added, rounded again
-        p32 = h.float() @ Wrff[l].to(cdt).float()
+        p32 = _mm(h.float(), Wrff[l].to(cdt).float())
         p = (p32.to(cdt).float() + brff[l]).to(cdt).float()
         pres.append(p)
         if l < Wrff.shape[0] - 1:
@@ -121,8 +130,8 @@ def epilogue_bwd_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
     for l in range(L - 1, -1, -1):
         dbr[l] = dp.sum(dim=0)
         hin = r["zb"] if l == 0 else r["pres"][l - 1].clamp_min(0.0).to(cdt)
-        dW[l] = hin.float().T @ dp
-        dh = dp @ Wrff[l].T
+        dW[l] = _mm(hin.float().T, dp)
+        dh = _mm(dp, Wrff[l].float().T)
         if l > 0:
             dp = dh * (r["pres"][l - 1] > 0)
         else:
@@ -180,12 +189,12 @@ def _check_cuda_args(agg, seed, Wrff, H, R):
     WP = W // runs
     if not (seed.shape == lead + (HC,) and Wrff.shape == lead + (L, HC, HC)
             and W == runs * WP and HC % 64 == 0 and HC <= 256 and HC % H == 0
-            and WP >= HC + H and L in (1, 2)
-            and runs * _BWD_MAX_CHUNKS * L <= 65535):
+            and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and runs <= 65535):
         raise ValueError(
             f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
             f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC % 64 "
-            "== 0, HC <= 256, WP >= HC + H, L in (1, 2), runs <= 511)"
+            "== 0, HC <= 256, H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte "
+            "rows), L in (1, 2), runs <= 65535)"
         )
     return M, WP, HC, L
 
@@ -194,17 +203,30 @@ def _f32(*ts):
     return [t.float().contiguous() for t in ts]
 
 
+def _weights(Wrff, cdt):
+    """The rFF weights as the kernels read them: f32 [in][out] and, on the
+    bf16 path, bf16 [out][in] (None in f32)."""
+    Wf = Wrff.float().contiguous()
+    if cdt == torch.float32:
+        return Wf, None
+    return Wf, Wrff.to(cdt).transpose(-1, -2).contiguous()
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     """K2 (R=None) or K2R (R runs) on the current stream."""
     M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
     runs = 1 if R is None else R
     agg = agg.contiguous()
-    Wc = Wrff.to(agg.dtype).contiguous()
+    Wf, Wbt = _weights(Wrff, agg.dtype)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     out = torch.empty(M, runs * HC, dtype=agg.dtype, device=agg.device)
     rc = _kernels.lib().allset_pma_epilogue_fwd(
         agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
-        Wc.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+        Wf.data_ptr(), _ptr(Wbt), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
         out.data_ptr(), M, WP, HC, H, L, runs, int(relu),
         _kernels.dtype_code(agg), _kernels.stream_ptr(agg),
     )
@@ -221,10 +243,9 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     dev, cdt = agg.device, agg.dtype
     agg = agg.contiguous()
     gy = gy.to(cdt).contiguous()
-    Wc = Wrff.to(cdt).contiguous()
-    WT = Wrff.float().transpose(-1, -2).contiguous()
+    Wf, Wbt = _weights(Wrff, cdt)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
-    grid_rows = max(1, min(-(-M // 16), _BWD_MAX_BLOCKS))
+    grid_rows = max(1, min(-(-M // TILE_ROWS), _BWD_MAX_BLOCKS))
     chunk_rows = -(-max(M, 1) // _BWD_MAX_CHUNKS)
     chunk_rows = -(-chunk_rows // 32) * 32
     nch = max(1, -(-M // chunk_rows))
@@ -240,7 +261,7 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     part_w = torch.empty(runs, nch, L, HC, HC, dtype=f32, device=dev)
     rc = _kernels.lib().allset_pma_epilogue_bwd(
         agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(),
-        b0.data_ptr(), Wc.data_ptr(), WT.data_ptr(), brff.data_ptr(),
+        b0.data_ptr(), Wf.data_ptr(), _ptr(Wbt), brff.data_ptr(),
         g1.data_ptr(), b1.data_ptr(), dagg.data_ptr(), dW.data_ptr(),
         dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
         part_small.data_ptr(), part_w.data_ptr(), M, WP, HC, H, L, runs,

@@ -37,13 +37,13 @@ class _Spmm(torch.autograd.Function):
     def forward(ctx, w, d: Direction):
         msgs = w.index_select(0, d.src[: d.nnz])
         ctx.d = d
-        return segment_sum(msgs, d.indptr, d.num_dst)
+        return segment_sum(msgs, d.indptr, d.num_dst, d.plan)
 
     @staticmethod
     def backward(ctx, g):
         d = ctx.d
         rows = g.contiguous().index_select(0, d.dst_srcsort[: d.nnz])
-        return segment_sum(rows, d.src_indptr, d.num_src), None
+        return segment_sum(rows, d.src_indptr, d.num_src, d.src_plan), None
 
 
 def dir_spmm(w: Tensor, d: Direction, norm=None, reduce: str = "add") -> Tensor:

@@ -81,8 +81,9 @@ _QUEUE = {
 
 
 def prepare(cfg: ExperimentConfig, data: HyperData,
-            device: torch.device | str = "cpu") -> Tuple[SetGNNConfig, Batch]:
-    """(method, raw HyperData) -> (model configuration, Batch on ``device``)."""
+            device: torch.device | str = "cuda") -> Tuple[SetGNNConfig, Batch]:
+    """(method, raw HyperData) -> (model configuration, Batch on ``device``);
+    the default, the card, raises without one."""
     if cfg.method not in METHODS:
         raise ValueError(f"unknown method {cfg.method!r}; choose from {METHODS}")
     if cfg.method != "AllSetTransformer":

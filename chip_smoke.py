@@ -6,16 +6,22 @@ Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
   2. build the CUDA kernels from allset_tpu_torch/csrc (nvcc, sm_90a);
   3. compare each kernel with its plain PyTorch version on the card, in
-     f32 and bf16: K1 segment_sum (empty segments, one huge segment,
-     unread padded tail rows; widths up to 20 runs x 264), K2/K3 the PMA
-     epilogue and K2R/K3R its runs grids (R in {2, 5}; L in {1, 2}, relu
-     on/off, rows not a multiple of the tile; each run of K2R/K3R also
-     bit for bit against a K2/K3 launch on its slice), K4/K5 the PMA
-     score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4)}, rows not a
-     multiple of the tile; gmax bit-equal, w within 2 f32 / 1 bf16 ulps,
-     a NaN score reaching gmax, R in {2, 5} bit for bit against single
-     launches), and at the main paths' shapes, with the kernel and
-     plain times;
+     f32 and bf16: K1 segment_sum (empty segments, one huge segment over
+     1,563 chunks, unread padded tail rows; widths up to 20 runs x 264;
+     bit for bit against the plain version in the kernel's order of
+     additions, and at 4 and 20 runs x 264 run by run against launches
+     on each run's slice), K2/K3 the PMA epilogue (HC in {64, 128, 192,
+     256}, heads 1 to HC, rows below one 64-row tile and not a multiple
+     of it) and K2R/K3R its
+     runs grids (R in {2, 5}; L in {1, 2}, relu on/off; each run of
+     K2R/K3R also bit for bit against a K2/K3 launch on its slice), K4/K5
+     the PMA score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4)}, rows
+     not a multiple of the tile; gmax bit-equal, w within 2 f32 / 1 bf16
+     ulps, a NaN score reaching gmax, R in {2, 5} bit for bit against
+     single launches), and at the main paths' shapes (K1 on the bench
+     graph's real indptrs, bit for bit as well; K3R at R=20 on the walmart
+     rows, each run bit for bit against K3), with the kernel, plain and
+     library times and the kernel's bound;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
@@ -38,9 +44,14 @@ Phases (any failure raises and exits non-zero):
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
-The line before the last is a JSON object of per-kernel results (K1,
-K2R, K3R from phase 6's run, K2, K3, K4, K5 from phase 4's bench step);
-the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object of per-kernel results (K2R,
+K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step):
+launches, the kernel's time and its plain version's summed over a bench
+step (K1, K2, K3, K4, K5) or a 20-run epoch (K2R, K3R), the bound (the
+larger of the bytes over 3.35 TB/s and the products over the tensor
+cores: bf16 at 989 TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s;
+other arithmetic at 67 TFLOP/s) and, for K1, one library call's time
+(torch.segment_reduce); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -97,6 +108,104 @@ def scaled_err(got, want):
     return err, err / max(want.abs().max().item() if want.numel() else 0.0, 1.0)
 
 
+HBM = 3.35e12  # H100 SXM bytes/s (NVIDIA data sheet)
+PEAK = {"bf16": 989e12, "f32x3": 495e12 / 3, "f32": 67e12}  # FLOP/s
+
+
+class Tally:
+    """Times, error and bound of one kernel summed over the launches of a
+    step or an epoch; the bound keeps its bytes and operations terms
+    apart and takes the larger of the two sums."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.err = self.t_bytes = self.t_ops = 0.0
+        self.library_ms = None
+
+    def add(self, n, ms, plain_ms, err, nbytes, ops, library_ms=None):
+        """n launches of ms each; ops: [(flops, PEAK key)]."""
+        self.ms += n * ms
+        self.plain_ms += n * plain_ms
+        self.err = max(self.err, err)
+        self.t_bytes += n * nbytes / HBM * 1e3
+        self.t_ops += n * sum(f / PEAK[k] for f, k in ops) * 1e3
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + n * library_ms
+
+    def row(self):
+        return {"ms": self.ms, "plain_ms": self.plain_ms, "max_abs_err": self.err,
+                "bound_ms": max(self.t_bytes, self.t_ops),
+                "bound_by": "bytes" if self.t_bytes >= self.t_ops else "operations",
+                "library_ms": self.library_ms}
+
+
+def epi_cost(M, HC, WP, L, dtype, bwd, R=1):
+    """(bytes, ops) of K2 (bwd=False) or K3 on M rows and R runs: agg in,
+    y out (K2) or agg and gy in, dagg out (K3), the parameters; the rFF
+    products (K3: the forward's, dp @ W^T and h^T dp)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    rows = M * ((2 * WP + HC) if bwd else (WP + HC)) * item
+    params = L * HC * HC * (4 + (2 if item == 2 else 0)) + (6 + L) * HC * 4
+    fwd = 2 * L * HC * HC * M * R
+    ops = [(fwd, "bf16" if item == 2 else "f32x3")]
+    if bwd:
+        ops.append((2 * fwd, "f32x3"))
+    return R * (rows + params), ops
+
+
+def seg_cost(nnz, nseg, W, dtype):
+    """(bytes, ops) of K1: every message row in once, every segment row out
+    once, indptr; one f32 add per message element."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    return (nnz + nseg) * W * item + 4 * (nseg + 1), [(nnz * W, "f32")]
+
+
+def library_segment_sum(msgs, indptr, nseg):
+    """One PyTorch call for K1's function, for its time only (the port
+    never calls it): torch.segment_reduce; where the build refuses the
+    dtype, index_add_ into an f32 buffer with ids computed beforehand.
+    Returns (fn, name)."""
+    try:
+        want = torch.segment_reduce(msgs, "sum", offsets=indptr, axis=0)
+        require(want.shape == (nseg, msgs.shape[1]), "segment_reduce shape")
+        return (lambda: torch.segment_reduce(msgs, "sum", offsets=indptr, axis=0),
+                "torch.segment_reduce")
+    except (RuntimeError, NotImplementedError, AssertionError) as e:
+        log(f"  torch.segment_reduce refused ({str(e).splitlines()[0][:80]}); index_add_ instead")
+    counts = (indptr[1:] - indptr[:-1]).long()
+    ids = torch.repeat_interleave(torch.arange(nseg, device=msgs.device), counts)
+
+    def call():
+        out = torch.zeros(nseg, msgs.shape[1], dtype=torch.float32, device=msgs.device)
+        return out.index_add_(0, ids, msgs)
+    return call, "index_add_ (f32 buffer)"
+
+
+def ptxas_summary(text: str):
+    """(kernel, registers, spill stores, spill loads) per compiled kernel
+    from nvcc -Xptxas -v."""
+    import re
+
+    out, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(o[0] for o in out),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        out = [(n[:110], *o[1:]) for n, o in zip(names, out)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return out
+
+
 def require(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
@@ -131,27 +240,43 @@ def check_bwd(got, want, gtol, what) -> str:
 
 
 def check_segment_sum(dev, gen):
+    """K1 against its plain version (tolerance) and against the plain
+    version in the kernel's order of additions (bit for bit); the folded
+    widths run by run against launches on each run's slice."""
+    from allset_tpu_torch.graph.incidence import chunk_plan
     from allset_tpu_torch.ops import _kernels, cuda_segment as cs
 
     for dtype in (torch.float32, torch.bfloat16):
         for W in (8, 264, 384, 4 * 264, 20 * 264):  # up to 20 runs folded
             counts = torch.randint(0, 7, (3000,), generator=gen)
             counts[torch.rand(3000, generator=gen) < 0.3] = 0  # empty segments
-            counts[1234] = 100_000  # one huge segment
+            counts[1234] = 100_000  # one huge segment, over 1,563 chunks
             indptr = torch.zeros(3001, dtype=torch.int32)
             indptr[1:] = torch.cumsum(counts, 0)
             n = int(indptr[-1])
+            plan = chunk_plan(indptr.numpy()).to(dev)
             msgs = torch.randn(n + 37, W, generator=gen).to(dtype)
             msgs[n:] = float("nan")  # padded tail: must never be read
             msgs, indptr = msgs.to(dev), indptr.to(dev)
-            got = cs.segment_sum_cuda(msgs, indptr, 3000)
+            got = cs.segment_sum_cuda(msgs, indptr, 3000, plan)
             want = cs.segment_sum_plain(msgs, indptr, 3000)
+            ordered = cs.segment_sum_planned(msgs, indptr, 3000, plan)
             torch.cuda.synchronize()
             err, rel = scaled_err(got, want)
             tol = TOL[dtype][0]
-            log(f"  K1 segment_sum {str(dtype)[6:]:8s} W={W:4d}: max_abs_err={err:.3e} "
-                f"scaled={rel:.3e} (tol {tol:g})")
             require(rel <= tol, f"K1 disagrees ({dtype}, W={W})")
+            require(torch.equal(got, ordered), f"K1 differs from its order of additions "
+                    f"({dtype}, W={W})")
+            runs = ""
+            if W % 264 == 0 and W > 264:
+                for r in range(W // 264):
+                    one = cs.segment_sum_cuda(msgs[:, r * 264:(r + 1) * 264].contiguous(),
+                                              indptr, 3000, plan)
+                    require(torch.equal(got[:, r * 264:(r + 1) * 264], one),
+                            f"K1 run {r} differs from a launch on its slice ({dtype}, W={W})")
+                runs = f"; each of {W // 264} runs bit-identical to a launch on its slice"
+            log(f"  K1 segment_sum {str(dtype)[6:]:8s} W={W:4d}: max_abs_err={err:.3e} "
+                f"scaled={rel:.3e} (tol {tol:g}); bit-equal to the planned order{runs}")
     _kernels.reset_launches()
 
 
@@ -185,27 +310,40 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
     return gy.masked_fill(near[:, None], 0)
 
 
+# (HC, H, WP): the bench and walmart width, the other widths the kernels
+# take (HC % 64 == 0, HC <= 256), and heads up to one column per head
+# (the denominators leave shared memory for f32 at HC 256 from 32 heads in
+# K3, from 128 in K2)
+EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (128, 4, 136),
+              (64, 1, 72), (64, 64, 128))
+
+
 def check_epilogue(dev, gen):
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    HC, H, WP = 256, 8, 264
-    for dtype in (torch.float32, torch.bfloat16):
-        for L in (1, 2):
-            for relu in (False, True):
-                M = 1000  # not a multiple of the 16-row tile
-                agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
-                seed, g0, b0, W, b, g1, b1 = p
-                y = cp.epilogue_fwd_cuda(agg, seed, g0, b0, W, b, g1, b1, H, relu)
-                y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
-                got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
-                want = cp.epilogue_bwd_plain(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
-                torch.cuda.synchronize()
-                err, rel = scaled_err(y, y_ref)
-                ftol = EPI_FWD_TOL[dtype]
-                require(rel <= ftol, f"K2 disagrees ({dtype}, L={L}, relu={relu})")
-                msg = check_bwd(got, want, TOL[dtype][1], f"{dtype}, L={L}, relu={relu}")
-                log(f"  K2/K3 {str(dtype)[6:]:8s} L={L} relu={int(relu)}: fwd max_abs_err={err:.3e} "
-                    f"scaled={rel:.3e} (tol {ftol:g}); bwd scaled max {msg}")
+    for HC, H, WP in EPI_SHAPES:
+        for M in (1000, 40):  # not a multiple of the 64-row tile; below one tile
+            for dtype in (torch.float32, torch.bfloat16):
+                for L in (1, 2):
+                    for relu in (False, True):
+                        if M == 40 and relu:
+                            continue
+                        agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
+                        seed, g0, b0, W, b, g1, b1 = p
+                        y = cp.epilogue_fwd_cuda(agg, seed, g0, b0, W, b, g1, b1, H, relu)
+                        y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
+                        got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
+                        want = cp.epilogue_bwd_plain(agg, gy, seed, g0, b0, W, b, g1, b1, H,
+                                                     relu)
+                        torch.cuda.synchronize()
+                        what = f"{dtype}, HC={HC}, H={H}, M={M}, L={L}, relu={relu}"
+                        err, rel = scaled_err(y, y_ref)
+                        ftol = EPI_FWD_TOL[dtype]
+                        require(rel <= ftol, f"K2 disagrees ({what}): {rel}")
+                        msg = check_bwd(got, want, TOL[dtype][1], what)
+                        log(f"  K2/K3 {str(dtype)[6:]:8s} HC={HC:3d} H={H:2d} M={M:4d} L={L} "
+                            f"relu={int(relu)}: fwd max_abs_err={err:.3e} scaled={rel:.3e} "
+                            f"(tol {ftol:g}); bwd scaled max {msg}")
     _kernels.reset_launches()
 
 
@@ -224,7 +362,7 @@ def check_runs_epilogue(dev, gen):
     by run, bit for bit against K2/K3 launched on the run's slice."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    HC, H, WP, M = 256, 8, 264, 1000  # M not a multiple of the 16-row tile
+    HC, H, WP, M = 256, 8, 264, 1000  # M not a multiple of the 64-row tile
     for dtype in (torch.float32, torch.bfloat16):
         for R in (2, 5):
             for L in (1, 2):
@@ -336,13 +474,16 @@ def time_pack(rows_list, R, dtype, dev, gen, per_launch):
     pack per half-layer), HC 256, 8 heads; times summed over a step's or
     an epoch's launches (per_launch of each half-layer). K4's plain
     version is the column max, K5's the whole plain chain (which takes
-    its own column max). Returns {name: (ms, plain_ms, max_abs_err)}."""
+    its own column max). Returns {name: Tally}."""
     from allset_tpu_torch.ops import _kernels, cuda_pack as ck
 
     HC, H = 256, 8
-    tot = {"pma_gmax": [0.0, 0.0, 0.0], "pma_pack": [0.0, 0.0, 0.0]}
+    item = 2 if dtype == torch.bfloat16 else 4
+    runs = 1 if R is None else R
+    tot = {"pma_gmax": Tally(), "pma_pack": Tally()}
     for rows in rows_list:
         yf, bV, ba = pack_inputs(rows, HC, H, dtype, dev, gen, R=R)
+        WP = yf.shape[-1]
         plain = ck.pack_plain if R is None else ck.pack_runs_plain
         gplain = (ck.gmax_plain if R is None else
                   lambda y, a, h, c: torch.stack([ck.gmax_plain(y[:, r], a[r], h, c)
@@ -360,75 +501,102 @@ def time_pack(rows_list, R, dtype, dev, gen, per_launch):
         require(u <= PACK_ULPS[dtype], f"K5 off by {u} ulps at rows={rows}")
         err, _ = scaled_err(w, w_ref)
         del w, w_ref
-        for name, k, p, e in (("pma_gmax", k4, p4, err4), ("pma_pack", k5, p5, err)):
-            t = tot[name]
-            t[0], t[1], t[2] = t[0] + per_launch * k, t[1] + per_launch * p, max(t[2], e)
-        runs = "" if R is None else f", R={R}"
-        log(f"  K4 at [{rows}, {'' if R is None else f'{R}x'}{yf.shape[-1]}]{runs}: kernel "
+        # K4 reads the H score columns, K5 reads yf and writes w
+        tot["pma_gmax"].add(per_launch, k4, p4, err4, runs * (rows * H * item + 4 * H),
+                            [(runs * rows * H * 2, "f32")])
+        tot["pma_pack"].add(per_launch, k5, p5, err,
+                            runs * (2 * rows * WP * item + 4 * (HC + 2 * H)),
+                            [(runs * rows * (HC + H) * 4, "f32")])
+        runs_s = "" if R is None else f", R={R}"
+        log(f"  K4 at [{rows}, {'' if R is None else f'{R}x'}{WP}]{runs_s}: kernel "
             f"{k4:.3f} ms, plain {p4:.3f} ms; K5: kernel {k5:.3f} ms, plain chain {p5:.3f} ms, "
             f"max_abs_err {err:.3e} ({u:g} ulps)")
         del yf
     _kernels.reset_launches()
-    return {k: tuple(v) for k, v in tot.items()}
+    return tot
+
+
+def time_segment_sum(tally, inc, nnz, order, W, dtype, launches, dev, check_order):
+    """K1 on the real incidence's ``order`` ('edge' or 'node') indptr and
+    plan at width W: kernel, plain and library times, added to ``tally``
+    for ``launches`` launches; held to the plain version and, with
+    ``check_order``, bit for bit to the plain version in its order."""
+    from allset_tpu_torch.ops import cuda_segment as cs
+
+    indptr, plan = getattr(inc, f"{order}_indptr"), getattr(inc, f"{order}_plan")
+    nseg = indptr.shape[0] - 1
+    msgs = torch.randn(nnz, W, device=dev, dtype=dtype)
+    k = cuda_ms(lambda: cs.segment_sum_cuda(msgs, indptr, nseg, plan), iters=10)
+    p = cuda_ms(lambda: cs.segment_sum_plain(msgs, indptr, nseg), iters=3)
+    lib, lib_name = library_segment_sum(msgs, indptr, nseg)
+    lib_ms = cuda_ms(lib, iters=3)
+    got = cs.segment_sum_cuda(msgs, indptr, nseg, plan)
+    e, rel = scaled_err(got, cs.segment_sum_plain(msgs, indptr, nseg))
+    require(rel <= TOL[dtype][0], f"K1 disagrees at [{nnz}, {W}] by {order}: {rel}")
+    if check_order:
+        require(torch.equal(got, cs.segment_sum_planned(msgs, indptr, nseg, plan)),
+                f"K1 differs from its order of additions at [{nnz}, {W}] by {order}")
+    del got
+    tally.add(launches, k, p, e, *seg_cost(nnz, nseg, W, dtype), library_ms=lib_ms)
+    counts = (indptr[1:] - indptr[:-1]).float()
+    log(f"  K1 at [{nnz}, {W}] by {order} -> {nseg} segments: kernel {k:.3f} ms, plain "
+        f"{p:.3f} ms, {lib_name} {lib_ms:.3f} ms; max_abs_err {e:.3e} (scaled {rel:.2e})"
+        f"{', bit-equal to its order' if check_order else ''}; segment length mean "
+        f"{counts.mean().item():.2f}, max {int(counts.max().item())}; "
+        f"{plan.chunks.shape[0]} chunks, {plan.cuts.shape[0]} cut segments, "
+        f"{plan.num_partials} partial rows")
+    del msgs
 
 
 def time_main_shapes(batch, dev, gen):
-    """Kernel and plain times at the main path's shapes (bf16): K1 on the
-    two reduce orders of the real incidence at the packed width, K2/K3 at
-    the two half-layers' row counts. Times are summed over one training
-    step's launches (K1: 4, K2: 2, K3: 2). Each kernel is held to its
-    plain version with phase 3's tolerances; the reported max_abs_err is
-    K1's and K2's output and K3's dagg. No row sits at the 1e-16 floor
-    here, as none does on the main path."""
-    from allset_tpu_torch.ops import _kernels, cuda_pma as cp, cuda_segment as cs
+    """Kernel, plain and library times and the bound at the main path's
+    shapes (bf16): K1 on the two reduce orders of the real incidence at
+    the packed width, K2/K3 at the two half-layers' row counts. Times are
+    summed over one training step's launches (K1: 4, K2: 2, K3: 2). Each
+    kernel is held to its plain version with phase 3's tolerances; the
+    reported max_abs_err is K1's and K2's output and K3's dagg. No row
+    sits at the 1e-16 floor here, as none does on the main path. Returns
+    {name: Tally}."""
+    from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     inc = batch.inc.real
-    HC, H, WP, L = 256, 8, 264, 2
-    out = {}
-    t_k = t_p = 0.0
-    err = 0.0
-    for indptr, nseg in ((inc.edge_indptr, inc.num_edges), (inc.node_indptr, batch.inc.num_nodes)):
-        msgs = torch.randn(inc.nnz, WP, device=dev, dtype=torch.bfloat16)
-        k = cuda_ms(lambda: cs.segment_sum_cuda(msgs, indptr, nseg))
-        p = cuda_ms(lambda: cs.segment_sum_plain(msgs, indptr, nseg))
-        e, rel = scaled_err(cs.segment_sum_cuda(msgs, indptr, nseg),
-                            cs.segment_sum_plain(msgs, indptr, nseg))
-        require(rel <= TOL[torch.bfloat16][0], f"K1 disagrees at main shapes: {rel}")
-        err = max(err, e)
-        t_k, t_p = t_k + 2 * k, t_p + 2 * p
-        counts = (indptr[1:] - indptr[:-1]).float()
-        log(f"  K1 at [{inc.nnz}, {WP}] -> {nseg} segments: kernel {k:.3f} ms, plain {p:.3f} ms; "
-            f"max_abs_err {e:.3e} (scaled {rel:.2e}); segment length mean "
-            f"{counts.mean().item():.2f}, max {int(counts.max().item())}")
-    out["segment_sum"] = (t_k, t_p, err)
-    tf = tb = pf = pb = 0.0
-    errf = errb = 0.0
+    HC, H, WP, L, dt = 256, 8, 264, 2, torch.bfloat16
+    out = {"segment_sum": Tally(), "pma_epilogue_fwd": Tally(), "pma_epilogue_bwd": Tally()}
+    for order in ("edge", "node"):  # forward and backward of each half-layer
+        time_segment_sum(out["segment_sum"], inc, inc.nnz, order, WP, dt, 2, dev, True)
     for M in (inc.num_edges + batch.inc.num_nodes, batch.inc.num_nodes):
-        agg, gy, p = epi_inputs(M, HC, H, WP, L, torch.bfloat16, dev, gen, floor_rows=False)
+        agg, gy, p = epi_inputs(M, HC, H, WP, L, dt, dev, gen, floor_rows=False)
         args = (agg, *p)
         kf = cuda_ms(lambda: cp.epilogue_fwd_cuda(*args, H, True))
-        pf_ = cuda_ms(lambda: cp.epilogue_fwd_plain(*args, H, True))
+        pf = cuda_ms(lambda: cp.epilogue_fwd_plain(*args, H, True))
         kb = cuda_ms(lambda: cp.epilogue_bwd_cuda(agg, gy, *p, H, True))
-        pb_ = cuda_ms(lambda: cp.epilogue_bwd_plain(agg, gy, *p, H, True))
+        pb = cuda_ms(lambda: cp.epilogue_bwd_plain(agg, gy, *p, H, True))
         ef, rf = scaled_err(cp.epilogue_fwd_cuda(*args, H, True),
                             cp.epilogue_fwd_plain(*args, H, True))
-        require(rf <= EPI_FWD_TOL[torch.bfloat16], f"K2 disagrees at M={M}: {rf}")
+        require(rf <= EPI_FWD_TOL[dt], f"K2 disagrees at M={M}: {rf}")
         got = cp.epilogue_bwd_cuda(agg, gy, *p, H, True)
         want = cp.epilogue_bwd_plain(agg, gy, *p, H, True)
-        bmsg = check_bwd(got, want, TOL[torch.bfloat16][1], f"M={M}")
+        bmsg = check_bwd(got, want, TOL[dt][1], f"M={M}")
         eb, rb = scaled_err(got[0], want[0])
-        errf, errb = max(errf, ef), max(errb, eb)
-        tf, pf, tb, pb = tf + kf, pf + pf_, tb + kb, pb + pb_
-        log(f"  K2 at M={M}: kernel {kf:.3f} ms, plain {pf_:.3f} ms, max_abs_err {ef:.3e} "
-            f"(scaled {rf:.2e}); K3: kernel {kb:.3f} ms, plain {pb_:.3f} ms, dagg "
+        out["pma_epilogue_fwd"].add(1, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False))
+        out["pma_epilogue_bwd"].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True))
+        log(f"  K2 at M={M}: kernel {kf:.3f} ms, plain {pf:.3f} ms, max_abs_err {ef:.3e} "
+            f"(scaled {rf:.2e}); K3: kernel {kb:.3f} ms, plain {pb:.3f} ms, dagg "
             f"max_abs_err {eb:.3e}; scaled max {bmsg}")
-    out["pma_epilogue_fwd"] = (tf, pf, errf)
-    out["pma_epilogue_bwd"] = (tb, pb, errb)
     # K4/K5: V->E packs the N node rows, E->V the real edges + N-slot rows
     out.update(time_pack((batch.inc.num_nodes, inc.num_edges + batch.inc.num_nodes), None,
-                         torch.bfloat16, dev, gen, per_launch=1))
+                         dt, dev, gen, per_launch=1))
+    log_tallies(out, "bench step")
     _kernels.reset_launches()
     return out
+
+
+def log_tallies(out, per):
+    for name, t in out.items():
+        r = t.row()
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+        log(f"  {name} per {per}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
 
 
 # --- phases 4 and 5: the training step --------------------------------------
@@ -521,40 +689,29 @@ def walmart_batch(dev):
 
 
 def time_runs_shapes(batch, dev, gen, R=20):
-    """Kernel and plain times at the runs path's shapes (walmart preset,
-    f32, R runs folded): K1 on the two reduce orders at width R*264 (an
-    epoch launches it 3 times on each: train forward and backward, eval
-    forward), K2R at the two half-layers' row counts (twice each per
-    epoch: train and eval), K3R once each. Summed per epoch; each kernel
-    held to its plain version with phase 3's tolerances."""
-    from allset_tpu_torch.ops import _kernels, cuda_pma as cp, cuda_segment as cs
+    """Kernel, plain and library times and the bound at the runs path's
+    shapes (walmart preset, f32, R runs folded): K1 on the two reduce
+    orders at width R*264 (an epoch launches it 3 times on each: train
+    forward and backward, eval forward), K2R at the two half-layers' row
+    counts (twice each per epoch: train and eval), K3R once each. Summed
+    per epoch; each kernel held to its plain version with phase 3's
+    tolerances, and each run of K3R bit for bit to K3 on its slice.
+    Returns {name: Tally}."""
+    from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     inc = batch.inc.real
     HC, H, WP, L, dt = 256, 8, 264, 2, torch.float32
-    out = {}
-    t_k = t_p = err = 0.0
-    for indptr, nseg in ((inc.edge_indptr, inc.num_edges), (inc.node_indptr, batch.num_nodes)):
-        msgs = torch.randn(inc.nnz, R * WP, device=dev, dtype=dt)
-        k = cuda_ms(lambda: cs.segment_sum_cuda(msgs, indptr, nseg), iters=5)
-        p = cuda_ms(lambda: cs.segment_sum_plain(msgs, indptr, nseg), iters=3)
-        e, rel = scaled_err(cs.segment_sum_cuda(msgs, indptr, nseg),
-                            cs.segment_sum_plain(msgs, indptr, nseg))
-        require(rel <= TOL[dt][0], f"K1 disagrees at the runs shapes: {rel}")
-        err = max(err, e)
-        t_k, t_p = t_k + 3 * k, t_p + 3 * p
-        counts = (indptr[1:] - indptr[:-1]).float()
-        log(f"  K1 at [{inc.nnz}, {R * WP}] -> {nseg} segments: kernel {k:.3f} ms, plain "
-            f"{p:.3f} ms; max_abs_err {e:.3e} (scaled {rel:.2e}); segment length max "
-            f"{int(counts.max().item())}")
-        del msgs
-    out["segment_sum"] = (t_k, t_p, err)
-    tf = tb = pf = pb = errf = errb = 0.0
+    out = {"segment_sum_runs": Tally(), "pma_epilogue_fwd_runs": Tally(),
+           "pma_epilogue_bwd_runs": Tally()}
+    for order in ("edge", "node"):
+        time_segment_sum(out["segment_sum_runs"], inc, inc.nnz, order, R * WP, dt, 3, dev,
+                         False)
     for M in (inc.num_edges + batch.num_nodes, batch.num_nodes):
         agg, gy, p = runs_inputs(M, HC, H, WP, L, R, dt, dev, gen, floor_rows=False)
         kf = cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=3)
-        pf_ = cuda_ms(lambda: cp.epilogue_fwd_runs_plain(agg, *p, H, True), iters=2)
+        pf = cuda_ms(lambda: cp.epilogue_fwd_runs_plain(agg, *p, H, True), iters=2)
         kb = cuda_ms(lambda: cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True), iters=3)
-        pb_ = cuda_ms(lambda: cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True), iters=2)
+        pb = cuda_ms(lambda: cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True), iters=2)
         ef, rf = scaled_err(cp.epilogue_fwd_runs_cuda(agg, *p, H, True),
                             cp.epilogue_fwd_runs_plain(agg, *p, H, True))
         require(rf <= EPI_FWD_TOL[dt], f"K2R disagrees at M={M}: {rf}")
@@ -562,20 +719,24 @@ def time_runs_shapes(batch, dev, gen, R=20):
         want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True)
         bmsg = check_bwd(got, want, TOL[dt][1], f"runs M={M}")
         eb, _ = scaled_err(got[0], want[0])
-        del got, want
-        errf, errb = max(errf, ef), max(errb, eb)
-        tf, pf, tb, pb = tf + 2 * kf, pf + 2 * pf_, tb + kb, pb + pb_
-        log(f"  K2R at M={M}, R={R}: kernel {kf:.3f} ms, plain {pf_:.3f} ms, max_abs_err "
-            f"{ef:.3e} (scaled {rf:.2e}); K3R: kernel {kb:.3f} ms, plain {pb_:.3f} ms, dagg "
-            f"max_abs_err {eb:.3e}; scaled max {bmsg}")
-    out["pma_epilogue_fwd_runs"] = (tf, pf, errf)
-    out["pma_epilogue_bwd_runs"] = (tb, pb, errb)
+        del want
+        for r in range(R):
+            one = cp.epilogue_bwd_cuda(agg[:, r * WP:(r + 1) * WP].contiguous(),
+                                       gy[:, r * HC:(r + 1) * HC].contiguous(),
+                                       *[t[r] for t in p], H, True)
+            require(torch.equal(got[0][:, r * WP:(r + 1) * WP], one[0])
+                    and torch.equal(got[1][r], one[1]) and torch.equal(got[2][r], one[2]),
+                    f"K3R run {r} differs from K3 on its slice at M={M}")
+        del got, one
+        out["pma_epilogue_fwd_runs"].add(2, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False, R))
+        out["pma_epilogue_bwd_runs"].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True, R))
+        log(f"  K2R at M={M}, R={R}: kernel {kf:.3f} ms, plain {pf:.3f} ms, max_abs_err "
+            f"{ef:.3e} (scaled {rf:.2e}); K3R: kernel {kb:.3f} ms, plain {pb:.3f} ms, dagg "
+            f"max_abs_err {eb:.3e}; scaled max {bmsg}; each run bit-identical to K3")
     pack = time_pack((batch.num_nodes, inc.num_edges + batch.num_nodes), R, dt, dev, gen,
                      per_launch=2)  # train and eval forward
-    log(f"  K4+K5 per {R}-run epoch: kernels "
-        f"{pack['pma_gmax'][0] + pack['pma_pack'][0]:.3f} ms, plain chain "
-        f"{pack['pma_pack'][1]:.3f} ms")
     out.update({f"{k}_runs": v for k, v in pack.items()})
+    log_tallies(out, f"{R}-run epoch")
     _kernels.reset_launches()
     return out
 
@@ -798,6 +959,10 @@ def main() -> int:
     _kernels.build(force=True)
     _kernels.lib()
     log(f"  nvcc build {_kernels.build_seconds:.1f} s into {_kernels.BUILD_DIR}")
+    with open(os.path.join(_kernels.BUILD_DIR, "ptxas.log"), "w") as f:
+        f.write(_kernels.build_log)
+    for name, regs, st, ld in ptxas_summary(_kernels.build_log):
+        log(f"  ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
 
     gen = torch.Generator().manual_seed(0)
     log("phase 3: kernels against their plain versions")
@@ -839,7 +1004,7 @@ def main() -> int:
 
     sources = {  # name -> (source, TPU kernel replaced, launches of its path)
         "segment_sum": ("allset_tpu_torch/csrc/segment_sum.cu",
-                        "allset_tpu/ops/pallas_segment.py:39", runs_counts),
+                        "allset_tpu/ops/pallas_segment.py:39", counts),
         "pma_epilogue_fwd": ("allset_tpu_torch/csrc/pma_epilogue.cu",
                              "allset_tpu/ops/pallas_pma.py:170", counts),
         "pma_epilogue_bwd": ("allset_tpu_torch/csrc/pma_epilogue.cu",
@@ -855,10 +1020,8 @@ def main() -> int:
     }
     kernels = []
     for name, (src, rep, cnt) in sources.items():
-        ms, plain_ms, err = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": cnt[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "launches": cnt[name], **timings[name].row()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

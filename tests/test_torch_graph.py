@@ -140,6 +140,14 @@ def test_batch_holds_tensors_on_its_device():
     assert moved.node.device.type == "meta" and moved.real.node.device.type == "meta"
 
 
+def test_batch_defaults_to_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    hd = ttr.add_self_loops(GRAPHS["synthetic"](tsyn))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Batch.from_hyperdata(hd)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib, allset_tpu_torch\n"

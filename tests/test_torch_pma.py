@@ -1,5 +1,6 @@
 """K2/K3's plain versions (the CPU path of pma_epilogue and its backward)
-against the JAX package's fused epilogue kernel in interpret mode."""
+against the JAX package's fused epilogue kernel in interpret mode, with
+f32 products and with the kernels' 3xTF32 split emulated."""
 
 import jax
 import jax.numpy as jnp
@@ -8,14 +9,14 @@ import pytest
 import torch
 
 from allset_tpu.ops.pallas_pma import pma_epilogue as jax_epilogue
-from allset_tpu_torch.ops import _kernels
+from allset_tpu_torch.ops import _kernels, cuda_pma
 from allset_tpu_torch.ops.cuda_pma import epilogue_fwd_cuda, pma_epilogue
 
 H, HC, M, WP, BLK = 4, 128, 200, 136, 64  # M not a multiple of BLK
 NAMES = ["dagg", "dseed", "dg0", "db0", "dW", "dbrff", "dg1", "db1"]
 
 
-def _inputs(L, seed=0):
+def _inputs(L, seed=0, H=H, HC=HC, M=M, WP=WP):
     rng = np.random.default_rng(seed)
     den = rng.uniform(0.3, 3.0, (M, H))
     den[::23] = 0.0  # empty segments: the 1e-16 floor
@@ -30,11 +31,72 @@ def _inputs(L, seed=0):
     return agg, [p.astype(np.float32) for p in params], tgt
 
 
+def tf32(x):
+    """cvt.rna.tf32.f32: x rounded to 10 explicit mantissa bits, ties away
+    from zero (finite x)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_mm(a, b):
+    """The kernels' 3xTF32 product: a = ah + al, b = bh + bl (TF32 parts,
+    al = tf32(a - ah)); al@bh + ah@bl + ah@bh, the TF32 products exact and
+    summed in f64. Where a is exact in TF32 (bf16), al = 0: 2xTF32."""
+    a, b = a.float(), b.float()
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    d = torch.float64
+    return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d) + ah.to(d) @ bh.to(d)).float()
+
+
+@pytest.mark.parametrize("K", [64, 256])
+def test_split_tf32_product_is_f32_accurate(K):
+    rng = np.random.default_rng(K)
+    a = torch.from_numpy(rng.normal(size=(300, K)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(K, 200)).astype(np.float32))
+    ref = (a.double() @ b.double()).float()
+    f32 = a @ b
+    scale = ref.abs().max().item()
+    assert (split_mm(a, b) - f32).abs().max().item() / scale <= 1e-6
+    assert (split_mm(a, b) - ref).abs().max().item() / scale <= 1e-6
+    # each operand's parts: 11 significant bits each, the rest within 2^-22
+    ah = tf32(a)
+    assert ((ah.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((a - ah - tf32(a - ah)).abs() <= a.abs() * 2.0**-22).all()
+    # plain TF32 (one product of the rounded operands) is not enough
+    assert (tf32(a) @ tf32(b) - f32).abs().max().item() / scale > 1e-4
+
+
+@pytest.mark.parametrize("L", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_epilogue_on_split_products_matches_jax_kernel(dtype, L, monkeypatch):
+    """The plain epilogue with every rFF product taken as the kernels take
+    it (3xTF32; a bf16 operand makes its low part 0) stays within the JAX
+    kernel's tolerances."""
+    monkeypatch.setattr(cuda_pma, "_mm", split_mm)
+    test_epilogue_matches_jax_kernel(dtype, L, True)
+
+
+@pytest.mark.parametrize("shape", [(8, 192, 100, 200), (32, 256, 70, 288)],
+                         ids=["HC192-H8", "HC256-H32"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_epilogue_at_other_widths_on_split_products_matches_jax_kernel(dtype, shape,
+                                                                       monkeypatch):
+    """The other widths and head counts the kernels take (HC % 64 == 0,
+    HC <= 256, any H dividing HC), with the kernels' split products."""
+    monkeypatch.setattr(cuda_pma, "_mm", split_mm)
+    _check_against_jax(dtype, 2, True, *shape)
+
+
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("L", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_epilogue_matches_jax_kernel(dtype, L, relu):
-    agg, params, tgt = _inputs(L)
+    _check_against_jax(dtype, L, relu, H, HC, M, WP)
+
+
+def _check_against_jax(dtype, L, relu, H, HC, M, WP):
+    agg, params, tgt = _inputs(L, H=H, HC=HC, M=M, WP=WP)
     jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     td = getattr(torch, dtype)
 

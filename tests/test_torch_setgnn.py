@@ -78,7 +78,7 @@ def jax_ref():
 
 
 def _port(ref, dtype):
-    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), device="cpu", bucket=64)
     tm = SetGNN(SetGNNConfig(**CFG, dtype=dtype), torch.Generator().manual_seed(0))
     tm.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, ref["params"])))
     return tm, tb
@@ -204,7 +204,7 @@ def jax_mode(request):
 
 def _port_mode(ref, mode, dtype, params=None):
     over, steps = MODES[mode]
-    tb = Batch.from_hyperdata(_mode_hd(tsyn, ttr, steps), bucket=64)
+    tb = Batch.from_hyperdata(_mode_hd(tsyn, ttr, steps), device="cpu", bucket=64)
     cfg = SetGNNConfig(**{**MODE_CFG, **over}, dtype=dtype, nnz_padded=tb.inc.nnz_padded)
     tm = SetGNN(cfg, torch.Generator().manual_seed(0))
     tm.load_state_dict(params_from_jax(jax.tree_util.tree_map(

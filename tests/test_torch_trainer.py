@@ -31,6 +31,7 @@ from allset_tpu.models.setgnn import SetGNNConfig as JConfig
 from allset_tpu_torch.graph.batch import Batch, split_masks
 from allset_tpu_torch.models import SetGNN, SetGNNConfig
 from allset_tpu_torch.train import TrainConfig, Trainer, masked_nll
+from allset_tpu_torch.train.factory import ExperimentConfig, prepare
 from allset_tpu_torch.utils import params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -118,7 +119,7 @@ def jax_runs():
 
 
 def _port_runs(ref, dtype):
-    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), device="cpu", bucket=64)
     gens = [torch.Generator().manual_seed(r) for r in range(R)]
     tm = SetGNN(SetGNNConfig(**CFG, dtype=dtype), gens)
     tm.load_state_dict(params_from_jax(_np(ref["params"])))  # leading [R] on every leaf
@@ -156,7 +157,7 @@ def test_runs_model_is_the_stack_of_single_run_models(mode):
     """Run r of a runs model is the single model built from generator r:
     the same parameters and the same logits, bit for bit (every dense op
     runs run by run at a single run's shapes), in every mode."""
-    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), device="cpu", bucket=64)
     cfg = SetGNNConfig(**{**CFG, **mode}, nnz_padded=tb.inc.nnz_padded)
     runs = SetGNN(cfg, [torch.Generator().manual_seed(s) for s in (4, 9)])
     with torch.no_grad():
@@ -198,7 +199,7 @@ def test_trainer_fit_matches_jax_trainer(monkeypatch):
     monkeypatch.setattr(ttrainer.Trainer, "_init", init)
     monkeypatch.setattr(ttrainer.Trainer, "_apply",
                         lambda self, model, train, gens: model(self.batch, False))
-    tb = Batch.from_hyperdata(_hd(tsyn, ttr), bucket=64)
+    tb = Batch.from_hyperdata(_hd(tsyn, ttr), device="cpu", bucket=64)
     got = Trainer(SetGNNConfig(**cfg), tb, TrainConfig(**tc)).fit().metrics
     assert got.shape == want.shape == (R, 3, 6)
     np.testing.assert_array_equal(got[..., :3], want[..., :3])
@@ -207,7 +208,8 @@ def test_trainer_fit_matches_jax_trainer(monkeypatch):
 
 def test_grouped_full_and_sequential_fits_agree():
     data = treg.load_dataset("synthetic", feature_noise=1.0)
-    tb = Batch.from_hyperdata(ttr.norm_construction(ttr.add_self_loops(data), "all_one"))
+    tb = Batch.from_hyperdata(ttr.norm_construction(ttr.add_self_loops(data), "all_one"),
+                             device="cpu")
     cfg = SetGNNConfig(num_features=data.num_features, num_classes=data.num_classes,
                        all_num_layers=1, mlp_hidden=64, heads=2, classifier_hidden=32)
     kw = dict(epochs=4, runs=3, seed=7)
@@ -277,6 +279,16 @@ def test_cli_unported_parts_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError):
         cli.main(["--device", "cpu", "--dname", "synthetic", "--epochs", "1", "--runs", "1",
                   "--res_root", str(tmp_path), *flags])
+
+
+def test_prepare_defaults_to_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    data = treg.load_dataset("synthetic", feature_noise=1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare(ExperimentConfig(dname="synthetic"), data)
+    _, batch = prepare(ExperimentConfig(dname="synthetic"), data, "cpu")
+    assert batch.x.device.type == "cpu"
 
 
 class _Prepared(Exception):
