@@ -15,7 +15,8 @@ Differences from the JAX CLI:
     CPU. ``--device cpu`` runs the kernels' plain versions.
   * With ``--preset``, a flag given on the command line overrides the
     preset (the JAX CLI lets the preset win), so the tuned protocol can
-    be shortened, e.g. ``--preset --runs 5``.
+    be shortened, e.g. ``--preset --runs 5``. As in the JAX CLI, the
+    preset table is the AllSetTransformer one, whatever the method.
   * ``--add_self_loop`` takes an optional boolean (default true); the
     reference's flag is ``store_false``, which turns self-loops off.
   * Flags of parts not ported yet (``--plot``, ``--save_params``,
@@ -156,6 +157,7 @@ def run(argv=None):
         normtype=args.normtype,
         add_self_loop=args.add_self_loop,
         normalization=args.normalization,
+        deepset_input_norm=args.deepset_input_norm,
         gpr=args.GPR,
         learn_mask=args.LearnMask,
         exclude_self=args.exclude_self,

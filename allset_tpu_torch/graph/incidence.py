@@ -306,6 +306,7 @@ class Incidence:
             src=self.node,
             dst=self.edge,
             norm=self.norm,
+            perm_srcsort=self.node_perm,
             dst_count=self.edge_count,
             indptr=self.edge_indptr,
             src_indptr=self.node_indptr,
@@ -324,6 +325,7 @@ class Incidence:
             src=self.edge_by_node,
             dst=self.node_sorted,
             norm=self.norm[self.node_perm],
+            perm_srcsort=self.inv_node_perm,
             dst_count=self.node_count,
             indptr=self.node_indptr,
             src_indptr=self.edge_indptr,
@@ -347,6 +349,7 @@ class Incidence:
             sl_mode="append",
             num_dst_total=self.real.num_edges + self.num_nodes,
             sl_mask=self.sl_mask,
+            sl_norm=self.sl_norm_full,
             dst_count=torch.cat([self.real.edge_count, self.sl_mask]),
         )
 
@@ -360,6 +363,7 @@ class Incidence:
             sl_mode="add",
             num_dst_total=self.num_nodes,
             sl_mask=self.sl_mask,
+            sl_norm=self.sl_norm_full,
             dst_count=self.node_count,
         )
 
@@ -384,6 +388,7 @@ class Direction:
     src: Tensor  # i64[nnz_pad]
     dst: Tensor  # i64[nnz_pad]
     norm: Tensor  # f32[nnz_pad]
+    perm_srcsort: Tensor  # i64[nnz_pad] execution index of each src-sorted entry
     dst_count: Tensor  # f32[num_dst or num_dst_total]
     indptr: Tensor  # i32[num_dst + 1] over valid entries, by dst
     src_indptr: Tensor  # i32[num_src + 1] over valid entries, by src
@@ -396,3 +401,4 @@ class Direction:
     sl_mode: str = "none"
     num_dst_total: int = 0
     sl_mask: Optional[Tensor] = None  # f32[num_nodes]
+    sl_norm: Optional[Tensor] = None  # f32[num_nodes], the self-loop norm (0 at holes)

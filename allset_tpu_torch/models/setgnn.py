@@ -1,11 +1,13 @@
-"""SetGNN: the AllSet model, AllSetTransformer mode.
+"""SetGNN: the AllSet model, AllSetTransformer (pma=True) and AllDeepSets
+(pma=False, the Deep Sets half-layer).
 
-Counterpart of ``allset_tpu/models/setgnn.py`` for ``pma=True``.
-``All_num_layers`` rounds of V->E then E->V attention pooling
-(HalfNLHconv), then the classifier MLP; ``All_num_layers=0`` is the
-classifier alone. The inter-stage relu folds into each half-layer's fused
-epilogue. Whether a kernel or its plain version runs is decided by the
-device of the batch alone.
+Counterpart of ``allset_tpu/models/setgnn.py``. ``All_num_layers``
+rounds of V->E then E->V multiset functions (HalfNLHconv: PMA attention
+pooling, or Deep Sets f_enc -> weighted reduce -> f_dec), then the
+classifier MLP; ``All_num_layers=0`` is the classifier alone. The
+inter-stage relu folds into each PMA half-layer's fused epilogue; the Deep
+Sets half-layer ends in its own relu. Whether a kernel or its plain
+version runs is decided by the device of the batch alone.
 
   * The exchange takes the self-loop split (N-slot layout) when the
     incidence has one, and the unsplit Directions when it has none
@@ -16,11 +18,14 @@ device of the batch alone.
     output of ``gpr_mlp`` on the features (f32, whatever ``dtype``) and
     every E->V output are stacked [N, hid, L+1] in f32 and mixed by the
     learned ``GPRweights`` [L+1, 1] before the classifier.
-  * ``learn_mask``: a per-entry ``importance`` [nnz_padded] of ones. The
-    JAX model multiplies it into the entry norm, which PMA never reads, so
-    it changes no logit and its gradient is zero. The port does not form
-    the product; it gives importance an explicit zero gradient, so Adam's
-    weight decay still moves it as the JAX package's torch_adam does.
+  * ``learn_mask``: a per-entry ``importance`` [nnz_padded] of ones,
+    multiplied into the entry norm (canonical order; E->V takes it in the
+    node-sorted order). The Deep Sets reduce is weighted by that product
+    and gives importance its gradient (dir_spmm's SDDMM). PMA never reads
+    the norm, so there (and with ``All_num_layers=0``) importance changes
+    no logit and its gradient is zero: the port then gives it an explicit
+    zero gradient, so Adam's weight decay still moves it as the JAX
+    package's torch_adam does.
 
 Statistical runs: built with a list of R generators, one per run, every
 parameter carries a leading [R] axis (the JAX package's vmapped tree) and
@@ -39,17 +44,17 @@ from allset_tpu_torch.graph.batch import Batch
 from allset_tpu_torch.nn.init import Generators
 from allset_tpu_torch.nn.modules import MLP, HalfNLHconv, TorchDense, dropout, runs_of
 
-_LATER = "comes with the AllDeepSets port (ROADMAP Queue 1 item 6)"
+_LATER = "is not ported yet (ROADMAP Queue 1 item 13)"
 
 
 @dataclasses.dataclass(frozen=True)
 class SetGNNConfig:
-    """Hyperparameters of SetGNN: the JAX package's field names, limited
-    to what the AllSetTransformer path reads or rejects. ``aggregate`` is
-    the Deep Sets reduce; the attention path does not read it.
-    ``nnz_padded`` is the incidence's padded entry count, which sizes
-    LearnMask's importance (the JAX model reads it from the batch at
-    init)."""
+    """Hyperparameters of SetGNN: the JAX package's field names.
+    ``aggregate`` ('add', 'mean', 'max') is the Deep Sets reduce and
+    ``deepset_input_norm`` gives its MLPs an input norm; the attention path
+    reads neither. ``nnz_padded`` is the incidence's padded entry count,
+    which sizes LearnMask's importance (the JAX model reads it from the
+    batch at init)."""
 
     num_features: int
     num_classes: int
@@ -62,11 +67,18 @@ class SetGNNConfig:
     dropout: float = 0.5
     aggregate: str = "mean"
     normalization: str = "ln"
+    deepset_input_norm: bool = True
     pma: bool = True
     gpr: bool = False
     learn_mask: bool = False
     dtype: str = "float32"  # or 'bfloat16': bf16 activations, f32 params
     nnz_padded: int = 0
+
+    @classmethod
+    def all_deep_sets(cls, **kw) -> "SetGNNConfig":
+        """The AllDeepSets factory override (``src/train.py:37-38``)."""
+        kw.update(pma=False, aggregate="add")
+        return cls(**kw)
 
 
 class _ZeroGrad(torch.autograd.Function):
@@ -86,8 +98,6 @@ class _ZeroGrad(torch.autograd.Function):
 class SetGNN(nn.Module):
     def __init__(self, cfg: SetGNNConfig, generator: Generators):
         super().__init__()
-        if not cfg.pma:
-            raise NotImplementedError(f"AllDeepSets {_LATER}")
         if cfg.normalization == "bn":
             raise NotImplementedError(f"normalization='bn' {_LATER}")
         self.cfg = cfg
@@ -109,6 +119,9 @@ class SetGNN(nn.Module):
                 self.add_module(name, HalfNLHconv(
                     in_dim, cfg.mlp_hidden, cfg.mlp_hidden, cfg.mlp_num_layers,
                     cfg.heads, generator, dtype=dtype, fold_relu=True,
+                    attention=cfg.pma, dropout=cfg.dropout,
+                    normalization=cfg.normalization, input_norm=cfg.deepset_input_norm,
+                    norm_grad=cfg.learn_mask,
                 ))
         if cfg.gpr and L > 0:
             self.GPRweights = TorchDense(L + 1, 1, generator, use_bias=False)
@@ -129,7 +142,9 @@ class SetGNN(nn.Module):
             raise ValueError(f"importance has {self.importance.shape[-1]} entries, the "
                              f"incidence {inc.nnz_padded}")
         logits = self._logits(batch, train, generator)
-        return _ZeroGrad.apply(logits, self.importance) if cfg.learn_mask else logits
+        if cfg.learn_mask and (cfg.pma or cfg.all_num_layers == 0):
+            return _ZeroGrad.apply(logits, self.importance)
+        return logits
 
     def _logits(self, batch: Batch, train: bool, generator) -> torch.Tensor:
         cfg, inc = self.cfg, batch.inc
@@ -140,15 +155,22 @@ class SetGNN(nn.Module):
             d_v2e, d_e2v = inc.v2e(), inc.e2v()
         else:
             d_v2e, d_e2v = inc.v2e_split(), inc.e2v_split()
+        n_v2e = n_e2v = None  # the Deep Sets reduce's weights (execution order)
+        if not cfg.pma and cfg.learn_mask:
+            n = self.importance * inc.norm  # canonical order, [(R,) nnz_padded]
+            n_v2e, n_e2v = n, n[..., inc.node_perm]
+        elif not cfg.pma:
+            n_v2e, n_e2v = d_v2e.norm, d_e2v.norm
+        kw = dict(aggr=cfg.aggregate, train=train, generator=generator)
         if cfg.gpr:
             xs = [torch.relu(self.gpr_mlp(batch.x, train, generator))]
             h = batch.x
         else:
             h = dropout(batch.x, 0.2, train, generator)  # fixed input dropout
         for i in range(cfg.all_num_layers):
-            h = getattr(self, f"V2E_{i}")(h, d_v2e)  # relu folded in
+            h = getattr(self, f"V2E_{i}")(h, d_v2e, n_v2e, **kw)  # ends in a relu
             h = dropout(h, p, train, generator)
-            h = getattr(self, f"E2V_{i}")(h, d_e2v)
+            h = getattr(self, f"E2V_{i}")(h, d_e2v, n_e2v, **kw)
             if cfg.gpr:
                 xs.append(h)
             h = dropout(h, p, train, generator)

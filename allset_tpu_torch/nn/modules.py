@@ -1,10 +1,11 @@
 """Core neural modules: TorchDense, NormLayer, MLP, PMA (attention
 pooling), HalfNLHconv.
 
-Counterpart of ``allset_tpu/nn/modules.py`` for the AllSetTransformer
-path. Parameter names and shapes follow the JAX package's flax names, so
-a ``state_dict`` key is the flax path joined by dots (see
-``utils/jax_bridge.py``); kernels keep the flax layout ``[in, out]``.
+Counterpart of ``allset_tpu/nn/modules.py`` for SetGNN (the
+AllSetTransformer and AllDeepSets half-layers). Parameter names and
+shapes follow the JAX package's flax names, so a ``state_dict`` key is
+the flax path joined by dots (see ``utils/jax_bridge.py``); kernels keep
+the flax layout ``[in, out]``.
 Parameters are float32; ``dtype`` is the activation dtype.
 
 Statistical runs: built with a list of R generators (one per run), every
@@ -12,13 +13,14 @@ parameter carries a leading [R] axis, the counterpart of the JAX
 package's vmapped parameter tree. Activations are then [rows, R, F]; a
 shared input [rows, F] (the features, before any dropout) is accepted
 too. The score+pack kernels, the sparse exchange and the fused epilogue
-see the runs folded into the width, [rows, R * F]: one launch serves all
-runs, and each run's columns come out as a single run's would. Every
-dense op (GEMMs, LayerNorm, the plain versions' score and pack math) runs
-run by run on contiguous [rows, F] tensors, so its shapes, and with them
-the library's choice of kernel and summation order, do not depend on R:
-a run gives the same bits whether it is trained alone or folded with
-others.
+see the runs folded into the width, [rows, R * F], and the LayerNorm
+kernels take [rows, R, F] with [R, F] parameters: one launch serves all
+runs, and each run's values come out as a single run's would. Every
+other dense op (GEMMs, the plain versions' LayerNorm, score and pack
+math) runs run by run on contiguous [rows, F] tensors, so its shapes,
+and with them the library's choice of kernel and summation order, do not
+depend on R: a run gives the same bits whether it is trained alone or
+folded with others.
 """
 
 from __future__ import annotations
@@ -36,11 +38,10 @@ from allset_tpu_torch.nn.init import (
     torch_linear_kernel,
     xavier_uniform_torch_fans,
 )
+from allset_tpu_torch.ops.cuda_ln import layer_norm
 from allset_tpu_torch.ops.cuda_pack import pma_pack
 from allset_tpu_torch.ops.cuda_pma import pma_epilogue, pma_epilogue_runs
 from allset_tpu_torch.ops.exchange import dir_spmm
-
-LN_EPS = 1e-5  # torch/flax LayerNorm default
 
 
 def runs_of(generator: Generators) -> Optional[int]:
@@ -152,15 +153,17 @@ class MLPParams(nn.Module):
 
 class NormLayer(nn.Module):
     """'ln' (flax LayerNorm: f32 statistics, fast variance, 'scale' and
-    'bias') or 'None' (identity, no parameters). 'bn' raises."""
+    'bias'; the B12/B13 kernels, ``ops/cuda_ln.py``) or 'None' (identity,
+    no parameters). 'bn' raises. With R runs the parameters are [R, F] and
+    one launch serves every run of x [rows, R, F] (or a shared [rows, F])."""
 
     def __init__(self, kind: str, dim: int, lead: tuple = (),
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if kind == "bn":
             raise NotImplementedError(
-                "normalization='bn' (batch statistics) comes with the "
-                "AllDeepSets port (ROADMAP Queue 1 item 6)"
+                "normalization='bn' (batch statistics) is not ported yet "
+                "(ROADMAP Queue 1 item 13)"
             )
         if kind not in ("ln", "None", "none", None):
             raise ValueError(f"unknown normalization {kind!r}")
@@ -168,32 +171,27 @@ class NormLayer(nn.Module):
         if kind == "ln":  # the flax submodule's automatic name
             self.LayerNorm_0 = LNParams(dim, lead)
 
-    def _ln(self, x, scale, bias):
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        y = (xf - mu) * (torch.rsqrt(var + LN_EPS) * scale) + bias
-        return y.to(self.dtype if self.dtype is not None else x.dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind != "ln":
             return x
         ln = self.LayerNorm_0
-        if ln.scale.dim() == 1:
-            return self._ln(x, ln.scale, ln.bias)
-        return runs_apply(self._ln, x, ln.scale, ln.bias)
+        return layer_norm(x, ln.scale, ln.bias, self.dtype)
 
 
 class MLP(nn.Module):
-    """The reference MLP (``src/layers.py:496-579``) without input norm:
-    for each hidden layer lin -> relu -> norm -> dropout, then the final
-    linear. One layer is a linear map (TorchDense)."""
+    """The reference MLP (``src/layers.py:496-579``): the input norm
+    (``input_norm``) or the identity, then for each hidden layer lin ->
+    relu -> norm -> dropout, then the final linear. One layer is a linear
+    map (TorchDense)."""
 
     def __init__(self, in_dim: int, hidden: int, out: int, num_layers: int,
                  generator: Generators, dtype: Optional[torch.dtype] = None,
-                 normalization: str = "ln", dropout: float = 0.0):
+                 normalization: str = "ln", dropout: float = 0.0,
+                 input_norm: bool = False):
         super().__init__()
         self.num_layers, self.p = num_layers, dropout
+        if input_norm:
+            self.input_norm = NormLayer(normalization, in_dim, _lead(generator), dtype=dtype)
         for i in range(num_layers - 1):
             self.add_module(f"lin{i}", TorchDense(in_dim if i == 0 else hidden, hidden,
                                                   generator, dtype=dtype))
@@ -204,6 +202,8 @@ class MLP(nn.Module):
                                                  generator, dtype=dtype))
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        if hasattr(self, "input_norm"):
+            x = self.input_norm(x)
         for i in range(self.num_layers - 1):
             x = torch.relu(getattr(self, f"lin{i}")(x))
             x = getattr(self, f"norm{i}")(x)
@@ -237,10 +237,8 @@ class PMA(nn.Module):
                  heads: int, generator: Generators,
                  dtype: Optional[torch.dtype] = None, fold_relu: bool = False):
         super().__init__()
-        if out_dim != hid_dim or num_layers not in (1, 2):
-            raise NotImplementedError(
-                "PMA needs out_dim == hid_dim and a 1- or 2-layer rFF"
-            )
+        if out_dim != hid_dim or num_layers < 1:
+            raise NotImplementedError("PMA needs out_dim == hid_dim and an rFF of 1 or more layers")
         H, C = heads, hid_dim // heads
         HC = H * C
         self.heads = heads
@@ -292,16 +290,56 @@ class PMA(nn.Module):
 
 class HalfNLHconv(nn.Module):
     """One directed half-layer of multiset message passing (reference
-    ``src/layers.py:582-656``); the attention branch (PMA pooling, the
-    AllSetTransformer half-layer). The Deep Sets branch comes with the
-    AllDeepSets port."""
+    ``src/layers.py:582-656``).
+
+    attention=True  -> PMA pooling (the AllSetTransformer half-layer);
+    attention=False -> Deep Sets rho(sum phi(x)): relu(f_enc MLP) ->
+                       dropout -> dir_spmm(norm, aggr) -> relu(f_dec MLP).
+                       With num_layers == 0 the MLPs are the identity but
+                       the relus remain (``src/layers.py:631-634``). The
+                       branch ends in a relu, so a folded inter-stage relu
+                       would be idempotent: ``fold_relu`` is not read.
+
+    Deep Sets with R runs: the exchange takes the runs folded into the
+    width, [rows, R*F], and ``norm`` may carry a runs axis [R, nnz_pad]
+    (LearnMask)."""
 
     def __init__(self, in_dim: int, hid_dim: int, out_dim: int, num_layers: int,
                  heads: int, generator: Generators,
-                 dtype: Optional[torch.dtype] = None, fold_relu: bool = False):
+                 dtype: Optional[torch.dtype] = None, fold_relu: bool = False,
+                 attention: bool = True, dropout: float = 0.5,
+                 normalization: str = "ln", input_norm: bool = False,
+                 norm_grad: bool = False):
         super().__init__()
-        self.prop = PMA(in_dim, hid_dim, out_dim, num_layers, heads, generator,
-                        dtype=dtype, fold_relu=fold_relu)
+        self.attention = attention
+        if attention:
+            self.prop = PMA(in_dim, hid_dim, out_dim, num_layers, heads, generator,
+                            dtype=dtype, fold_relu=fold_relu)
+            return
+        self.runs, self.p, self.norm_grad = runs_of(generator), dropout, norm_grad
+        if num_layers > 0:
+            kw = dict(generator=generator, dtype=dtype, normalization=normalization,
+                      dropout=dropout, input_norm=input_norm)
+            self.f_enc = MLP(in_dim, hid_dim, hid_dim, num_layers, **kw)
+            self.f_dec = MLP(hid_dim, hid_dim, out_dim, num_layers, **kw)
 
-    def forward(self, x: torch.Tensor, d: Direction) -> torch.Tensor:
-        return self.prop(x, d)
+    def forward(self, x: torch.Tensor, d: Direction, norm=None, aggr: str = "add",
+                train: bool = False, generator=None) -> torch.Tensor:
+        """x [rows, F] ([rows, R, F] or a shared [rows, F] with runs); the
+        Deep Sets branch reduces with ``norm`` (execution order) by
+        ``aggr``."""
+        if self.attention:
+            return self.prop(x, d)
+        R = self.runs
+        if hasattr(self, "f_enc"):
+            x = self.f_enc(x, train, generator)
+        x = dropout(torch.relu(x), self.p, train, generator)
+        if R is not None and x.dim() == 2:  # shared by the runs
+            x = x[:, None].expand(-1, R, -1)
+        rows, F = x.shape[0], x.shape[-1]
+        x = dir_spmm(x.reshape(rows, -1), d, norm=norm, reduce=aggr, norm_grad=self.norm_grad)
+        if R is not None:
+            x = x.view(x.shape[0], R, F)
+        if hasattr(self, "f_dec"):
+            x = self.f_dec(x, train, generator)
+        return torch.relu(x)

@@ -33,7 +33,8 @@ BUILD_DIR = osp.join(_PKG, "_build")
 _SO = osp.join(BUILD_DIR, "libkernels.so")
 
 KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
-           "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack")
+           "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack",
+           "layer_norm_fwd", "layer_norm_bwd")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -42,12 +43,15 @@ build_log = ""  # nvcc's stderr of the last build: -Xptxas -v registers and spil
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 _SIGNATURES = {
     "allset_segment_sum": [P, P, P, I, P, I, P, P, I, I, P],
     "allset_pma_epilogue_fwd": [P] * 10 + [I] * 8 + [P],
     "allset_pma_epilogue_bwd": [P] * 17 + [I] * 11 + [P],
     "allset_pma_gmax": [P] * 3 + [I] * 6 + [P],
     "allset_pma_pack": [P] * 5 + [I] * 6 + [P],
+    "allset_layer_norm_fwd": [P] * 4 + [LL, I, I, LL, LL, I, I, P],
+    "allset_layer_norm_bwd": [P] * 8 + [LL, I, I, LL, LL, I, I, I, P],
 }
 
 

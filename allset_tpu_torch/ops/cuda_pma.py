@@ -31,9 +31,14 @@ single-run launch on run r's slice bit for bit.
 
 The plain versions below follow the kernel's math (``_fwd_recompute`` and
 ``_ln_bwd`` of the JAX module), including its rounding points; the runs
-versions apply them run by run. The wrappers launch the kernels for CUDA
-tensors and take the plain versions for CPU tensors; any other device
-raises.
+versions apply them run by run. The plain versions take any HC, head
+count and rFF depth L. For CUDA tensors :func:`epilogue_route` picks the
+route by shape: the kernels where :func:`epilogue_supported` holds, the
+plain versions where the JAX package's gate composes the epilogue too
+(an rFF of L outside (1, 2), HC not a multiple of 128), and a raise for
+the rest (HC a multiple of 128 above 256 with L in (1, 2), where the JAX
+package runs its fused kernel and the port has none yet). CPU tensors
+take the plain versions; any other device raises.
 """
 
 from __future__ import annotations
@@ -176,6 +181,33 @@ def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
             torch.stack([o[2] for o in outs]))
 
 
+def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1) -> bool:
+    """The shapes K2/K3 (R = 1) and K2R/K3R (R runs) take: HC % 64 == 0,
+    HC <= 256, H dividing HC, a packed width WP >= HC + H of whole 16-byte
+    rows (WP % 8 == 0), an rFF of L in (1, 2) layers and at most 65535
+    runs."""
+    return (HC % 64 == 0 and 0 < HC <= 256 and H >= 1 and HC % H == 0
+            and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and 1 <= R <= 65535)
+
+
+def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1) -> str:
+    """The epilogue's route on the card: 'kernel' where
+    :func:`epilogue_supported` holds; 'plain' where the JAX package's gate
+    (``allset_tpu/ops/pallas_pma.py::epilogue_active``) composes the
+    epilogue as well, an rFF of L outside (1, 2) or HC not a multiple of
+    128; a raise for any other shape, since the JAX package runs its fused
+    kernel there (HC 512: ROADMAP Queue 3)."""
+    if epilogue_supported(HC, H, L, WP, R):
+        return "kernel"
+    if L not in (1, 2) or HC % 128 != 0:
+        return "plain"
+    raise ValueError(
+        f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}: K2/K3 take HC "
+        "% 64 == 0, HC <= 256, H dividing HC, WP >= HC + H, WP % 8 == 0, runs <= 65535, "
+        "and the JAX package runs its fused kernel at this shape (ROADMAP Queue 3)"
+    )
+
+
 def _check_cuda_args(agg, seed, Wrff, H, R):
     """Validate K2/K3 (R=None: unbatched parameters) or K2R/K3R (R runs,
     parameters [R, ...]); returns (M, WP, HC, L) with WP per run."""
@@ -188,8 +220,7 @@ def _check_cuda_args(agg, seed, Wrff, H, R):
     L = Wrff.shape[-3]
     WP = W // runs
     if not (seed.shape == lead + (HC,) and Wrff.shape == lead + (L, HC, HC)
-            and W == runs * WP and HC % 64 == 0 and HC <= 256 and HC % H == 0
-            and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and runs <= 65535):
+            and W == runs * WP and epilogue_supported(HC, H, L, WP, runs)):
         raise ValueError(
             f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
             f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC % 64 "
@@ -301,32 +332,39 @@ def epilogue_bwd_runs_cuda(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
     return out
 
 
-def _dispatch(cuda_fn, plain_fn, agg, *args):
+def _use_kernel(agg, seed, Wrff, H) -> bool:
+    """For a CUDA tensor, epilogue_route's choice (by shape, before any
+    launch: a kernel that fails still raises); the plain version for a CPU
+    tensor; any other device raises."""
     if agg.is_cuda:
-        return cuda_fn(agg, *args)
+        R = seed.shape[0] if seed.dim() == 2 else 1
+        return epilogue_route(seed.shape[-1], H, Wrff.shape[-3], agg.shape[1] // R,
+                              R) == "kernel"
     if agg.device.type == "cpu":
-        return plain_fn(agg, *args)
+        return False
     raise ValueError(f"pma epilogue: unsupported device {agg.device}")
 
 
 def epilogue_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
-    return _dispatch(epilogue_fwd_cuda, epilogue_fwd_plain, agg, seed, g0, b0,
-                     Wrff, brff, g1, b1, H, relu)
+    fn = epilogue_fwd_cuda if _use_kernel(agg, seed, Wrff, H) else epilogue_fwd_plain
+    return fn(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
 
 
 def epilogue_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
-    return _dispatch(epilogue_bwd_cuda, epilogue_bwd_plain, agg, gy, seed, g0,
-                     b0, Wrff, brff, g1, b1, H, relu)
+    fn = epilogue_bwd_cuda if _use_kernel(agg, seed, Wrff, H) else epilogue_bwd_plain
+    return fn(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
 
 
 def epilogue_fwd_runs(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
-    return _dispatch(epilogue_fwd_runs_cuda, epilogue_fwd_runs_plain, agg, seed,
-                     g0, b0, Wrff, brff, g1, b1, H, relu)
+    fn = (epilogue_fwd_runs_cuda if _use_kernel(agg, seed, Wrff, H)
+          else epilogue_fwd_runs_plain)
+    return fn(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
 
 
 def epilogue_bwd_runs(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
-    return _dispatch(epilogue_bwd_runs_cuda, epilogue_bwd_runs_plain, agg, gy,
-                     seed, g0, b0, Wrff, brff, g1, b1, H, relu)
+    fn = (epilogue_bwd_runs_cuda if _use_kernel(agg, seed, Wrff, H)
+          else epilogue_bwd_runs_plain)
+    return fn(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu)
 
 
 class _Epilogue(torch.autograd.Function):

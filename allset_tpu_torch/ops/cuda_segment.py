@@ -108,8 +108,17 @@ def segment_sum_cuda(msgs: Tensor, indptr: Tensor, num_seg: int, plan: SegPlan) 
 def segment_sum(msgs: Tensor, indptr: Tensor, num_seg: int, plan: SegPlan) -> Tensor:
     """out[m] = sum of msgs rows indptr[m] .. indptr[m+1]-1 -> [num_seg, W].
     f32 accumulation; the result has msgs.dtype. ``plan``: indptr's chunk
-    plan, which the kernel follows (the plain version does not need it)."""
+    plan, which the kernel follows (the plain version does not need it).
+    On the card any W runs through K1: a width that is not a multiple of 8
+    (the raw features of a Deep Sets layer without MLPs) is padded with
+    zero columns around the launch and sliced back; a column's sum does
+    not depend on the width."""
     if msgs.is_cuda:
+        W = msgs.shape[1]
+        if W % 8:
+            pad = msgs.new_zeros(msgs.shape[0], -W % 8)
+            return segment_sum_cuda(torch.cat([msgs, pad], dim=1), indptr, num_seg,
+                                    plan)[:, :W]
         return segment_sum_cuda(msgs, indptr, num_seg, plan)
     if msgs.device.type == "cpu":
         return segment_sum_plain(msgs, indptr, num_seg)

@@ -1,10 +1,10 @@
 """Experiment config and per-method preparation.
 
-Counterpart of ``allset_tpu/train/factory.py`` for AllSetTransformer:
-the typed flag surface of the reference (``src/train.py:221-287``) and
-the host preprocessing the method needs (self-loops, the exclude_self
-expansion, entry norms), then the device Batch and the model
-configuration. The other methods raise,
+Counterpart of ``allset_tpu/train/factory.py`` for SetGNN
+(AllSetTransformer and AllDeepSets): the typed flag surface of the
+reference (``src/train.py:221-287``) and the host preprocessing the
+methods need (self-loops, the exclude_self expansion, entry norms), then
+the device Batch and the model configuration. The other methods raise,
 naming the ROADMAP item that ports them.
 """
 
@@ -65,6 +65,7 @@ class ExperimentConfig:
     normtype: str = "all_one"  # 'all_one' | 'deg_half_sym'
     add_self_loop: bool = True
     normalization: str = "ln"
+    deepset_input_norm: bool = True
     gpr: bool = False
     learn_mask: bool = False
     exclude_self: bool = False
@@ -74,22 +75,15 @@ class ExperimentConfig:
     dtype: str = "float32"  # or 'bfloat16' (mixed precision)
 
 
-_QUEUE = {
-    "AllDeepSets": "ROADMAP Queue 1 item 6",
-    "MLP": "ROADMAP Queue 1 item 9",
-}
-
-
 def prepare(cfg: ExperimentConfig, data: HyperData,
             device: torch.device | str = "cuda") -> Tuple[SetGNNConfig, Batch]:
     """(method, raw HyperData) -> (model configuration, Batch on ``device``);
     the default, the card, raises without one."""
     if cfg.method not in METHODS:
         raise ValueError(f"unknown method {cfg.method!r}; choose from {METHODS}")
-    if cfg.method != "AllSetTransformer":
+    if cfg.method not in ("AllSetTransformer", "AllDeepSets"):
         raise NotImplementedError(
-            f"--method {cfg.method} is not ported yet "
-            f"({_QUEUE.get(cfg.method, 'ROADMAP Queue 1 item 9')})")
+            f"--method {cfg.method} is not ported yet (ROADMAP Queue 1 item 9)")
     d = data
     if cfg.add_self_loop:
         d = add_self_loops(d)
@@ -97,7 +91,7 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
         d = expand_edge_index(d)
     d = norm_construction(d, option=cfg.normtype)
     batch = Batch.from_hyperdata(d, device=device, bucket=cfg.bucket)
-    mcfg = SetGNNConfig(
+    kw = dict(
         num_features=data.num_features,
         num_classes=data.num_classes,
         all_num_layers=cfg.all_num_layers,
@@ -107,11 +101,13 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
         classifier_hidden=cfg.classifier_hidden,
         heads=cfg.heads,
         dropout=cfg.dropout,
-        aggregate=cfg.aggregate,
         normalization=cfg.normalization,
+        deepset_input_norm=cfg.deepset_input_norm,
         gpr=cfg.gpr,
         learn_mask=cfg.learn_mask,
         dtype=cfg.dtype,
         nnz_padded=batch.inc.nnz_padded,
     )
-    return mcfg, batch
+    if cfg.method == "AllDeepSets":
+        return SetGNNConfig.all_deep_sets(**kw), batch
+    return SetGNNConfig(pma=True, aggregate=cfg.aggregate, **kw), batch

@@ -36,6 +36,11 @@ from allset_tpu_torch.models.setgnn import SetGNN, SetGNNConfig
 from allset_tpu_torch.nn.modules import packed_width
 
 
+# [rows, hid] tables an AllDeepSets layer keeps per run at its peak
+# (Trainer._bytes_per_run)
+DEEPSETS_TABLES = 14
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     epochs: int = 500
@@ -171,18 +176,25 @@ class Trainer:
 
     def _bytes_per_run(self) -> int:
         """Device bytes one folded run adds at its peak: the classifier's
-        hidden and output tables; one gathered [nnz, WP] message table,
-        about three [rows, WP]-wide tables per half-layer kept for the
-        backward (the pack's GEMM output, the aggregate, the output) and
-        K3R's per-run scratch (the rFF inputs and output gradients); under
-        GPR the f32 [N, hid, L+1] stack and about four [N, hid] f32 tables
-        of gpr_mlp; LearnMask's importance and its two Adam moments. The
-        exchange is unsplit under LearnMask or without the self-loop split:
-        then the V->E output has one row per hyperedge instead of the
-        N-slot layout's real edges + N. On an H100 at the walmart preset in
-        f32 this gives 1.78, 2.29, 1.88 and 1.18 GiB (the preset, GPR,
-        LearnMask, no self-loops) against measured peaks of 1.69, 2.18,
-        1.78 and 1.09 GiB per run (PERF.md)."""
+        hidden and output tables; under GPR the f32 [N, hid, L+1] stack and
+        about four [N, hid] f32 tables of gpr_mlp; LearnMask's importance
+        and its two Adam moments. Per half-layer of AllSetTransformer: one
+        gathered [nnz, WP] message table, about three [rows, WP]-wide
+        tables kept for the backward (the pack's GEMM output, the
+        aggregate, the output) and K3R's per-run scratch (the rFF inputs
+        and output gradients). Of AllDeepSets: one gathered [nnz, hid]
+        table and DEEPSETS_TABLES [rows, hid] tables per layer (f_enc's and
+        f_dec's activations, the LayerNorm inputs and dropout masks kept
+        for the backward, the reduce's output), and under LearnMask the
+        SDDMM's gathered rows and product, three f32 [nnz, hid] tables.
+        The exchange is unsplit under LearnMask or without the self-loop
+        split: then the V->E output has one row per hyperedge instead of
+        the N-slot layout's real edges + N. On an H100 at the walmart
+        preset in f32 this gives 1.78, 2.29, 1.88 and 1.18 GiB for
+        AllSetTransformer (the preset, GPR, LearnMask, no self-loops)
+        against measured peaks of 1.69, 2.18, 1.78 and 1.09 GiB per run,
+        and 3.740 GiB for AllDeepSets against a measured 3.634 (PERF.md
+        has the LearnMask figure)."""
         mc, inc = self.model_cfg, self.batch.inc
         item = 2 if mc.dtype == "bfloat16" else 4
         HC, L = mc.mlp_hidden, mc.all_num_layers
@@ -194,9 +206,13 @@ class Trainer:
             nnz, rows_v2e = inc.real.nnz, inc.real.num_edges + N
         rows = rows_v2e + N
         total = 4 * N * (mc.classifier_hidden + mc.num_classes)
-        if L > 0:
+        if L > 0 and mc.pma:
             total += item * WP * (nnz + 3 * rows * L)  # tables
             total += mc.mlp_num_layers * rows_v2e * HC * (item + 4)  # K3R scratch
+        elif L > 0:
+            total += item * HC * (nnz + DEEPSETS_TABLES * rows * L)
+            if mc.learn_mask:  # the SDDMM's three f32 [nnz, hid] tables, one exchange at a time
+                total += 3 * 4 * HC * nnz
         if mc.gpr and L > 0:
             total += 4 * N * HC * (L + 5)
         if mc.learn_mask:

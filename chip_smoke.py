@@ -18,40 +18,61 @@ Phases (any failure raises and exits non-zero):
      the PMA score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4)}, rows
      not a multiple of the tile; gmax bit-equal, w within 2 f32 / 1 bf16
      ulps, a NaN score reaching gmax, R in {2, 5} bit for bit against
-     single launches), and at the main paths' shapes (K1 on the bench
+     single launches), B12/B13 the LayerNorm (f32, bf16, f32 -> bf16;
+     F in {7, 64, 256, 512}, rows not a multiple of the 64-row block; R
+     in {2, 5} and an input shared by the runs, each run bit for bit
+     against a launch on it alone), the epilogue's route by shape (an
+     rFF of 3 layers and HC 96, which the JAX package composes too, on the
+     plain version with no launch; HC 256 on K2/K3 and K2R/K3R; HC 512,
+     which has no kernel yet, raises before any launch), and at the main
+     paths' shapes (K1 on the bench
      graph's real indptrs, bit for bit as well; K3R at R=20 on the walmart
-     rows, each run bit for bit against K3), with the kernel, plain and
-     library times and the kernel's bound;
+     rows, each run bit for bit against K3; B12/B13 at the AllDeepSets
+     step's [131072, 256] and [196608, 256] bf16 launches), with the
+     kernel, plain and library times and the kernel's bound;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
      the bench step, with GPR and with LearnMask (the unsplit exchange
-     over all 582,248 entries): the loss is finite and falls, each step
-     launches K1 4 times and K2, K3, K4, K5 twice, and two runs from one
-     state give identical losses;
-  5. a small f32 graph, as the bench step, with GPR and with LearnMask:
-     one step through the kernels against one step of the plain
-     versions (on the CPU) from the same parameters, on a loss without
-     the nodes a relu argument within rounding of 0 reaches;
+     over all 582,248 entries), and the AllDeepSets step on the same
+     graph, also with LearnMask: the loss is finite and falls, each step
+     launches K1 4 times and K2, K3, K4, K5 twice (AllDeepSets: K1 4 and
+     B12, B13 8 times; GPR adds one B12 and one B13 for gpr_mlp), and
+     two runs from one state give identical losses;
+  5. a small f32 graph, as the bench step, with GPR, with LearnMask, and
+     AllDeepSets with and without LearnMask: one step through the kernels
+     against one step of the plain versions (on the CPU) from the same
+     parameters, on a loss without the nodes a relu argument within
+     rounding of 0 reaches;
   6. the runs protocol through the CLI (allset_tpu_torch.cli) on
      synthetic-walmart with the tuned preset (hidden 256, 8 heads, f32):
      20 runs folded into each launch for a few epochs; per group and
      epoch 6 K1, 4 K2R, 2 K3R, 4 K4 and 4 K5 launches whatever the
-     number of runs; finite metrics, a falling training loss; 2 runs
-     folded against 2 runs one by one: equal accuracies, losses within
-     rtol 2e-3; 20 runs x 2 epochs with --GPR, --LearnMask and
-     --add_self_loop false, and one run of --exclude_self on synthetic;
+     number of runs (and B12/B13 where a LayerNorm runs outside the
+     epilogue: GPR's gpr_mlp, a 2-layer classifier); finite metrics, a
+     falling training loss; 2 runs folded against 2 runs one by one:
+     equal accuracies, losses within rtol 2e-3; 20 runs x 2 epochs with
+     --GPR, --LearnMask and --add_self_loop false, and one run of
+     --exclude_self on synthetic; --method AllDeepSets with the same
+     preset, 20 runs x 3 epochs (6 K1, 16 B12 and 8 B13 per group and
+     epoch), then three warm runs of 4 epochs, 20 runs x 2 epochs with
+     --LearnMask (the peak device memory per run of both against the
+     trainer's estimate, which must not be lower) and 2 folded against 2
+     one by one; --MLP_num_layers 3 (2 runs x 2 epochs) with the
+     epilogue on its plain route (K2R/K3R never launch);
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
 The line before the last is a JSON object of per-kernel results (K2R,
-K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step):
-launches, the kernel's time and its plain version's summed over a bench
-step (K1, K2, K3, K4, K5) or a 20-run epoch (K2R, K3R), the bound (the
-larger of the bytes over 3.35 TB/s and the products over the tensor
-cores: bf16 at 989 TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s;
-other arithmetic at 67 TFLOP/s) and, for K1, one library call's time
-(torch.segment_reduce); the last line is {"ok": true, "device": {...}}.
+K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step,
+B12, B13 from phase 4's AllDeepSets step): launches, the kernel's time
+and its plain version's summed over a bench step (K1, K2, K3, K4, K5,
+B12, B13) or a 20-run epoch (K2R, K3R), the bound (the larger of the
+bytes over 3.35 TB/s and the products over the tensor cores: bf16 at
+989 TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s; other arithmetic
+at 67 TFLOP/s) and one library call's time where one computes the same
+function (K1: torch.segment_reduce; B12/B13: F.layer_norm and its
+autograd backward); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -98,6 +119,17 @@ def cuda_ms(fn, iters: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def rng(lo_hi) -> str:
+    return f"[{lo_hi[0]:.4f}, {lo_hi[1]:.4f}]"
+
+
+def cuda_ms_spread(fn, iters: int = 20, repeats: int = 5):
+    """(median, lowest, highest) of ``repeats`` readings of cuda_ms(fn,
+    iters)."""
+    ms = [cuda_ms(fn, iters) for _ in range(repeats)]
+    return statistics.median(ms), min(ms), max(ms)
 
 
 def scaled_err(got, want):
@@ -469,6 +501,121 @@ def check_pack(dev, gen):
     _kernels.reset_launches()
 
 
+LN_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.bfloat16))  # (x, y): the first input norm of bf16
+
+
+def ln_inputs(rows, F, xdt, ydt, dev, gen, R=None, shared=False):
+    """x (rows of 2z+1, z ~ N(0, 1)), gamma, beta, g for B12/B13; with R
+    runs x is [rows, R, F] (or [rows, F] shared) and gamma, beta [R, F]."""
+    lead = () if R is None else (R,)
+    xs = (rows, F) if R is None or shared else (rows, R, F)
+    x = (2 * torch.randn(xs, generator=gen) + 1).to(xdt).to(dev)
+    gamma = (1 + 0.3 * torch.randn(lead + (F,), generator=gen)).to(dev)
+    beta = (0.2 * torch.randn(lead + (F,), generator=gen)).to(dev)
+    g = torch.randn((rows,) + lead + (F,), generator=gen).to(ydt).to(dev)
+    return x, gamma, beta, g
+
+
+def check_ln_pair(x, gamma, beta, g, ydt, what):
+    """B12 and B13 against their plain versions -> (y err, dx err) scaled."""
+    from allset_tpu_torch.ops import cuda_ln as cl
+
+    y = cl.ln_fwd_cuda(x, gamma, beta, ydt)
+    dx, dg, db = cl.ln_bwd_cuda(g, x, gamma)
+    y_ref = cl.ln_fwd_plain(x, gamma, beta, ydt)
+    dx_ref, dg_ref, db_ref = cl.ln_bwd_plain(g, x, gamma)
+    torch.cuda.synchronize()
+    ftol, gtol = TOL[ydt]
+    out = []
+    for name, a, b, tol in (("y", y, y_ref, ftol), ("dx", dx, dx_ref, gtol),
+                            ("dgamma", dg, dg_ref, gtol), ("dbeta", db, db_ref, gtol)):
+        require(a.dtype == b.dtype and a.shape == b.shape, f"B12/B13 {name} shape ({what})")
+        err, rel = scaled_err(a, b)
+        require(rel <= tol, f"B12/B13 {name} disagrees ({what}): {rel}")
+        out.append(f"{name} {rel:.2e}")
+    return (y, dx, dg, db), ", ".join(out)
+
+
+def check_layer_norm(dev, gen):
+    """B12/B13 against their plain versions in f32, bf16 and f32 -> bf16,
+    at F in {7, 64, 256, 512} (7: the scalar path), rows not a multiple of
+    the backward's 64-row block; runs R in {2, 5} (and an x shared by the
+    runs) bit for bit against launches on each run alone."""
+    from allset_tpu_torch.ops import _kernels, cuda_ln as cl
+
+    for xdt, ydt in LN_DTYPES:
+        for F in (7, 64, 256, 512):
+            for rows in (1000, 37):
+                what = f"{str(xdt)[6:]}->{str(ydt)[6:]}, F={F}, rows={rows}"
+                _, msg = check_ln_pair(*ln_inputs(rows, F, xdt, ydt, dev, gen), ydt, what)
+                log(f"  B12/B13 {what}: scaled errors {msg} (tol {TOL[ydt]})")
+            for R, shared in ((2, False), (5, False), (5, True)):
+                x, gamma, beta, g = ln_inputs(1000, F, xdt, ydt, dev, gen, R=R, shared=shared)
+                what = f"{str(xdt)[6:]}->{str(ydt)[6:]}, F={F}, R={R}{' shared' if shared else ''}"
+                (y, dx, dg, db), msg = check_ln_pair(x, gamma, beta, g, ydt, what)
+                for r in range(R):
+                    xr = x if shared else x[:, r].contiguous()
+                    gr = g[:, r].contiguous()
+                    y1 = cl.ln_fwd_cuda(xr, gamma[r], beta[r], ydt)
+                    dx1, dg1, db1 = cl.ln_bwd_cuda(gr, xr, gamma[r])
+                    require(torch.equal(y[:, r], y1) and torch.equal(dx[:, r], dx1)
+                            and torch.equal(dg[r], dg1) and torch.equal(db[r], db1),
+                            f"B12/B13 run {r} differs from a launch on it alone ({what})")
+                log(f"  B12/B13 {what}: scaled errors {msg}; every run bit-identical to a "
+                    f"launch on it alone")
+    _kernels.reset_launches()
+
+
+def check_routes(dev, gen):
+    """The epilogue's route on the card is chosen by shape: an rFF of 3
+    layers and HC 96 (shapes the JAX package composes too) take the plain
+    version and launch no kernel; HC 256 with 2 layers launches K2/K3
+    (K2R/K3R with runs); HC 512 with 2 layers, where the JAX package runs
+    its fused kernel and the port has none yet, raises before any
+    launch."""
+    from allset_tpu_torch.ops import _kernels, cuda_pma as cp
+
+    for R in (None, 2):
+        agg, gy, p = (epi_inputs(300, 512, 8, 520, 2, torch.float32, dev, gen) if R is None
+                      else runs_inputs(300, 512, 8, 520, 2, R, torch.float32, dev, gen))
+        _kernels.reset_launches()
+        for fn, args in (((cp.epilogue_fwd, (agg,)), (cp.epilogue_bwd, (agg, gy))) if R is None
+                         else ((cp.epilogue_fwd_runs, (agg,)), (cp.epilogue_bwd_runs, (agg, gy)))):
+            try:
+                fn(*args, *p, 8, True)
+            except ValueError:
+                continue
+            require(False, f"HC 512 (R={R or 1}) did not raise")
+        require(not any(_kernels.launches.values()), "HC 512: a launch before the raise")
+        log(f"  route HC=512, H=8, L=2, R={R or 1}: raises, no launch (no kernel yet)")
+    for HC, H, WP, L, want in ((256, 8, 264, 3, "plain"), (96, 4, 104, 2, "plain"),
+                               (256, 8, 264, 2, "kernel")):
+        for R in (None, 2):
+            _kernels.reset_launches()
+            if R is None:
+                agg, gy, p = epi_inputs(300, HC, H, WP, L, torch.float32, dev, gen)
+                y = cp.epilogue_fwd(agg, *p, H, True)
+                d = cp.epilogue_bwd(agg, gy, *p, H, True)
+                y_ref = cp.epilogue_fwd_plain(agg, *p, H, True)
+                names = ("pma_epilogue_fwd", "pma_epilogue_bwd")
+            else:
+                agg, gy, p = runs_inputs(300, HC, H, WP, L, R, torch.float32, dev, gen)
+                y = cp.epilogue_fwd_runs(agg, *p, H, True)
+                d = cp.epilogue_bwd_runs(agg, gy, *p, H, True)
+                y_ref = cp.epilogue_fwd_runs_plain(agg, *p, H, True)
+                names = ("pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs")
+            torch.cuda.synchronize()
+            launched = sum(_kernels.launches[k] for k in names)
+            what = f"HC={HC}, H={H}, L={L}, R={R or 1}"
+            require(cp.epilogue_route(HC, H, L, WP, R or 1) == want, f"route for {what}")
+            require(launched == (2 if want == "kernel" else 0), f"{launched} launches for {what}")
+            require(scaled_err(y, y_ref)[1] <= EPI_FWD_TOL[torch.float32] and
+                    bool(torch.isfinite(d[0]).all()), f"epilogue on the {want} route ({what})")
+            log(f"  route {what}: {want} ({launched} kernel launches)")
+    _kernels.reset_launches()
+
+
 def time_pack(rows_list, R, dtype, dev, gen, per_launch):
     """K4 and K5 against their plain versions at the given row counts (one
     pack per half-layer), HC 256, 8 heads; times summed over a step's or
@@ -548,6 +695,73 @@ def time_segment_sum(tally, inc, nnz, order, W, dtype, launches, dev, check_orde
     del msgs
 
 
+def ln_cost(rows, F, xdt, ydt, bwd, need_dx=True, R=1):
+    """(bytes, ops) of B12 (bwd=False: x in, y out, gamma and beta) or B13
+    (g and x in, dx out where asked, gamma in, dgamma and dbeta out); about
+    8 (B12) and 12 (B13) f32 operations per element."""
+    xi, yi = (2 if t == torch.bfloat16 else 4 for t in (xdt, ydt))
+    n = rows * R * F
+    if bwd:
+        return n * (yi + xi + (xi if need_dx else 0)) + 3 * 4 * R * F, [(12 * n, "f32")]
+    return n * (xi + yi) + 2 * 4 * R * F, [(8 * n, "f32")]
+
+
+# the LayerNorm launches of an AllDeepSets bench step (one layer, 2-layer
+# MLPs with input norms): (rows, x dtype, dx needed), each once forward and
+# once backward; the first reads the f32 features and needs no dx
+def ln_step_shapes(batch):
+    N, E = batch.num_nodes, batch.inc.real.num_edges + batch.num_nodes
+    return ([(N, torch.float32, False)] + [(N, torch.bfloat16, True)] * 3
+            + [(E, torch.bfloat16, True)] * 4)
+
+
+def time_layer_norm(shapes, F, dev, gen):
+    """B12/B13 against their plain versions at the given launch shapes
+    (bf16 output), and F.layer_norm with its autograd backward on the same
+    inputs (the parameters in x's dtype, as it requires on the card) as
+    the library call; each held to its plain version. The kernels and the
+    library are timed as the median of 5 readings of 20 calls, each
+    reading after a warm-up call, with the lowest and highest reading
+    logged. Returns {"layer_norm_fwd": Tally, "layer_norm_bwd": Tally}."""
+    import torch.nn.functional as tf
+
+    from allset_tpu_torch.ops import _kernels, cuda_ln as cl
+
+    out = {"layer_norm_fwd": Tally(), "layer_norm_bwd": Tally()}
+    ydt = torch.bfloat16
+    for (rows, xdt, need_dx), n in sorted(
+            ((k, shapes.count(k)) for k in set(shapes)), key=lambda kn: kn[0][0]):
+        x, gamma, beta, g = ln_inputs(rows, F, xdt, ydt, dev, gen)
+        kf, *kf_r = cuda_ms_spread(lambda: cl.ln_fwd_cuda(x, gamma, beta, ydt))
+        pf = cuda_ms(lambda: cl.ln_fwd_plain(x, gamma, beta, ydt), iters=3)
+        kb, *kb_r = cuda_ms_spread(lambda: cl.ln_bwd_cuda(g, x, gamma, need_dx))
+        pb = cuda_ms(lambda: cl.ln_bwd_plain(g, x, gamma), iters=3)
+        # the library takes the parameters in x's dtype (its f32 statistics
+        # and output in x's dtype are the kernels')
+        xl = x.detach().requires_grad_(need_dx)
+        wl = gamma.to(x.dtype).requires_grad_()
+        bl = beta.to(x.dtype).requires_grad_()
+        yl = tf.layer_norm(xl, (F,), wl, bl, eps=cl.LN_EPS)
+        lf, *lf_r = cuda_ms_spread(lambda: tf.layer_norm(x, (F,), wl, bl, eps=cl.LN_EPS))
+        ins = (xl, wl, bl) if need_dx else (wl, bl)
+        gl = g.to(yl.dtype)
+        lb, *lb_r = cuda_ms_spread(lambda: torch.autograd.grad(yl, ins, gl, retain_graph=True))
+        (y, dx, dg, db), msg = check_ln_pair(x, gamma, beta, g, ydt, f"rows={rows}")
+        ef = scaled_err(y, cl.ln_fwd_plain(x, gamma, beta, ydt))[0]
+        eb = scaled_err(dx, cl.ln_bwd_plain(g, x, gamma)[0])[0]
+        del y, dx, yl, xl
+        out["layer_norm_fwd"].add(n, kf, pf, ef, *ln_cost(rows, F, xdt, ydt, False),
+                                  library_ms=lf)
+        out["layer_norm_bwd"].add(n, kb, pb, eb, *ln_cost(rows, F, xdt, ydt, True, need_dx),
+                                  library_ms=lb)
+        log(f"  B12 at [{rows}, {F}] {str(xdt)[6:]}->bf16 (x{n} per step): kernel {kf:.4f} ms "
+            f"{rng(kf_r)}, plain {pf:.3f} ms, F.layer_norm {lf:.4f} ms {rng(lf_r)}; B13 (dx "
+            f"{'yes' if need_dx else 'no'}): kernel {kb:.4f} ms {rng(kb_r)}, plain {pb:.3f} ms, "
+            f"F.layer_norm backward {lb:.4f} ms {rng(lb_r)}; scaled errors {msg}")
+    _kernels.reset_launches()
+    return out
+
+
 def time_main_shapes(batch, dev, gen):
     """Kernel, plain and library times and the bound at the main path's
     shapes (bf16): K1 on the two reduce orders of the real incidence at
@@ -613,7 +827,8 @@ def bench_batch(dev):
 
 
 def bench_model(seed: int, nnz_padded: int, **mode):
-    """The bench configuration; ``mode`` adds gpr=True or learn_mask=True."""
+    """The bench configuration; ``mode`` adds gpr=True or learn_mask=True,
+    or pma=False (with aggregate='add': AllDeepSets)."""
     from allset_tpu_torch.models import SetGNN, SetGNNConfig
 
     cfg = SetGNNConfig(
@@ -640,16 +855,24 @@ def run_steps(model, batch, mask, steps):
 
 PER_STEP = {"segment_sum": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2,
             "pma_gmax": 2, "pma_pack": 2}
+# GPR: gpr_mlp's hidden LayerNorm (MLP_num_layers 2)
+PER_STEP_GPR = {**PER_STEP, "layer_norm_fwd": 1, "layer_norm_bwd": 1}
+# AllDeepSets: V->E and E->V each run f_enc and f_dec, 2-layer MLPs with an
+# input norm: 4 LayerNorms per half-layer
+PER_STEP_DEEPSETS = {"segment_sum": 4, "layer_norm_fwd": 8, "layer_norm_bwd": 8}
 
 
-def main_path(batch, dev, card, **mode):
-    """8 bench steps (``mode``: the bench step, gpr=True or learn_mask=True)
-    with every launch count set to 0 just before; returns the counts and
-    the median step time."""
+def main_path(batch, dev, card, per_step=None, **mode):
+    """8 bench steps (``mode``: the bench step, gpr=True, learn_mask=True,
+    pma=False for AllDeepSets) with every launch count set to 0 just
+    before, checked against ``per_step`` (default: the bench step's
+    PER_STEP, as ``scripts/pair_timing.py`` calls it in any tree); returns
+    the counts and the median step time."""
     from allset_tpu_torch.ops import _kernels
 
+    per_step = PER_STEP if per_step is None else per_step
     steps = 8
-    label = ", ".join(mode) or "bench step"
+    label = ", ".join(f"{k}={v}" for k, v in mode.items()) or "bench step"
     mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
     model = bench_model(0, batch.inc.nnz_padded, **mode).to(dev)
     state = {k: v.clone() for k, v in model.state_dict().items()}
@@ -662,7 +885,7 @@ def main_path(batch, dev, card, **mode):
     counts = dict(_kernels.launches)
     log(f"  [{label}] launches over {steps} steps: {counts}")
     for k in _kernels.KERNELS:
-        n = PER_STEP.get(k, 0) * steps
+        n = per_step.get(k, 0) * steps
         require(counts[k] == n, f"{label}: {k} launched {counts[k]} times, expected {n}")
     lo = losses.cpu()
     log(f"  [{label}] losses: {[round(v, 6) for v in lo.tolist()]}")
@@ -743,12 +966,28 @@ def time_runs_shapes(batch, dev, gen, R=20):
 
 PER_GROUP_EPOCH = {"segment_sum": 6, "pma_epilogue_fwd_runs": 4, "pma_epilogue_bwd_runs": 2,
                    "pma_epilogue_fwd": 0, "pma_epilogue_bwd": 0, "pma_gmax": 4, "pma_pack": 4}
+# AllDeepSets (walmart preset): K1 twice per half-layer forward (train and
+# eval) and once backward; 4 LayerNorms per half-layer, forward in train
+# and eval, backward once
+DEEPSETS_GROUP_EPOCH = {"segment_sum": 6, "layer_norm_fwd": 16, "layer_norm_bwd": 8}
+# the epilogue on its plain route (an rFF of 3 layers): K1, K4, K5 and no
+# K2R/K3R
+PLAIN_ROUTE_GROUP_EPOCH = {"segment_sum": 6, "pma_gmax": 4, "pma_pack": 4}
 
 
-def cli_run(argv, epochs, layers=1):
+def pma_group_epoch(layers=1, ln_fwd=0, ln_bwd=0):
+    """AllSetTransformer's launches per group and epoch: PER_GROUP_EPOCH
+    for each of ``layers`` V->E, E->V rounds, and the LayerNorms outside
+    the epilogue (GPR's gpr_mlp, a classifier of 2 or more layers)."""
+    return {**{k: v * layers for k, v in PER_GROUP_EPOCH.items()},
+            "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd}
+
+
+def cli_run(argv, epochs, per=None):
     """One CLI run with every launch count set to 0 just before; returns
     the Results and the counts of that run, checked per group and epoch
-    (PER_GROUP_EPOCH for each of ``layers`` V->E, E->V rounds)."""
+    against ``per`` (default: pma_group_epoch(); the epilogue's route shows
+    in its launches)."""
     from allset_tpu_torch import cli
     from allset_tpu_torch.ops import _kernels
 
@@ -757,9 +996,11 @@ def cli_run(argv, epochs, layers=1):
     torch.cuda.synchronize()
     counts = dict(_kernels.launches)
     n = len(res.groups) * epochs
-    per = {k: counts[k] / n / layers for k in PER_GROUP_EPOCH}
-    require(per == PER_GROUP_EPOCH, f"launches per group, epoch and layer {per}, expected "
-            f"{PER_GROUP_EPOCH} (groups {res.groups})")
+    per = pma_group_epoch() if per is None else per
+    got = {k: counts[k] / n for k in _kernels.KERNELS}
+    want = {k: float(per.get(k, 0)) for k in _kernels.KERNELS}
+    require(got == want, f"launches per group and epoch {got}, expected {want} "
+            f"(groups {res.groups})")
     require(bool(math.isfinite(res.metrics.sum())), "non-finite metrics")
     return res, counts
 
@@ -780,30 +1021,115 @@ def runs_protocol(card, tmp):
     log(f"  20-run protocol: {per_epoch * 1e3:.1f} ms per epoch over {epochs} epochs "
         f"(first epoch included) [{card}]")
     short = base + ["--runs", "2", "--epochs", "3"]
-    folded, _ = cli_run(short, 3)
-    seq, _ = cli_run(short + ["--no_vmap_runs"], 3)
-    require(folded.groups == [2] and seq.groups == [1, 1], "2-run groups")
-    import numpy as np
-
-    require(np.array_equal(folded.metrics[..., :3], seq.metrics[..., :3]),
-            "folded and sequential accuracies differ")
-    rel = np.abs(folded.metrics[..., 3:] - seq.metrics[..., 3:]) / np.abs(seq.metrics[..., 3:])
-    require(rel.max() <= 2e-3, f"folded and sequential losses differ: {rel.max()}")
-    log(f"  2 runs x 3 epochs folded vs one by one: equal accuracies, losses within "
-        f"{rel.max():.2e} (rtol 2e-3)")
-    for flags in (["--GPR"], ["--LearnMask"], ["--add_self_loop", "false"]):
-        res_m, counts_m = cli_run(base + ["--epochs", "2", *flags], 2)
+    folded_vs_one_by_one(short, 3)
+    for flags, per in ((["--GPR"], pma_group_epoch(ln_fwd=2, ln_bwd=1)), (["--LearnMask"], None),
+                       (["--add_self_loop", "false"], None)):
+        res_m, counts_m = cli_run(base + ["--epochs", "2", *flags], 2, per)
         log(f"  {' '.join(flags)}: {res_m.metrics.shape[0]} runs in groups {res_m.groups}, "
             f"launches {counts_m}; params {res_m.num_params}; "
             f"{res_m.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included) "
             f"[{card}]")
     # the CLI's defaults: 2 layers, hidden 64, 1 head (HC + H = 65, WP = 72)
+    # (its 2-layer classifier has one LayerNorm)
     res_x, counts_x = cli_run(["--dname", "synthetic", "--exclude_self", "--runs", "1",
                                "--epochs", "2", "--device", "cuda", "--res_root", tmp], 2,
-                              layers=2)
+                              pma_group_epoch(layers=2, ln_fwd=2, ln_bwd=1))
     log(f"  --exclude_self on synthetic: 1 run x 2 epochs, launches {counts_x}, final test "
         f"{res_x.best_by_valid()['final_test'][0]:.2f}")
     return counts, per_epoch
+
+
+def folded_vs_one_by_one(argv, epochs, per=None):
+    """2 runs folded into each launch against the same 2 runs one by one:
+    equal accuracies, losses within rtol 2e-3."""
+    import numpy as np
+
+    folded, _ = cli_run(argv, epochs, per)
+    seq, _ = cli_run(argv + ["--no_vmap_runs"], epochs, per)
+    require(folded.groups == [2] and seq.groups == [1, 1], "2-run groups")
+    require(np.array_equal(folded.metrics[..., :3], seq.metrics[..., :3]),
+            "folded and sequential accuracies differ")
+    rel = np.abs(folded.metrics[..., 3:] - seq.metrics[..., 3:]) / np.abs(seq.metrics[..., 3:])
+    require(rel.max() <= 2e-3, f"folded and sequential losses differ: {rel.max()}")
+    log(f"  2 runs x {epochs} epochs folded vs one by one: equal accuracies, losses within "
+        f"{rel.max():.2e} (rtol 2e-3)")
+
+
+def deepsets_peak(argv, epochs, learn_mask, dev):
+    """One checked AllDeepSets CLI run (walmart preset, f32) -> (Results,
+    counts, the peak device memory per folded run, the trainer's estimate
+    for the same configuration)."""
+    from allset_tpu_torch.data import load_dataset
+    from allset_tpu_torch.train import TrainConfig, Trainer
+    from allset_tpu_torch.train.factory import ExperimentConfig, prepare
+    from allset_tpu_torch.train.presets import preset_for
+
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, counts = cli_run(argv, epochs, DEEPSETS_GROUP_EPOCH)
+    peak = (torch.cuda.max_memory_allocated(dev) - before) / max(res.groups)
+    fields = ExperimentConfig.__dataclass_fields__
+    preset = {k: v for k, v in preset_for(WALMART, 1.0).items() if k in fields}
+    data = load_dataset(WALMART, feature_noise=1.0, seed=0)
+    mcfg, batch = prepare(ExperimentConfig(method="AllDeepSets", dname=WALMART,
+                                           learn_mask=learn_mask, **preset), data, dev)
+    est = Trainer(mcfg, batch, TrainConfig())._bytes_per_run()
+    del batch
+    return res, counts, peak, est
+
+
+def deepsets_protocol(card, tmp, dev):
+    """AllDeepSets through the CLI at the walmart preset, f32: 20 runs
+    folded for a few epochs (launches per group and epoch, finite metrics,
+    a falling loss), three warm runs of 4 epochs (ms per epoch, first
+    epoch of each included), 20 runs x 2 epochs with --LearnMask; the peak
+    device memory per run of both against the trainer's estimate, which
+    must not be lower; then 2 runs folded against 2 one by one. Returns
+    the counts and the warm runs' median ms per epoch."""
+    base = ["--method", "AllDeepSets", "--dname", WALMART, "--preset", "--dtype", "float32",
+            "--device", "cuda", "--res_root", tmp]
+    epochs = 3
+    res, counts, peak, est = deepsets_peak(base + ["--epochs", str(epochs)], epochs, False, dev)
+    loss = res.metrics[:, :, 3].mean(axis=0)
+    log(f"  AllDeepSets: {res.metrics.shape[0]} runs in groups {res.groups}; launches {counts} "
+        f"(per group and epoch {DEEPSETS_GROUP_EPOCH}); params {res.num_params}")
+    log(f"  mean training loss per epoch {[round(float(v), 6) for v in loss]}")
+    require(loss[-1] < loss[0], "AllDeepSets: training loss did not fall")
+    log(f"  AllDeepSets 20-run protocol: {res.wall_time / epochs * 1e3:.1f} ms per epoch over "
+        f"{epochs} epochs (first epoch of the process included) [{card}]")
+    warm = []
+    for _ in range(3):
+        res_w, _ = cli_run(base + ["--epochs", "4"], 4, DEEPSETS_GROUP_EPOCH)
+        warm.append(res_w.wall_time / 4 * 1e3)
+    log(f"  AllDeepSets 20-run protocol, warm: {[round(w, 3) for w in warm]} ms per epoch "
+        f"(three runs of 4 epochs, groups {res_w.groups}); median {statistics.median(warm):.3f}, "
+        f"spread {max(warm) - min(warm):.3f} ms [{card}]")
+    res_m, counts_m, peak_m, est_m = deepsets_peak(base + ["--epochs", "2", "--LearnMask"], 2,
+                                                   True, dev)
+    log(f"  AllDeepSets --LearnMask: {res_m.metrics.shape[0]} runs in groups {res_m.groups}; "
+        f"launches {counts_m}; {res_m.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs "
+        f"(first included) [{card}]")
+    for what, pk, e in (("AllDeepSets", peak, est), ("AllDeepSets --LearnMask", peak_m, est_m)):
+        log(f"  {what}: peak device memory per folded run {pk / 2**30:.3f} GiB; the trainer's "
+            f"estimate {e / 2**30:.3f} GiB [{card}]")
+        require(e >= pk, f"{what}: the trainer's estimate is below the measured peak")
+    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "3"], 3, DEEPSETS_GROUP_EPOCH)
+    return counts, statistics.median(warm)
+
+
+def route_runs(card, tmp):
+    """A shape the epilogue kernels refuse and the JAX package composes
+    too, through the CLI on the card: --MLP_num_layers 3 (walmart preset,
+    2 runs x 2 epochs) takes the plain epilogue; K1, K4, K5 still launch,
+    K2R/K3R never."""
+    base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
+            "--res_root", tmp, "--runs", "2", "--epochs", "2"]
+    flags = ["--MLP_num_layers", "3"]
+    res, counts = cli_run(base + flags, 2, PLAIN_ROUTE_GROUP_EPOCH)
+    log(f"  {' '.join(flags)}: epilogue on the plain route; launches {counts}; params "
+        f"{res.num_params}; final test {res.best_by_valid()['final_test'][0]:.2f}; "
+        f"{res.wall_time / 2 * 1e3:.1f} ms per epoch [{card}]")
 
 
 def band_replay(card, tmp, runs=5):
@@ -894,10 +1220,53 @@ def tied_nodes(model, batch, margin=TIE_MARGIN):
     return hit
 
 
+def tied_nodes_deepsets(model, batch, margin=TIE_MARGIN):
+    """tied_nodes for AllDeepSets: the relu arguments are the outputs of
+    every lin a relu follows (the MLPs' hidden lins, and f_enc's and
+    f_dec's last lins, which the half-layer's relus follow), taken in the
+    order the forward runs them. A tie marks its row of the current table;
+    each exchange carries the marks to the destination rows their entries
+    reach; the last table is the nodes'."""
+    from allset_tpu_torch.nn import modules
+
+    def near(t):
+        return (t.detach().float().abs() < margin).reshape(t.shape[0], -1).any(dim=1)
+
+    events = []
+    orig = modules.dir_spmm
+
+    def spmm(w, d, **kw):
+        events.append(("exchange", d))
+        return orig(w, d, **kw)
+
+    ends = {m for h in model.modules() if isinstance(h, modules.HalfNLHconv)
+            for m in (getattr(h, "f_enc", None), getattr(h, "f_dec", None)) if m is not None}
+    lins = [getattr(m, f"lin{i}") for m in model.modules() if isinstance(m, modules.MLP)
+            for i in range(m.num_layers) if i < m.num_layers - 1 or m in ends]
+    hooks = [m.register_forward_hook(lambda m, i, o: events.append(("tie", near(o))))
+             for m in lins]
+    modules.dir_spmm = spmm
+    try:
+        with torch.no_grad():
+            model(batch, False)
+    finally:
+        modules.dir_spmm = orig
+        for h in hooks:
+            h.remove()
+    hit = torch.zeros(batch.num_nodes, dtype=torch.bool, device=batch.x.device)
+    for kind, v in events:
+        if kind == "tie":
+            require(v.shape == hit.shape, "tied_nodes_deepsets: a tie on another table")
+            hit = hit | v
+        else:
+            hit = orig(hit.float()[:, None].expand(-1, 8).contiguous(), v)[:, 0] > 0
+    return hit
+
+
 def small_parity(dev, **mode):
     """One f32 step through the kernels (card) against one through the
     plain versions (CPU), from the same parameters; ``mode`` as in
-    main_path. The loss is taken on the even nodes less tied_nodes. The
+    main_path (pma=False: AllDeepSets). The loss is taken on the even nodes less tied_nodes. The
     losses agree to 1e-5, and every gradient, scaled by its tensor's max
     |.|, to 1e-3."""
     from allset_tpu_torch.data import synthetic_hypergraph
@@ -908,7 +1277,7 @@ def small_parity(dev, **mode):
     hd = synthetic_hypergraph(num_nodes=3000, num_hyperedges=1500,
                               feature_dim=64, seed=3)
     hd = norm_construction(add_self_loops(hd), "all_one")
-    label = ", ".join(mode) or "bench step"
+    label = ", ".join(f"{k}={v}" for k, v in mode.items()) or "bench step"
     built = {}
     for device in ("cpu", dev):
         batch = Batch.from_hyperdata(hd, device=device)
@@ -917,7 +1286,8 @@ def small_parity(dev, **mode):
                            dropout=0.0, nnz_padded=batch.inc.nnz_padded, **mode)
         built[device] = SetGNN(cfg, torch.Generator().manual_seed(5)).to(device), batch
     # a tie on either device: each rounds its arguments its own way
-    tied = torch.stack([tied_nodes(*built[d]).cpu() for d in built]).any(dim=0)
+    ties = tied_nodes if mode.get("pma", True) else tied_nodes_deepsets
+    tied = torch.stack([ties(*built[d]).cpu() for d in built]).any(dim=0)
     even = torch.arange(hd.num_nodes) % 2 == 0
     mask = even & ~tied
     log(f"  [{label}] {int((even & tied).sum())} of {int(even.sum())} loss nodes left out: "
@@ -970,6 +1340,8 @@ def main() -> int:
     check_epilogue(dev, gen)
     check_runs_epilogue(dev, gen)
     check_pack(dev, gen)
+    check_layer_norm(dev, gen)
+    check_routes(dev, gen)
 
     log("phase 4: main path at bench size (bf16)")
     t0 = time.perf_counter()
@@ -977,14 +1349,21 @@ def main() -> int:
     log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {batch.num_nodes}, "
         f"nnz {batch.inc.nnz}, real edges {batch.inc.real.num_edges}")
     timings = time_main_shapes(batch, dev, gen)
-    counts, _ = main_path(batch, dev, card)
-    for mode in ("gpr", "learn_mask"):
-        main_path(batch, dev, card, **{mode: True})
+    timings.update(time_layer_norm(ln_step_shapes(batch), 256, dev, gen))
+    log_tallies({k: timings[k] for k in ("layer_norm_fwd", "layer_norm_bwd")},
+                "AllDeepSets bench step")
+    counts, _ = main_path(batch, dev, card, PER_STEP)
+    main_path(batch, dev, card, PER_STEP_GPR, gpr=True)
+    main_path(batch, dev, card, PER_STEP, learn_mask=True)
+    deepsets = dict(pma=False, aggregate="add")
+    ds_counts, _ = main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets)
+    main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets, learn_mask=True)
     require("jax" not in sys.modules, "the port loaded jax")
 
     log("phase 5: small f32 graph, kernels against plain")
-    for mode in ((), ("gpr",), ("learn_mask",)):
-        small_parity(dev, **{m: True for m in mode})
+    for mode in ({}, dict(gpr=True), dict(learn_mask=True), deepsets,
+                 dict(deepsets, learn_mask=True)):
+        small_parity(dev, **mode)
 
     del batch
     torch.cuda.empty_cache()
@@ -998,6 +1377,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         runs_counts, _ = runs_protocol(card, tmp)
+        deepsets_protocol(card, tmp, dev)
+        route_runs(card, tmp)
         require("jax" not in sys.modules, "the port loaded jax")
         log("phase 7: the accuracy band (5 runs x 500 epochs)")
         band_replay(card, tmp)
@@ -1017,6 +1398,10 @@ def main() -> int:
                      "allset_tpu/ops/pallas_pack.py:94", counts),
         "pma_pack": ("allset_tpu_torch/csrc/pma_pack.cu",
                      "allset_tpu/ops/pallas_pack.py:109", counts),
+        "layer_norm_fwd": ("allset_tpu_torch/csrc/layer_norm.cu",
+                           "benchmarks/exp_ln.py:50", ds_counts),
+        "layer_norm_bwd": ("allset_tpu_torch/csrc/layer_norm.cu",
+                           "benchmarks/exp_ln.py:60", ds_counts),
     }
     kernels = []
     for name, (src, rep, cnt) in sources.items():

@@ -1,6 +1,8 @@
 """K2/K3's plain versions (the CPU path of pma_epilogue and its backward)
 against the JAX package's fused epilogue kernel in interpret mode, with
-f32 products and with the kernels' 3xTF32 split emulated."""
+f32 products and with the kernels' 3xTF32 split emulated; the shapes the
+kernels refuse against the JAX package's composition; the shape predicate
+and the route on the card against the JAX package's gate."""
 
 import jax
 import jax.numpy as jnp
@@ -8,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from allset_tpu.ops.pallas_pma import _reference_fwd
 from allset_tpu.ops.pallas_pma import pma_epilogue as jax_epilogue
 from allset_tpu_torch.ops import _kernels, cuda_pma
 from allset_tpu_torch.ops.cuda_pma import epilogue_fwd_cuda, pma_epilogue
@@ -143,3 +146,95 @@ def test_cpu_epilogue_launches_nothing_and_the_kernel_refuses_cpu():
         epilogue_fwd_cuda(*targs, H, True)
     with pytest.raises(ValueError):
         pma_epilogue(targs[0].to("meta"), *targs[1:], H, True)
+
+
+@pytest.mark.parametrize("H,HC,L,WP", [(4, 128, 3, 136), (8, 512, 2, 520)],
+                         ids=["L3", "HC512"])
+def test_plain_route_shapes_match_jax_composition(H, HC, L, WP):
+    """At the shapes the kernels refuse the plain epilogue agrees with the
+    JAX package's own composition (``_reference_fwd``) on values and
+    gradients, with the f32 tolerances above. An rFF of 3 layers takes it
+    on the card too, as the JAX gate composes it; HC 512 takes it on the
+    CPU only: on the card the JAX package runs its fused kernel there, and
+    the port, with no kernel for it yet, raises."""
+    agg, params, tgt = _inputs(L, H=H, HC=HC, M=M, WP=WP)
+    assert not cuda_pma.epilogue_supported(HC, H, L, WP)
+    if L == 3:
+        assert cuda_pma.epilogue_route(HC, H, L, WP) == "plain"
+    else:
+        with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+            cuda_pma.epilogue_route(HC, H, L, WP)
+
+    def jloss(*a):
+        y = _reference_fwd(*a, H=H, relu=True)
+        return jnp.mean((y - tgt) ** 2), y
+
+    jargs = [jnp.asarray(agg)] + [jnp.asarray(p) for p in params]
+    (_, y_ref), g_ref = jax.value_and_grad(jloss, argnums=tuple(range(8)), has_aux=True)(*jargs)
+    targs = [torch.tensor(agg).requires_grad_()] + [torch.tensor(p, requires_grad=True)
+                                                    for p in params]
+    y = pma_epilogue(*targs, H, True)
+    ((y - torch.from_numpy(tgt)) ** 2).mean().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref), atol=2e-5, rtol=2e-5)
+    for name, t, j in zip(NAMES, targs, g_ref):
+        a, b = t.grad.numpy(), np.asarray(j)
+        assert a.shape == b.shape, name
+        floor = np.abs(b) >= 1e6  # dvals at the 1e-16 floor: scaled apart
+        for sel in (~floor, floor):
+            if sel.any():
+                scale = max(np.abs(b[sel]).max(), 1e-3)
+                assert np.abs(a[sel] - b[sel]).max() / scale <= 1e-4, name
+
+
+def test_epilogue_supported_holds_the_kernels_limits():
+    ok = cuda_pma.epilogue_supported
+    assert ok(256, 8, 2, 264) and ok(64, 64, 1, 128) and ok(192, 8, 2, 200, R=20)
+    assert not ok(512, 8, 2, 520)  # HC above 256
+    assert not ok(96, 4, 2, 104)  # HC not a multiple of 64
+    assert not ok(256, 8, 3, 264)  # L outside (1, 2)
+    assert not ok(256, 8, 2, 260)  # WP not a multiple of 8
+    assert not ok(256, 8, 2, 256)  # WP < HC + H
+    assert not ok(256, 3, 2, 264)  # H not dividing HC
+    assert not ok(256, 8, 2, 264, R=65536)
+
+
+@pytest.mark.parametrize("HC,H,L,want", [
+    (256, 8, 2, "kernel"), (64, 1, 1, "kernel"), (256, 8, 3, "plain"), (96, 4, 2, "plain"),
+    (320, 8, 2, "plain"), (512, 8, 3, "plain"), (512, 8, 2, "raise"), (384, 8, 1, "raise")])
+def test_epilogue_route_follows_the_jax_gate(HC, H, L, want, monkeypatch):
+    """On the card the epilogue takes its plain version only where the JAX
+    package's gate (``epilogue_active``; interpret mode stands for the
+    single TPU chip) composes it as well, and raises where the JAX package
+    runs its kernel and the port's kernels refuse the shape."""
+    from allset_tpu.ops.pallas_pma import epilogue_active
+    from allset_tpu_torch.nn.modules import packed_width
+
+    monkeypatch.setenv("ALLSET_PMA_EPILOGUE", "interpret")
+    jax_kernel = epilogue_active(HC, H, L, HC)
+    WP = packed_width(HC, H)
+    if want == "raise":
+        assert jax_kernel and not cuda_pma.epilogue_supported(HC, H, L, WP)
+        with pytest.raises(ValueError):
+            cuda_pma.epilogue_route(HC, H, L, WP)
+    else:
+        assert cuda_pma.epilogue_route(HC, H, L, WP) == want
+        assert want == "kernel" or not jax_kernel
+
+
+def test_pma_takes_three_layer_rff_and_hc_512():
+    """PMA builds with an rFF of 3 layers and with HC 512 and runs on the
+    CPU (on the card HC 512 raises until its kernel lands)."""
+    from allset_tpu_torch.nn.modules import PMA
+    from allset_tpu_torch.graph import add_self_loops, norm_construction
+    from allset_tpu_torch.data.synthetic import synthetic_hypergraph
+
+    hd = norm_construction(add_self_loops(synthetic_hypergraph(
+        num_nodes=60, num_hyperedges=30, feature_dim=8, seed=0)), "all_one")
+    d = hd.to_incidence(bucket=64).v2e()
+    x = torch.randn(60, 8)
+    for hid, L, heads in ((64, 3, 2), (512, 2, 8)):
+        m = PMA(8, hid, hid, L, heads, torch.Generator().manual_seed(0))
+        y = m(x, d)
+        assert y.shape == (d.num_dst, hid) and torch.isfinite(y).all()
+    with pytest.raises(NotImplementedError):
+        PMA(8, 64, 32, 2, 2, torch.Generator().manual_seed(0))

@@ -133,7 +133,7 @@ def test_train_mode_dropout_follows_its_generator(jax_ref):
     np.testing.assert_allclose(d.numpy(), jax_ref["float32"]["logits"], atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.parametrize("override", [dict(pma=False), dict(normalization="bn")])
+@pytest.mark.parametrize("override", [dict(normalization="bn")])
 def test_other_modes_raise(override):
     with pytest.raises(NotImplementedError):
         SetGNN(SetGNNConfig(**{**CFG, **override}), torch.Generator().manual_seed(0))

@@ -152,7 +152,10 @@ def test_runs_setgnn_gradients_match_vmapped_jax(jax_runs):
 
 
 @pytest.mark.parametrize("mode", [{}, dict(gpr=True, learn_mask=True, dtype="bfloat16"),
-                                  dict(all_num_layers=0, learn_mask=True)])
+                                  dict(all_num_layers=0, learn_mask=True),
+                                  dict(pma=False, aggregate="add"),
+                                  dict(pma=False, aggregate="max", gpr=True, learn_mask=True,
+                                       dtype="bfloat16")])
 def test_runs_model_is_the_stack_of_single_run_models(mode):
     """Run r of a runs model is the single model built from generator r:
     the same parameters and the same logits, bit for bit (every dense op
@@ -272,7 +275,7 @@ def test_cli_never_falls_back_to_the_cpu_and_loads_no_jax(tmp_path):
     assert "params: 26500," in out.stdout
 
 
-@pytest.mark.parametrize("flags", [["--method", "AllDeepSets"], ["--remat"], ["--plot", "x.png"]])
+@pytest.mark.parametrize("flags", [["--remat"], ["--plot", "x.png"]])
 def test_cli_unported_parts_raise(flags, tmp_path):
     from allset_tpu_torch import cli
 
@@ -321,6 +324,9 @@ def _jax_cli_params(argv, monkeypatch):
     (["--LearnMask"], ["--LearnMask"]),
     (["--add_self_loop", "false"], ["--add_self_loop"]),  # the JAX flag is store_false
     (["--exclude_self"], ["--exclude_self"]),
+    (["--method", "AllDeepSets"], ["--method", "AllDeepSets"]),
+    (["--method", "AllDeepSets", "--LearnMask", "--deepset_input_norm", "false"],
+     ["--method", "AllDeepSets", "--LearnMask", "--deepset_input_norm", "false"]),
 ])
 def test_cli_modes_run_and_count_the_jax_parameters(flags, jax_flags, tmp_path, monkeypatch,
                                                     capsys):
