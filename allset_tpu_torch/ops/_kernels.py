@@ -4,9 +4,9 @@ The sources under ``allset_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
 for Hopper (``sm_90a``), one ``nvcc`` per source, all started together,
 and linked into one shared library with a plain C interface,
 ``allset_tpu_torch/_build/libkernels.so`` (an ignored directory), at first
-use, and again whenever a source is newer than the library. The library
-is loaded with ctypes; every pointer and the stream are passed as
-``c_void_p``. Each C entry returns ``cudaGetLastError()`` after its
+use, and again whenever a source or a header (``*.cuh``) is newer than
+the library. The library is loaded with ctypes; every pointer and the
+stream are passed as ``c_void_p``. Each C entry returns ``cudaGetLastError()`` after its
 launches, and :func:`check` raises if it is not zero. A failed build
 raises too: there is no fallback.
 
@@ -72,10 +72,10 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into the shared library if it is missing or
-    older than a source; returns its path."""
+    older than a source or header; returns its path."""
     global build_seconds, build_log
     srcs = sorted(glob.glob(osp.join(_CSRC, "*.cu")))
-    newest = max(osp.getmtime(s) for s in srcs)
+    newest = max(osp.getmtime(s) for s in srcs + glob.glob(osp.join(_CSRC, "*.cuh")))
     if not force and osp.exists(_SO) and osp.getmtime(_SO) >= newest:
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -1,7 +1,9 @@
 """Fused PMA epilogue (K2 forward, K3 backward; K2R/K3R with runs).
 
 Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
-``csrc/pma_epilogue.cu`` replace its ``_fwd_kernel`` and ``_bwd_kernel``,
+``csrc/pma_epilogue_fwd.cu`` and ``csrc/pma_epilogue.cu`` (their shared
+code and design note in ``csrc/pma_epilogue.cuh``) replace its
+``_fwd_kernel`` and ``_bwd_kernel``,
 both the single-run grids (K2, K3) and the runs grids R > 1 that the
 vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
 ``agg [M, WP] = [vals HC | den H | pad]``:
@@ -12,15 +14,19 @@ vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
     y    = relu(y)                       when ``relu`` (SetGNN's folded
                                          inter-stage activation)
 
-On the H100 the rFF products bound it. The kernels keep each 64-row
+On the H100 the rFF products bound it. The kernels keep each row
 tile's intermediates in registers (16 warps: two row halves, each warp
 an eighth of the columns), stage the tile's rows and the weights in
 shared memory, and run every product on the tensor cores: bf16 operands as bf16 MMA
 with f32 accumulation, the products the JAX package takes in f32 as
 3xTF32 (operands split into two TF32 parts, three products; f32
-accuracy, see the source note). The backward recomputes the forward per
-tile and sums the parameter gradients through per-block f32 partials and
-second reduce kernels, so they repeat bit for bit.
+accuracy, see the source note). A tile is 64 rows up to HC 256 and 32
+rows at HC 384 and 512 (:func:`tile_rows`), where 64 rows would overflow
+the registers and shared memory. The forward (K2) is a persistent kernel
+that fetches the next tile's rows while it multiplies the current one.
+The backward (K3) recomputes the forward per tile and sums the parameter
+gradients through per-block f32 partials and second reduce kernels, so
+they repeat bit for bit.
 
 With R runs folded into the width, ``agg`` is ``[M, R*WP]`` (run r in
 columns ``[r*WP, (r+1)*WP)``), ``y`` is ``[M, R*HC]``, every parameter
@@ -33,12 +39,13 @@ The plain versions below follow the kernel's math (``_fwd_recompute`` and
 ``_ln_bwd`` of the JAX module), including its rounding points; the runs
 versions apply them run by run. The plain versions take any HC, head
 count and rFF depth L. For CUDA tensors :func:`epilogue_route` picks the
-route by shape: the kernels where :func:`epilogue_supported` holds, the
-plain versions where the JAX package's gate composes the epilogue too
-(an rFF of L outside (1, 2), HC not a multiple of 128), and a raise for
-the rest (HC a multiple of 128 above 256 with L in (1, 2), where the JAX
-package runs its fused kernel and the port has none yet). CPU tensors
-take the plain versions; any other device raises.
+route by shape: the kernels where :func:`epilogue_supported` holds (HC
+in {64, 128, 192, 256, 384, 512}), the plain versions where the JAX
+package's gate composes the epilogue too (an rFF of L outside (1, 2), HC
+not a multiple of 128), and a raise for the rest (HC a multiple of 128
+above 512 with L in (1, 2), where the JAX package runs its fused kernel
+and the port has none yet). CPU tensors take the plain versions; any
+other device raises.
 """
 
 from __future__ import annotations
@@ -52,9 +59,9 @@ Tensor = torch.Tensor
 EPS = 1e-5  # torch/flax LayerNorm default
 DEN_FLOOR = 1e-16  # softmax denominator clamp
 
-TILE_ROWS = 64  # rows per tile of the kernels
+KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)  # the HC the kernels take
 _BWD_MAX_BLOCKS = 264  # row-kernel blocks (= small-grad partials) of K3: 2 waves of 132
-_BWD_MAX_CHUNKS = 64  # row chunks (= dW partials) of K3
+DW_PARTIALS = 64  # row chunks of K3, each a dW partial (part_w below)
 
 
 def _ln(x, g, b):
@@ -181,12 +188,18 @@ def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
             torch.stack([o[2] for o in outs]))
 
 
+def tile_rows(HC: int) -> int:
+    """Rows per tile of the kernels at width HC: 64 up to HC 256, 32 above
+    (the note in ``csrc/pma_epilogue.cuh`` has the byte counts)."""
+    return 64 if HC <= 256 else 32
+
+
 def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1) -> bool:
-    """The shapes K2/K3 (R = 1) and K2R/K3R (R runs) take: HC % 64 == 0,
-    HC <= 256, H dividing HC, a packed width WP >= HC + H of whole 16-byte
-    rows (WP % 8 == 0), an rFF of L in (1, 2) layers and at most 65535
-    runs."""
-    return (HC % 64 == 0 and 0 < HC <= 256 and H >= 1 and HC % H == 0
+    """The shapes K2/K3 (R = 1) and K2R/K3R (R runs) take: HC in
+    KERNEL_WIDTHS, H dividing HC, a packed width WP >= HC + H of whole
+    16-byte rows (WP % 8 == 0), an rFF of L in (1, 2) layers and at most
+    65535 runs."""
+    return (HC in KERNEL_WIDTHS and H >= 1 and HC % H == 0
             and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and 1 <= R <= 65535)
 
 
@@ -196,14 +209,14 @@ def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1) -> str:
     (``allset_tpu/ops/pallas_pma.py::epilogue_active``) composes the
     epilogue as well, an rFF of L outside (1, 2) or HC not a multiple of
     128; a raise for any other shape, since the JAX package runs its fused
-    kernel there (HC 512: ROADMAP Queue 3)."""
+    kernel there (HC a multiple of 128 above 512: ROADMAP Queue 3)."""
     if epilogue_supported(HC, H, L, WP, R):
         return "kernel"
     if L not in (1, 2) or HC % 128 != 0:
         return "plain"
     raise ValueError(
         f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}: K2/K3 take HC "
-        "% 64 == 0, HC <= 256, H dividing HC, WP >= HC + H, WP % 8 == 0, runs <= 65535, "
+        f"in {KERNEL_WIDTHS}, H dividing HC, WP >= HC + H, WP % 8 == 0, runs <= 65535, "
         "and the JAX package runs its fused kernel at this shape (ROADMAP Queue 3)"
     )
 
@@ -223,8 +236,8 @@ def _check_cuda_args(agg, seed, Wrff, H, R):
             and W == runs * WP and epilogue_supported(HC, H, L, WP, runs)):
         raise ValueError(
             f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
-            f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC % 64 "
-            "== 0, HC <= 256, H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte "
+            f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC in "
+            f"{KERNEL_WIDTHS}, H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte "
             "rows), L in (1, 2), runs <= 65535)"
         )
     return M, WP, HC, L
@@ -276,8 +289,8 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     gy = gy.to(cdt).contiguous()
     Wf, Wbt = _weights(Wrff, cdt)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
-    grid_rows = max(1, min(-(-M // TILE_ROWS), _BWD_MAX_BLOCKS))
-    chunk_rows = -(-max(M, 1) // _BWD_MAX_CHUNKS)
+    grid_rows = max(1, min(-(-M // tile_rows(HC)), _BWD_MAX_BLOCKS))
+    chunk_rows = -(-max(M, 1) // DW_PARTIALS)
     chunk_rows = -(-chunk_rows // 32) * 32
     nch = max(1, -(-M // chunk_rows))
     f32 = torch.float32

@@ -34,6 +34,7 @@ from allset_tpu_torch.graph.batch import Batch, split_masks
 from allset_tpu_torch.graph.transforms import rand_train_test_idx
 from allset_tpu_torch.models.setgnn import SetGNN, SetGNNConfig
 from allset_tpu_torch.nn.modules import packed_width
+from allset_tpu_torch.ops.cuda_pma import DW_PARTIALS
 
 
 # [rows, hid] tables an AllDeepSets layer keeps per run at its peak
@@ -182,19 +183,21 @@ class Trainer:
         gathered [nnz, WP] message table, about three [rows, WP]-wide
         tables kept for the backward (the pack's GEMM output, the
         aggregate, the output) and K3R's per-run scratch (the rFF inputs
-        and output gradients). Of AllDeepSets: one gathered [nnz, hid]
-        table and DEEPSETS_TABLES [rows, hid] tables per layer (f_enc's and
+        and output gradients) with, once, its DW_PARTIALS f32 [L, HC, HC]
+        dW partials (134 MB at HC 512). Of AllDeepSets: one gathered [nnz,
+        hid] table and DEEPSETS_TABLES [rows, hid] tables per layer (f_enc's and
         f_dec's activations, the LayerNorm inputs and dropout masks kept
         for the backward, the reduce's output), and under LearnMask the
         SDDMM's gathered rows and product, three f32 [nnz, hid] tables.
         The exchange is unsplit under LearnMask or without the self-loop
         split: then the V->E output has one row per hyperedge instead of
         the N-slot layout's real edges + N. On an H100 at the walmart
-        preset in f32 this gives 1.78, 2.29, 1.88 and 1.18 GiB for
+        preset in f32 this gives 1.81, 2.32, 1.91 and 1.21 GiB for
         AllSetTransformer (the preset, GPR, LearnMask, no self-loops)
         against measured peaks of 1.69, 2.18, 1.78 and 1.09 GiB per run,
-        and 3.740 GiB for AllDeepSets against a measured 3.634 (PERF.md
-        has the LearnMask figure)."""
+        3.610 GiB at --MLP_hidden 512 against a measured 3.345, and 3.740
+        GiB for AllDeepSets against a measured 3.634 (PERF.md has the
+        LearnMask figure)."""
         mc, inc = self.model_cfg, self.batch.inc
         item = 2 if mc.dtype == "bfloat16" else 4
         HC, L = mc.mlp_hidden, mc.all_num_layers
@@ -209,6 +212,7 @@ class Trainer:
         if L > 0 and mc.pma:
             total += item * WP * (nnz + 3 * rows * L)  # tables
             total += mc.mlp_num_layers * rows_v2e * HC * (item + 4)  # K3R scratch
+            total += DW_PARTIALS * mc.mlp_num_layers * HC * HC * 4  # K3R's dW partials
         elif L > 0:
             total += item * HC * (nnz + DEEPSETS_TABLES * rows * L)
             if mc.learn_mask:  # the SDDMM's three f32 [nnz, hid] tables, one exchange at a time

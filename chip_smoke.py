@@ -11,11 +11,12 @@ Phases (any failure raises and exits non-zero):
      bit for bit against the plain version in the kernel's order of
      additions, and at 4 and 20 runs x 264 run by run against launches
      on each run's slice), K2/K3 the PMA epilogue (HC in {64, 128, 192,
-     256}, heads 1 to HC, rows below one 64-row tile and not a multiple
-     of it) and K2R/K3R its
-     runs grids (R in {2, 5}; L in {1, 2}, relu on/off; each run of
-     K2R/K3R also bit for bit against a K2/K3 launch on its slice), K4/K5
-     the PMA score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4)}, rows
+     256, 384, 512}, heads 1 to HC, rows below one tile (64 rows, 32
+     above HC 256) and not a multiple of it) and K2R/K3R its
+     runs grids (HC 256 and 512, R in {2, 5}; L in {1, 2}, relu on/off;
+     each run of K2R/K3R also bit for bit against a K2/K3 launch on its
+     slice), K4/K5 the PMA score+pack ((HC, H) in {(256, 8), (64, 1),
+     (128, 4), (512, 8)}, rows
      not a multiple of the tile; gmax bit-equal, w within 2 f32 / 1 bf16
      ulps, a NaN score reaching gmax, R in {2, 5} bit for bit against
      single launches), B12/B13 the LayerNorm (f32, bf16, f32 -> bf16;
@@ -23,8 +24,8 @@ Phases (any failure raises and exits non-zero):
      in {2, 5} and an input shared by the runs, each run bit for bit
      against a launch on it alone), the epilogue's route by shape (an
      rFF of 3 layers and HC 96, which the JAX package composes too, on the
-     plain version with no launch; HC 256 on K2/K3 and K2R/K3R; HC 512,
-     which has no kernel yet, raises before any launch), and at the main
+     plain version with no launch; HC 256 and 512 on K2/K3 and K2R/K3R;
+     HC 640, which has no kernel yet, raises before any launch), and at the main
      paths' shapes (K1 on the bench
      graph's real indptrs, bit for bit as well; K3R at R=20 on the walmart
      rows, each run bit for bit against K3; B12/B13 at the AllDeepSets
@@ -38,7 +39,8 @@ Phases (any failure raises and exits non-zero):
      graph, also with LearnMask: the loss is finite and falls, each step
      launches K1 4 times and K2, K3, K4, K5 twice (AllDeepSets: K1 4 and
      B12, B13 8 times; GPR adds one B12 and one B13 for gpr_mlp), and
-     two runs from one state give identical losses;
+     two runs from one state give identical losses; the bench step also
+     at hidden 512 (K2/K3 at HC 512, timed at its shapes too);
   5. a small f32 graph, as the bench step, with GPR, with LearnMask, and
      AllDeepSets with and without LearnMask: one step through the kernels
      against one step of the plain versions (on the CPU) from the same
@@ -58,14 +60,18 @@ Phases (any failure raises and exits non-zero):
      epoch), then three warm runs of 4 epochs, 20 runs x 2 epochs with
      --LearnMask (the peak device memory per run of both against the
      trainer's estimate, which must not be lower) and 2 folded against 2
-     one by one; --MLP_num_layers 3 (2 runs x 2 epochs) with the
+     one by one; --MLP_hidden 512 (20 runs x 2 epochs: 4 K2R and 2 K3R
+     at HC 512 per group and epoch, timed at its shapes too; the peak
+     per run against the trainer's estimate; 2 folded against 2 one by
+     one); --MLP_num_layers 3 (2 runs x 2 epochs) with the
      epilogue on its plain route (K2R/K3R never launch);
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
 The line before the last is a JSON object of per-kernel results (K2R,
 K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step,
-B12, B13 from phase 4's AllDeepSets step): launches, the kernel's time
+B12, B13 from phase 4's AllDeepSets step; K2, K3, K2R, K3R again at HC
+512, "_hc512", from the hidden-512 step and CLI run): launches, the kernel's time
 and its plain version's summed over a bench step (K1, K2, K3, K4, K5,
 B12, B13) or a 20-run epoch (K2R, K3R), the bound (the larger of the
 bytes over 3.35 TB/s and the products over the tensor cores: bf16 at
@@ -343,22 +349,26 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
 
 
 # (HC, H, WP): the bench and walmart width, the other widths the kernels
-# take (HC % 64 == 0, HC <= 256), and heads up to one column per head
-# (the denominators leave shared memory for f32 at HC 256 from 32 heads in
-# K3, from 128 in K2)
-EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (128, 4, 136),
-              (64, 1, 72), (64, 64, 128))
+# take (cuda_pma.KERNEL_WIDTHS), and heads up to one column per head (the
+# denominators leave shared memory (DG) for f32 from 192 heads in K2 at
+# HC 192, from 32 heads in K3 and 64 in K2 at HC 256, from 384 in K3 and
+# 128 in K2 at HC 384, from 256 in K3 and 128 in K2 at HC 512)
+EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (192, 192, 384),
+              (128, 4, 136),
+              (64, 1, 72), (64, 64, 128), (384, 1, 392), (384, 8, 392), (384, 384, 768),
+              (512, 1, 520), (512, 8, 520), (512, 512, 1024))
 
 
 def check_epilogue(dev, gen):
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     for HC, H, WP in EPI_SHAPES:
-        for M in (1000, 40):  # not a multiple of the 64-row tile; below one tile
+        small = cp.tile_rows(HC) * 5 // 8  # below one tile (64 or 32 rows)
+        for M in (1000, small):  # not a multiple of the tile; below one tile
             for dtype in (torch.float32, torch.bfloat16):
                 for L in (1, 2):
                     for relu in (False, True):
-                        if M == 40 and relu:
+                        if M == small and relu:
                             continue
                         agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
                         seed, g0, b0, W, b, g1, b1 = p
@@ -391,11 +401,13 @@ def runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen, floor_rows=True):
 
 def check_runs_epilogue(dev, gen):
     """K2R/K3R against their plain versions (phase 3's tolerances) and, run
-    by run, bit for bit against K2/K3 launched on the run's slice."""
+    by run, bit for bit against K2/K3 launched on the run's slice, at HC
+    256 and 512."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    HC, H, WP, M = 256, 8, 264, 1000  # M not a multiple of the 64-row tile
-    for dtype in (torch.float32, torch.bfloat16):
+    M = 1000  # not a multiple of the 64- or 32-row tile
+    for (HC, H, WP), dtype in ((s, d) for s in ((256, 8, 264), (512, 8, 520))
+                               for d in (torch.float32, torch.bfloat16)):
         for R in (2, 5):
             for L in (1, 2):
                 for relu in (False, True):
@@ -404,7 +416,7 @@ def check_runs_epilogue(dev, gen):
                     y_ref = cp.epilogue_fwd_runs_plain(agg, *p, H, relu)
                     got = cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, relu)
                     want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, relu)
-                    what = f"{dtype}, R={R}, L={L}, relu={relu}"
+                    what = f"{dtype}, HC={HC}, R={R}, L={L}, relu={relu}"
                     err, rel = scaled_err(y, y_ref)
                     require(rel <= EPI_FWD_TOL[dtype], f"K2R disagrees ({what})")
                     msg = check_bwd(got, want, TOL[dtype][1], what)
@@ -420,7 +432,7 @@ def check_runs_epilogue(dev, gen):
                                 and torch.equal(got[1][r], d1[1])
                                 and torch.equal(got[2][r], d1[2]),
                                 f"K3R run {r} differs from K3 on its slice ({what})")
-                    log(f"  K2R/K3R {str(dtype)[6:]:8s} R={R} L={L} relu={int(relu)}: fwd "
+                    log(f"  K2R/K3R {str(dtype)[6:]:8s} HC={HC} R={R} L={L} relu={int(relu)}: fwd "
                         f"max_abs_err={err:.3e} scaled={rel:.3e}; bwd scaled max {msg}; "
                         f"every run bit-identical to K2/K3 on its slice")
     _kernels.reset_launches()
@@ -463,7 +475,7 @@ def check_pack(dev, gen):
 
     M = 1000  # not a multiple of K5's 32-row tile
     for dtype in (torch.float32, torch.bfloat16):
-        for HC, H in ((256, 8), (64, 1), (128, 4)):
+        for HC, H in ((256, 8), (64, 1), (128, 4), (512, 8)):
             yf, bV, ba = pack_inputs(M, HC, H, dtype, dev, gen)
             g = ck.gmax_cuda(yf, ba, H, HC)
             w = ck.pack_cuda(yf, bV, ba, g, H)
@@ -570,15 +582,15 @@ def check_layer_norm(dev, gen):
 def check_routes(dev, gen):
     """The epilogue's route on the card is chosen by shape: an rFF of 3
     layers and HC 96 (shapes the JAX package composes too) take the plain
-    version and launch no kernel; HC 256 with 2 layers launches K2/K3
-    (K2R/K3R with runs); HC 512 with 2 layers, where the JAX package runs
+    version and launch no kernel; HC 256 and 512 with 2 layers launch K2/K3
+    (K2R/K3R with runs); HC 640 with 2 layers, where the JAX package runs
     its fused kernel and the port has none yet, raises before any
     launch."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     for R in (None, 2):
-        agg, gy, p = (epi_inputs(300, 512, 8, 520, 2, torch.float32, dev, gen) if R is None
-                      else runs_inputs(300, 512, 8, 520, 2, R, torch.float32, dev, gen))
+        agg, gy, p = (epi_inputs(300, 640, 8, 648, 2, torch.float32, dev, gen) if R is None
+                      else runs_inputs(300, 640, 8, 648, 2, R, torch.float32, dev, gen))
         _kernels.reset_launches()
         for fn, args in (((cp.epilogue_fwd, (agg,)), (cp.epilogue_bwd, (agg, gy))) if R is None
                          else ((cp.epilogue_fwd_runs, (agg,)), (cp.epilogue_bwd_runs, (agg, gy)))):
@@ -586,11 +598,11 @@ def check_routes(dev, gen):
                 fn(*args, *p, 8, True)
             except ValueError:
                 continue
-            require(False, f"HC 512 (R={R or 1}) did not raise")
-        require(not any(_kernels.launches.values()), "HC 512: a launch before the raise")
-        log(f"  route HC=512, H=8, L=2, R={R or 1}: raises, no launch (no kernel yet)")
+            require(False, f"HC 640 (R={R or 1}) did not raise")
+        require(not any(_kernels.launches.values()), "HC 640: a launch before the raise")
+        log(f"  route HC=640, H=8, L=2, R={R or 1}: raises, no launch (no kernel yet)")
     for HC, H, WP, L, want in ((256, 8, 264, 3, "plain"), (96, 4, 104, 2, "plain"),
-                               (256, 8, 264, 2, "kernel")):
+                               (256, 8, 264, 2, "kernel"), (512, 8, 520, 2, "kernel")):
         for R in (None, 2):
             _kernels.reset_launches()
             if R is None:
@@ -765,19 +777,38 @@ def time_layer_norm(shapes, F, dev, gen):
 def time_main_shapes(batch, dev, gen):
     """Kernel, plain and library times and the bound at the main path's
     shapes (bf16): K1 on the two reduce orders of the real incidence at
-    the packed width, K2/K3 at the two half-layers' row counts. Times are
-    summed over one training step's launches (K1: 4, K2: 2, K3: 2). Each
-    kernel is held to its plain version with phase 3's tolerances; the
-    reported max_abs_err is K1's and K2's output and K3's dagg. No row
-    sits at the 1e-16 floor here, as none does on the main path. Returns
-    {name: Tally}."""
+    the packed width, K2/K3 at the two half-layers' row counts, K4/K5.
+    Times are summed over one training step's launches (K1: 4, K2: 2, K3:
+    2, K4: 2, K5: 2). Each kernel is held to its plain version with phase
+    3's tolerances; the reported max_abs_err is K1's and K2's output and
+    K3's dagg. No row sits at the 1e-16 floor here, as none does on the
+    main path. Returns {name: Tally}."""
+    from allset_tpu_torch.ops import _kernels
+
+    inc = batch.inc.real
+    out = {"segment_sum": Tally()}
+    for order in ("edge", "node"):  # forward and backward of each half-layer
+        time_segment_sum(out["segment_sum"], inc, inc.nnz, order, 264, torch.bfloat16, 2, dev,
+                         True)
+    out.update(time_epilogue_step(batch, dev, gen))
+    # K4/K5: V->E packs the N node rows, E->V the real edges + N-slot rows
+    out.update(time_pack((batch.inc.num_nodes, inc.num_edges + batch.inc.num_nodes), None,
+                         torch.bfloat16, dev, gen, per_launch=1))
+    log_tallies(out, "bench step")
+    _kernels.reset_launches()
+    return out
+
+
+def time_epilogue_step(batch, dev, gen, HC=256, suffix=""):
+    """K2 and K3 at a bench step's two half-layers' row counts, hidden HC
+    with 8 heads (bf16): kernel and plain times summed over the step's
+    launches (2 each), each held to its plain version with phase 3's
+    tolerances. Returns {name + suffix: Tally}."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     inc = batch.inc.real
-    HC, H, WP, L, dt = 256, 8, 264, 2, torch.bfloat16
-    out = {"segment_sum": Tally(), "pma_epilogue_fwd": Tally(), "pma_epilogue_bwd": Tally()}
-    for order in ("edge", "node"):  # forward and backward of each half-layer
-        time_segment_sum(out["segment_sum"], inc, inc.nnz, order, WP, dt, 2, dev, True)
+    H, WP, L, dt = 8, HC + 8, 2, torch.bfloat16
+    out = {"pma_epilogue_fwd" + suffix: Tally(), "pma_epilogue_bwd" + suffix: Tally()}
     for M in (inc.num_edges + batch.inc.num_nodes, batch.inc.num_nodes):
         agg, gy, p = epi_inputs(M, HC, H, WP, L, dt, dev, gen, floor_rows=False)
         args = (agg, *p)
@@ -787,20 +818,17 @@ def time_main_shapes(batch, dev, gen):
         pb = cuda_ms(lambda: cp.epilogue_bwd_plain(agg, gy, *p, H, True))
         ef, rf = scaled_err(cp.epilogue_fwd_cuda(*args, H, True),
                             cp.epilogue_fwd_plain(*args, H, True))
-        require(rf <= EPI_FWD_TOL[dt], f"K2 disagrees at M={M}: {rf}")
+        require(rf <= EPI_FWD_TOL[dt], f"K2 disagrees at M={M}, HC={HC}: {rf}")
         got = cp.epilogue_bwd_cuda(agg, gy, *p, H, True)
         want = cp.epilogue_bwd_plain(agg, gy, *p, H, True)
-        bmsg = check_bwd(got, want, TOL[dt][1], f"M={M}")
-        eb, rb = scaled_err(got[0], want[0])
-        out["pma_epilogue_fwd"].add(1, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False))
-        out["pma_epilogue_bwd"].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True))
-        log(f"  K2 at M={M}: kernel {kf:.3f} ms, plain {pf:.3f} ms, max_abs_err {ef:.3e} "
-            f"(scaled {rf:.2e}); K3: kernel {kb:.3f} ms, plain {pb:.3f} ms, dagg "
+        bmsg = check_bwd(got, want, TOL[dt][1], f"M={M}, HC={HC}")
+        eb, _ = scaled_err(got[0], want[0])
+        out["pma_epilogue_fwd" + suffix].add(1, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False))
+        out["pma_epilogue_bwd" + suffix].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True))
+        log(f"  K2 at M={M}, HC={HC}: kernel {kf:.3f} ms, plain {pf:.3f} ms, max_abs_err "
+            f"{ef:.3e} (scaled {rf:.2e}); K3: kernel {kb:.3f} ms, plain {pb:.3f} ms, dagg "
             f"max_abs_err {eb:.3e}; scaled max {bmsg}")
-    # K4/K5: V->E packs the N node rows, E->V the real edges + N-slot rows
-    out.update(time_pack((batch.inc.num_nodes, inc.num_edges + batch.inc.num_nodes), None,
-                         dt, dev, gen, per_launch=1))
-    log_tallies(out, "bench step")
+        del agg, gy, p, args, got, want
     _kernels.reset_launches()
     return out
 
@@ -826,13 +854,14 @@ def bench_batch(dev):
     return Batch.from_hyperdata(hd, device=dev, bucket=1024)
 
 
-def bench_model(seed: int, nnz_padded: int, **mode):
-    """The bench configuration; ``mode`` adds gpr=True or learn_mask=True,
-    or pma=False (with aggregate='add': AllDeepSets)."""
+def bench_model(seed: int, nnz_padded: int, hidden: int = 256, **mode):
+    """The bench configuration at ``hidden`` (256; 512 as the 512-wide
+    presets); ``mode`` adds gpr=True or learn_mask=True, or pma=False (with
+    aggregate='add': AllDeepSets)."""
     from allset_tpu_torch.models import SetGNN, SetGNNConfig
 
     cfg = SetGNNConfig(
-        num_features=256, num_classes=8, all_num_layers=1, mlp_hidden=256,
+        num_features=256, num_classes=8, all_num_layers=1, mlp_hidden=hidden,
         classifier_num_layers=1, heads=8, dropout=0.0,
         dtype="bfloat16", nnz_padded=nnz_padded, **mode,
     )
@@ -862,22 +891,24 @@ PER_STEP_GPR = {**PER_STEP, "layer_norm_fwd": 1, "layer_norm_bwd": 1}
 PER_STEP_DEEPSETS = {"segment_sum": 4, "layer_norm_fwd": 8, "layer_norm_bwd": 8}
 
 
-def main_path(batch, dev, card, per_step=None, **mode):
-    """8 bench steps (``mode``: the bench step, gpr=True, learn_mask=True,
-    pma=False for AllDeepSets) with every launch count set to 0 just
-    before, checked against ``per_step`` (default: the bench step's
-    PER_STEP, as ``scripts/pair_timing.py`` calls it in any tree); returns
-    the counts and the median step time."""
+def main_path(batch, dev, card, per_step=None, hidden=256, **mode):
+    """8 bench steps at ``hidden`` (``mode``: the bench step, gpr=True,
+    learn_mask=True, pma=False for AllDeepSets) with every launch count
+    set to 0 just before, checked against ``per_step`` (default: the bench
+    step's PER_STEP, as ``scripts/pair_timing.py`` calls it in any tree);
+    returns the counts and the median step time."""
     from allset_tpu_torch.ops import _kernels
 
     per_step = PER_STEP if per_step is None else per_step
     steps = 8
     label = ", ".join(f"{k}={v}" for k, v in mode.items()) or "bench step"
+    if hidden != 256:
+        label += f", hidden {hidden}"
     mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
-    model = bench_model(0, batch.inc.nnz_padded, **mode).to(dev)
+    model = bench_model(0, batch.inc.nnz_padded, hidden, **mode).to(dev)
     state = {k: v.clone() for k, v in model.state_dict().items()}
     # warm-up on a throwaway copy: first-call allocations, cuBLAS handles
-    warm = bench_model(0, batch.inc.nnz_padded, **mode).to(dev)
+    warm = bench_model(0, batch.inc.nnz_padded, hidden, **mode).to(dev)
     run_steps(warm, batch, mask, 1)
     del warm
     _kernels.reset_launches()
@@ -891,7 +922,7 @@ def main_path(batch, dev, card, per_step=None, **mode):
     log(f"  [{label}] losses: {[round(v, 6) for v in lo.tolist()]}")
     require(bool(torch.isfinite(lo).all()), f"{label}: non-finite loss")
     require(lo[-1] < lo[0], f"{label}: loss did not fall")
-    model2 = bench_model(1, batch.inc.nnz_padded, **mode).to(dev)
+    model2 = bench_model(1, batch.inc.nnz_padded, hidden, **mode).to(dev)
     model2.load_state_dict(state)
     losses2, _ = run_steps(model2, batch, mask, steps)
     require(torch.equal(losses, losses2), f"{label}: two runs from one state differ")
@@ -915,20 +946,38 @@ def time_runs_shapes(batch, dev, gen, R=20):
     """Kernel, plain and library times and the bound at the runs path's
     shapes (walmart preset, f32, R runs folded): K1 on the two reduce
     orders at width R*264 (an epoch launches it 3 times on each: train
-    forward and backward, eval forward), K2R at the two half-layers' row
-    counts (twice each per epoch: train and eval), K3R once each. Summed
-    per epoch; each kernel held to its plain version with phase 3's
-    tolerances, and each run of K3R bit for bit to K3 on its slice.
-    Returns {name: Tally}."""
+    forward and backward, eval forward), K2R/K3R (time_epilogue_epoch),
+    K4/K5. Summed per epoch; each kernel held to its plain version with
+    phase 3's tolerances. Returns {name: Tally}."""
+    from allset_tpu_torch.ops import _kernels
+
+    inc = batch.inc.real
+    dt = torch.float32
+    out = {"segment_sum_runs": Tally()}
+    for order in ("edge", "node"):
+        time_segment_sum(out["segment_sum_runs"], inc, inc.nnz, order, R * 264, dt, 3, dev,
+                         False)
+    out.update(time_epilogue_epoch(batch, dev, gen, R))
+    pack = time_pack((batch.num_nodes, inc.num_edges + batch.num_nodes), R, dt, dev, gen,
+                     per_launch=2)  # train and eval forward
+    out.update({f"{k}_runs": v for k, v in pack.items()})
+    log_tallies(out, f"{R}-run epoch")
+    _kernels.reset_launches()
+    return out
+
+
+def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix=""):
+    """K2R and K3R at the runs path's two half-layers' row counts (hidden
+    HC, 8 heads, f32, R runs folded): K2R twice each per epoch (train and
+    eval), K3R once each, summed per epoch; each held to its plain version
+    with phase 3's tolerances, and each run of K3R bit for bit to K3 on
+    its slice. Returns {name + suffix: Tally}."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     inc = batch.inc.real
-    HC, H, WP, L, dt = 256, 8, 264, 2, torch.float32
-    out = {"segment_sum_runs": Tally(), "pma_epilogue_fwd_runs": Tally(),
-           "pma_epilogue_bwd_runs": Tally()}
-    for order in ("edge", "node"):
-        time_segment_sum(out["segment_sum_runs"], inc, inc.nnz, order, R * WP, dt, 3, dev,
-                         False)
+    H, WP, L, dt = 8, HC + 8, 2, torch.float32
+    fwd, bwd = "pma_epilogue_fwd_runs" + suffix, "pma_epilogue_bwd_runs" + suffix
+    out = {fwd: Tally(), bwd: Tally()}
     for M in (inc.num_edges + batch.num_nodes, batch.num_nodes):
         agg, gy, p = runs_inputs(M, HC, H, WP, L, R, dt, dev, gen, floor_rows=False)
         kf = cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=3)
@@ -937,10 +986,10 @@ def time_runs_shapes(batch, dev, gen, R=20):
         pb = cuda_ms(lambda: cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True), iters=2)
         ef, rf = scaled_err(cp.epilogue_fwd_runs_cuda(agg, *p, H, True),
                             cp.epilogue_fwd_runs_plain(agg, *p, H, True))
-        require(rf <= EPI_FWD_TOL[dt], f"K2R disagrees at M={M}: {rf}")
+        require(rf <= EPI_FWD_TOL[dt], f"K2R disagrees at M={M}, HC={HC}: {rf}")
         got = cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True)
         want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True)
-        bmsg = check_bwd(got, want, TOL[dt][1], f"runs M={M}")
+        bmsg = check_bwd(got, want, TOL[dt][1], f"runs M={M}, HC={HC}")
         eb, _ = scaled_err(got[0], want[0])
         del want
         for r in range(R):
@@ -949,17 +998,14 @@ def time_runs_shapes(batch, dev, gen, R=20):
                                        *[t[r] for t in p], H, True)
             require(torch.equal(got[0][:, r * WP:(r + 1) * WP], one[0])
                     and torch.equal(got[1][r], one[1]) and torch.equal(got[2][r], one[2]),
-                    f"K3R run {r} differs from K3 on its slice at M={M}")
-        del got, one
-        out["pma_epilogue_fwd_runs"].add(2, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False, R))
-        out["pma_epilogue_bwd_runs"].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True, R))
-        log(f"  K2R at M={M}, R={R}: kernel {kf:.3f} ms, plain {pf:.3f} ms, max_abs_err "
-            f"{ef:.3e} (scaled {rf:.2e}); K3R: kernel {kb:.3f} ms, plain {pb:.3f} ms, dagg "
-            f"max_abs_err {eb:.3e}; scaled max {bmsg}; each run bit-identical to K3")
-    pack = time_pack((batch.num_nodes, inc.num_edges + batch.num_nodes), R, dt, dev, gen,
-                     per_launch=2)  # train and eval forward
-    out.update({f"{k}_runs": v for k, v in pack.items()})
-    log_tallies(out, f"{R}-run epoch")
+                    f"K3R run {r} differs from K3 on its slice at M={M}, HC={HC}")
+        del got, one, agg, gy, p
+        torch.cuda.empty_cache()
+        out[fwd].add(2, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False, R))
+        out[bwd].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True, R))
+        log(f"  K2R at M={M}, HC={HC}, R={R}: kernel {kf:.3f} ms, plain {pf:.3f} ms, "
+            f"max_abs_err {ef:.3e} (scaled {rf:.2e}); K3R: kernel {kb:.3f} ms, plain {pb:.3f} "
+            f"ms, dagg max_abs_err {eb:.3e}; scaled max {bmsg}; each run bit-identical to K3")
     _kernels.reset_launches()
     return out
 
@@ -1039,6 +1085,31 @@ def runs_protocol(card, tmp):
     return counts, per_epoch
 
 
+def hidden512_protocol(card, tmp, dev):
+    """--MLP_hidden 512 through the CLI at the walmart preset (8 heads, f32,
+    the width of the 512-wide tuned presets): 20 runs x 2 epochs through
+    K2R/K3R at HC 512 (launches per group and epoch as at 256), finite
+    metrics, a falling training loss, the peak device memory per folded
+    run against the trainer's estimate (which must not be lower), then 2
+    runs folded against 2 one by one. Returns the counts."""
+    base = ["--dname", WALMART, "--preset", "--MLP_hidden", "512", "--dtype", "float32",
+            "--device", "cuda", "--res_root", tmp]
+    epochs = 2
+    res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs, None, dev,
+                                      mlp_hidden=512)
+    loss = res.metrics[:, :, 3].mean(axis=0)
+    log(f"  --MLP_hidden 512: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
+        f"{counts}; params {res.num_params}; mean training loss per epoch "
+        f"{[round(float(v), 6) for v in loss]}; {res.wall_time / epochs * 1e3:.1f} ms per "
+        f"epoch over {epochs} epochs (first included) [{card}]")
+    require(loss[-1] < loss[0], "--MLP_hidden 512: training loss did not fall")
+    log(f"  --MLP_hidden 512: peak device memory per folded run {peak / 2**30:.3f} GiB; the "
+        f"trainer's estimate {est / 2**30:.3f} GiB [{card}]")
+    require(est >= peak, "--MLP_hidden 512: the trainer's estimate is below the measured peak")
+    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2"], 2)
+    return counts
+
+
 def folded_vs_one_by_one(argv, epochs, per=None):
     """2 runs folded into each launch against the same 2 runs one by one:
     equal accuracies, losses within rtol 2e-3."""
@@ -1055,10 +1126,11 @@ def folded_vs_one_by_one(argv, epochs, per=None):
         f"{rel.max():.2e} (rtol 2e-3)")
 
 
-def deepsets_peak(argv, epochs, learn_mask, dev):
-    """One checked AllDeepSets CLI run (walmart preset, f32) -> (Results,
-    counts, the peak device memory per folded run, the trainer's estimate
-    for the same configuration)."""
+def cli_peak(argv, epochs, per, dev, **cfg):
+    """One checked CLI run (walmart preset, f32; ``per`` as in cli_run) ->
+    (Results, counts, the peak device memory per folded run, the trainer's
+    estimate for the same configuration: the preset with ``cfg``, fields
+    of ExperimentConfig, over it)."""
     from allset_tpu_torch.data import load_dataset
     from allset_tpu_torch.train import TrainConfig, Trainer
     from allset_tpu_torch.train.factory import ExperimentConfig, prepare
@@ -1067,13 +1139,12 @@ def deepsets_peak(argv, epochs, learn_mask, dev):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    res, counts = cli_run(argv, epochs, DEEPSETS_GROUP_EPOCH)
+    res, counts = cli_run(argv, epochs, per)
     peak = (torch.cuda.max_memory_allocated(dev) - before) / max(res.groups)
     fields = ExperimentConfig.__dataclass_fields__
     preset = {k: v for k, v in preset_for(WALMART, 1.0).items() if k in fields}
     data = load_dataset(WALMART, feature_noise=1.0, seed=0)
-    mcfg, batch = prepare(ExperimentConfig(method="AllDeepSets", dname=WALMART,
-                                           learn_mask=learn_mask, **preset), data, dev)
+    mcfg, batch = prepare(ExperimentConfig(dname=WALMART, **{**preset, **cfg}), data, dev)
     est = Trainer(mcfg, batch, TrainConfig())._bytes_per_run()
     del batch
     return res, counts, peak, est
@@ -1090,7 +1161,8 @@ def deepsets_protocol(card, tmp, dev):
     base = ["--method", "AllDeepSets", "--dname", WALMART, "--preset", "--dtype", "float32",
             "--device", "cuda", "--res_root", tmp]
     epochs = 3
-    res, counts, peak, est = deepsets_peak(base + ["--epochs", str(epochs)], epochs, False, dev)
+    res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs,
+                                      DEEPSETS_GROUP_EPOCH, dev, method="AllDeepSets")
     loss = res.metrics[:, :, 3].mean(axis=0)
     log(f"  AllDeepSets: {res.metrics.shape[0]} runs in groups {res.groups}; launches {counts} "
         f"(per group and epoch {DEEPSETS_GROUP_EPOCH}); params {res.num_params}")
@@ -1105,8 +1177,9 @@ def deepsets_protocol(card, tmp, dev):
     log(f"  AllDeepSets 20-run protocol, warm: {[round(w, 3) for w in warm]} ms per epoch "
         f"(three runs of 4 epochs, groups {res_w.groups}); median {statistics.median(warm):.3f}, "
         f"spread {max(warm) - min(warm):.3f} ms [{card}]")
-    res_m, counts_m, peak_m, est_m = deepsets_peak(base + ["--epochs", "2", "--LearnMask"], 2,
-                                                   True, dev)
+    res_m, counts_m, peak_m, est_m = cli_peak(base + ["--epochs", "2", "--LearnMask"], 2,
+                                              DEEPSETS_GROUP_EPOCH, dev, method="AllDeepSets",
+                                              learn_mask=True)
     log(f"  AllDeepSets --LearnMask: {res_m.metrics.shape[0]} runs in groups {res_m.groups}; "
         f"launches {counts_m}; {res_m.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs "
         f"(first included) [{card}]")
@@ -1317,6 +1390,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     import allset_tpu_torch  # noqa: F401  (the port; imports no jax)
     from allset_tpu_torch.ops import _kernels
 
@@ -1353,6 +1427,10 @@ def main() -> int:
     log_tallies({k: timings[k] for k in ("layer_norm_fwd", "layer_norm_bwd")},
                 "AllDeepSets bench step")
     counts, _ = main_path(batch, dev, card, PER_STEP)
+    timings.update(time_epilogue_step(batch, dev, gen, 512, "_hc512"))
+    log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_hc512", "pma_epilogue_bwd_hc512")},
+                "bench step at hidden 512")
+    counts512, _ = main_path(batch, dev, card, PER_STEP, hidden=512)
     main_path(batch, dev, card, PER_STEP_GPR, gpr=True)
     main_path(batch, dev, card, PER_STEP, learn_mask=True)
     deepsets = dict(pma=False, aggregate="add")
@@ -1373,10 +1451,15 @@ def main() -> int:
     log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {wb.num_nodes}, "
         f"nnz {wb.inc.real.nnz}, real edges {wb.inc.real.num_edges}")
     timings.update(time_runs_shapes(wb, dev, gen))
+    timings.update(time_epilogue_epoch(wb, dev, gen, 20, 512, "_hc512"))
+    log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc512",
+                                         "pma_epilogue_bwd_runs_hc512")},
+                "20-run epoch at hidden 512")
     del wb
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         runs_counts, _ = runs_protocol(card, tmp)
+        runs512_counts = hidden512_protocol(card, tmp, dev)
         deepsets_protocol(card, tmp, dev)
         route_runs(card, tmp)
         require("jax" not in sys.modules, "the port loaded jax")
@@ -1386,11 +1469,11 @@ def main() -> int:
     sources = {  # name -> (source, TPU kernel replaced, launches of its path)
         "segment_sum": ("allset_tpu_torch/csrc/segment_sum.cu",
                         "allset_tpu/ops/pallas_segment.py:39", counts),
-        "pma_epilogue_fwd": ("allset_tpu_torch/csrc/pma_epilogue.cu",
+        "pma_epilogue_fwd": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
                              "allset_tpu/ops/pallas_pma.py:170", counts),
         "pma_epilogue_bwd": ("allset_tpu_torch/csrc/pma_epilogue.cu",
                              "allset_tpu/ops/pallas_pma.py:185", counts),
-        "pma_epilogue_fwd_runs": ("allset_tpu_torch/csrc/pma_epilogue.cu",
+        "pma_epilogue_fwd_runs": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
                                   "allset_tpu/ops/pallas_pma.py:365", runs_counts),
         "pma_epilogue_bwd_runs": ("allset_tpu_torch/csrc/pma_epilogue.cu",
                                   "allset_tpu/ops/pallas_pma.py:424", runs_counts),
@@ -1403,10 +1486,17 @@ def main() -> int:
         "layer_norm_bwd": ("allset_tpu_torch/csrc/layer_norm.cu",
                            "benchmarks/exp_ln.py:60", ds_counts),
     }
+    # the epilogue kernels at HC 512: the hidden-512 bench step and CLI run
+    for k, cnt in (("pma_epilogue_fwd", counts512), ("pma_epilogue_bwd", counts512),
+                   ("pma_epilogue_fwd_runs", runs512_counts),
+                   ("pma_epilogue_bwd_runs", runs512_counts)):
+        sources[f"{k}_hc512"] = (*sources[k][:2], cnt)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
+        f"(the build included) [{card}]")
     kernels = []
     for name, (src, rep, cnt) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": cnt[name], **timings[name].row()})
+                        "launches": cnt[name.removesuffix("_hc512")], **timings[name].row()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,14 +12,15 @@ never imports either), builds its own kernels and measures, on the card:
 
   * the bench step (bf16, the bench graph of ``chip_smoke.bench_batch``):
     the median of 8 training steps (``chip_smoke.main_path``, with its
-    launch and repeatability checks), and K1's and K3's kernel time per
-    step at the main path's shapes (CUDA events);
+    launch and repeatability checks), and K1's, K2's and K3's kernel time
+    per step at the main path's shapes (CUDA events);
   * the runs protocol (f32, synthetic-walmart preset, 20 runs folded):
-    K1's and K3R's kernel time per epoch at its shapes, and a warm epoch
-    through the CLI (one epoch to warm up, then 6 timed).
+    K1's, K2R's and K3R's kernel time per epoch at its shapes, and a warm
+    epoch through the CLI (one epoch to warm up, then 6 timed).
 
-Each worker prints one JSON line; the script prints them and the means
-per tree, with the card's name and power limit. Needs one CUDA card.
+Each worker prints one JSON line; the script prints them and, per tree,
+the mean, lowest and highest reading of each number, with the card's name
+and power limit. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -65,10 +66,12 @@ def worker() -> None:
     inc = batch.inc.real
     out["k1_ms_per_step"] = sum(2 * _segment_ms(cs, cseg, inc, o, WP, torch.bfloat16, dev)
                                 for o in ("edge", "node"))
-    k3 = 0.0
+    k2 = k3 = 0.0
     for M in (inc.num_edges + batch.inc.num_nodes, batch.inc.num_nodes):
         agg, gy, p = cs.epi_inputs(M, HC, H, WP, L, torch.bfloat16, dev, gen, floor_rows=False)
+        k2 += cs.cuda_ms(lambda: cp.epilogue_fwd_cuda(agg, *p, H, True), iters=20)
         k3 += cs.cuda_ms(lambda: cp.epilogue_bwd_cuda(agg, gy, *p, H, True))
+    out["k2_ms_per_step"] = k2
     out["k3_ms_per_step"] = k3
     del batch, agg, gy, p
     torch.cuda.empty_cache()
@@ -76,13 +79,16 @@ def worker() -> None:
     inc = wb.inc.real
     out["k1_ms_per_epoch"] = sum(3 * _segment_ms(cs, cseg, inc, o, 20 * WP, torch.float32, dev)
                                  for o in ("edge", "node"))
-    k3r = 0.0
+    k2r = k3r = 0.0
     for M in (inc.num_edges + wb.num_nodes, wb.num_nodes):
         agg, gy, p = cs.runs_inputs(M, HC, H, WP, L, 20, torch.float32, dev, gen,
                                     floor_rows=False)
+        # an epoch launches K2R twice per half-layer (train and eval), K3R once
+        k2r += 2 * cs.cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=5)
         k3r += cs.cuda_ms(lambda: cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True), iters=3)
         del agg, gy, p
         torch.cuda.empty_cache()
+    out["k2r_ms_per_epoch"] = k2r
     out["k3r_ms_per_epoch"] = k3r
     del wb
     torch.cuda.empty_cache()
@@ -122,8 +128,10 @@ def main(argv=None) -> int:
     keys = [k for k in rows[0] if k != "tree"]
     for tree in (other, here):
         mine = [r for r in rows if r["tree"] == tree]
-        means = {k: sum(r[k] for r in mine) / len(mine) for k in keys}
-        print(f"MEAN {tree} ({len(mine)} workers) [{card}]: " + json.dumps(means), flush=True)
+        means = {k: [sum(r[k] for r in mine) / len(mine), min(r[k] for r in mine),
+                     max(r[k] for r in mine)] for k in keys}
+        print(f"MEAN {tree} ({len(mine)} workers; mean, lowest, highest) [{card}]: "
+              + json.dumps(means), flush=True)
     return 0
 
 

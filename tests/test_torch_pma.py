@@ -1,8 +1,9 @@
 """K2/K3's plain versions (the CPU path of pma_epilogue and its backward)
 against the JAX package's fused epilogue kernel in interpret mode, with
-f32 products and with the kernels' 3xTF32 split emulated; the shapes the
-kernels refuse against the JAX package's composition; the shape predicate
-and the route on the card against the JAX package's gate."""
+f32 products and with the kernels' 3xTF32 split emulated, at every width
+the kernels take (HC 64 to 512); the shapes the kernels refuse against
+the JAX package's composition; the shape predicate and the route on the
+card against the JAX package's gate."""
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +53,7 @@ def split_mm(a, b):
     return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d) + ah.to(d) @ bh.to(d)).float()
 
 
-@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("K", [64, 256, 512])
 def test_split_tf32_product_is_f32_accurate(K):
     rng = np.random.default_rng(K)
     a = torch.from_numpy(rng.normal(size=(300, K)).astype(np.float32))
@@ -98,13 +99,33 @@ def test_epilogue_matches_jax_kernel(dtype, L, relu):
     _check_against_jax(dtype, L, relu, H, HC, M, WP)
 
 
-def _check_against_jax(dtype, L, relu, H, HC, M, WP):
+@pytest.mark.parametrize("L", [1, 2])
+@pytest.mark.parametrize("H", [1, 8])
+@pytest.mark.parametrize("HC", [384, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_epilogue_at_hc_384_512_matches_jax_kernel(dtype, HC, H, L):
+    """The widths the kernels take on 32-row tiles (HC 384 and 512, heads 1
+    and 8, an rFF of 1 or 2 layers): values and gradients against the JAX
+    kernel in interpret mode, on M = 45 rows (not a multiple of 32) in
+    32-row blocks."""
+    _check_against_jax(dtype, L, True, H, HC, 45, HC + 8, blk=32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_epilogue_at_hc_512_on_split_products_matches_jax_kernel(dtype, monkeypatch):
+    """HC 512 with the kernels' 3xTF32 products (a bf16 operand's low part
+    0), 8 heads, 2 layers."""
+    monkeypatch.setattr(cuda_pma, "_mm", split_mm)
+    _check_against_jax(dtype, 2, True, 8, 512, 45, 520, blk=32)
+
+
+def _check_against_jax(dtype, L, relu, H, HC, M, WP, blk=BLK):
     agg, params, tgt = _inputs(L, H=H, HC=HC, M=M, WP=WP)
     jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     td = getattr(torch, dtype)
 
     def jloss(*a):
-        y = jax_epilogue(H, BLK, True, relu, *a)
+        y = jax_epilogue(H, blk, True, relu, *a)
         return jnp.mean((y.astype(jnp.float32) - tgt) ** 2), y
 
     jargs = [jnp.asarray(agg, jd)] + [jnp.asarray(p) for p in params]
@@ -151,19 +172,19 @@ def test_cpu_epilogue_launches_nothing_and_the_kernel_refuses_cpu():
 @pytest.mark.parametrize("H,HC,L,WP", [(4, 128, 3, 136), (8, 512, 2, 520)],
                          ids=["L3", "HC512"])
 def test_plain_route_shapes_match_jax_composition(H, HC, L, WP):
-    """At the shapes the kernels refuse the plain epilogue agrees with the
-    JAX package's own composition (``_reference_fwd``) on values and
-    gradients, with the f32 tolerances above. An rFF of 3 layers takes it
-    on the card too, as the JAX gate composes it; HC 512 takes it on the
-    CPU only: on the card the JAX package runs its fused kernel there, and
-    the port, with no kernel for it yet, raises."""
+    """The plain epilogue agrees with the JAX package's own composition
+    (``_reference_fwd``) on values and gradients, with the f32 tolerances
+    above, where the kernels refuse the shape and at HC 512. An rFF of 3
+    layers takes the plain version on the card too, as the JAX gate
+    composes it; HC 512 takes it on the CPU only, and the kernels on the
+    card."""
     agg, params, tgt = _inputs(L, H=H, HC=HC, M=M, WP=WP)
-    assert not cuda_pma.epilogue_supported(HC, H, L, WP)
     if L == 3:
+        assert not cuda_pma.epilogue_supported(HC, H, L, WP)
         assert cuda_pma.epilogue_route(HC, H, L, WP) == "plain"
     else:
-        with pytest.raises(ValueError, match="ROADMAP Queue 3"):
-            cuda_pma.epilogue_route(HC, H, L, WP)
+        assert cuda_pma.epilogue_supported(HC, H, L, WP)
+        assert cuda_pma.epilogue_route(HC, H, L, WP) == "kernel"
 
     def jloss(*a):
         y = _reference_fwd(*a, H=H, relu=True)
@@ -189,7 +210,9 @@ def test_plain_route_shapes_match_jax_composition(H, HC, L, WP):
 def test_epilogue_supported_holds_the_kernels_limits():
     ok = cuda_pma.epilogue_supported
     assert ok(256, 8, 2, 264) and ok(64, 64, 1, 128) and ok(192, 8, 2, 200, R=20)
-    assert not ok(512, 8, 2, 520)  # HC above 256
+    assert ok(512, 8, 2, 520) and ok(384, 384, 1, 768) and ok(512, 1, 2, 520, R=20)
+    assert not ok(640, 8, 2, 648)  # HC above 512
+    assert not ok(320, 8, 2, 328)  # HC between the kernels' widths
     assert not ok(96, 4, 2, 104)  # HC not a multiple of 64
     assert not ok(256, 8, 3, 264)  # L outside (1, 2)
     assert not ok(256, 8, 2, 260)  # WP not a multiple of 8
@@ -200,7 +223,8 @@ def test_epilogue_supported_holds_the_kernels_limits():
 
 @pytest.mark.parametrize("HC,H,L,want", [
     (256, 8, 2, "kernel"), (64, 1, 1, "kernel"), (256, 8, 3, "plain"), (96, 4, 2, "plain"),
-    (320, 8, 2, "plain"), (512, 8, 3, "plain"), (512, 8, 2, "raise"), (384, 8, 1, "raise")])
+    (320, 8, 2, "plain"), (512, 8, 3, "plain"), (512, 8, 2, "kernel"), (384, 8, 1, "kernel"),
+    (640, 8, 2, "raise"), (1024, 16, 1, "raise")])
 def test_epilogue_route_follows_the_jax_gate(HC, H, L, want, monkeypatch):
     """On the card the epilogue takes its plain version only where the JAX
     package's gate (``epilogue_active``; interpret mode stands for the
@@ -223,7 +247,7 @@ def test_epilogue_route_follows_the_jax_gate(HC, H, L, want, monkeypatch):
 
 def test_pma_takes_three_layer_rff_and_hc_512():
     """PMA builds with an rFF of 3 layers and with HC 512 and runs on the
-    CPU (on the card HC 512 raises until its kernel lands)."""
+    CPU (on the card HC 512 runs through K2/K3)."""
     from allset_tpu_torch.nn.modules import PMA
     from allset_tpu_torch.graph import add_self_loops, norm_construction
     from allset_tpu_torch.data.synthetic import synthetic_hypergraph

@@ -19,7 +19,7 @@ from allset_tpu_torch.ops.exchange import dir_spmm
 R, M, HC, H, WP, BLK = 3, 50, 128, 4, 136, 32  # M not a multiple of BLK
 
 
-def _inputs(L, R=R, seed=0, floor=True):
+def _inputs(L, R=R, seed=0, floor=True, M=M, HC=HC, H=H, WP=WP):
     """agg [M, R*WP] (with ``floor``, some rows at the 1e-16 denominator
     floor), per-run parameters and an upstream gradient [M, R*HC], all
     float32 numpy."""
@@ -45,9 +45,20 @@ def _t(arrays):
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("L", [1, 2])
 def test_runs_epilogue_matches_jax_runs_grid(L, relu):
+    _check_runs_against_jax(L, relu, R, M, HC, H, WP)
+
+
+@pytest.mark.parametrize("L", [1, 2])
+def test_runs_epilogue_at_hc_512_matches_jax_runs_grid(L):
+    """K2R/K3R's plain versions at the widest kernel width, R = 2, 45 rows
+    (not a multiple of the 32-row tile)."""
+    _check_runs_against_jax(L, True, 2, 45, 512, 8, 520)
+
+
+def _check_runs_against_jax(L, relu, R, M, HC, H, WP):
     # no floor rows: their ~1e16 dvals amplify rounding past these
     # tolerances (tests/test_torch_pma.py checks them scaled apart)
-    agg, params, gy = _inputs(L, floor=False)
+    agg, params, gy = _inputs(L, R=R, floor=False, M=M, HC=HC, H=H, WP=WP)
     kw = dict(H=H, blk=BLK, interpret=True, relu=relu, R=R)
     jargs = [jnp.asarray(p) for p in params]
     y_ref = _pallas_fwd(jnp.asarray(agg), *jargs, **kw)

@@ -327,6 +327,7 @@ def _jax_cli_params(argv, monkeypatch):
     (["--method", "AllDeepSets"], ["--method", "AllDeepSets"]),
     (["--method", "AllDeepSets", "--LearnMask", "--deepset_input_norm", "false"],
      ["--method", "AllDeepSets", "--LearnMask", "--deepset_input_norm", "false"]),
+    (["--MLP_hidden", "512"], ["--MLP_hidden", "512"]),  # the 512-wide presets' width
 ])
 def test_cli_modes_run_and_count_the_jax_parameters(flags, jax_flags, tmp_path, monkeypatch,
                                                     capsys):
@@ -340,3 +341,26 @@ def test_cli_modes_run_and_count_the_jax_parameters(flags, jax_flags, tmp_path, 
     want = _jax_cli_params(base + jax_flags, monkeypatch)
     assert f"params: {want}," in out
     assert res.num_params == want
+
+
+@pytest.mark.parametrize("method,hidden,layers", [
+    ("AllSetTransformer", 256, 2), ("AllSetTransformer", 512, 2), ("AllSetTransformer", 512, 1),
+    ("AllDeepSets", 512, 2)])
+def test_memory_estimate_counts_the_dw_partials(method, hidden, layers, monkeypatch):
+    """Each folded run's estimate holds, once, K3R's dW partials: the
+    DW_PARTIALS f32 [L, HC, HC] tables that ops/cuda_pma.py allocates per
+    run for the backward of an L-layer rFF at width HC (134 MB at HC 512,
+    L 2). AllDeepSets runs no epilogue and holds none."""
+    from allset_tpu_torch.ops import cuda_pma
+
+    data = treg.load_dataset("synthetic", feature_noise=1.0)
+    cfg = ExperimentConfig(dname="synthetic", method=method, mlp_hidden=hidden,
+                           mlp_num_layers=layers, heads=8)
+    mc, batch = prepare(cfg, data, "cpu")
+    est = Trainer(mc, batch, TrainConfig())._bytes_per_run()
+    monkeypatch.setattr(ttrainer, "DW_PARTIALS", 0)
+    without = Trainer(mc, batch, TrainConfig())._bytes_per_run()
+    want = cuda_pma.DW_PARTIALS * layers * hidden * hidden * 4 if method != "AllDeepSets" else 0
+    assert est - without == want
+    if hidden == 512 and layers == 2 and method != "AllDeepSets":
+        assert want == 134_217_728
