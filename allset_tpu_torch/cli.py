@@ -20,8 +20,11 @@ Differences from the JAX CLI:
   * ``--add_self_loop`` takes an optional boolean (default true); the
     reference's flag is ``store_false``, which turns self-loops off.
   * Flags of parts not ported yet (``--plot``, ``--save_params``,
-    ``--profile``, ``--remat``, ``--epoch_chunk``) raise; the flags of the
-    other methods are parsed and not read (their methods raise).
+    ``--profile``, ``--remat``, ``--epoch_chunk``) raise; so do the methods
+    not ported yet (CEGCN, CEGAT, HyperGCN), whose flags are parsed and
+    not read. ``--method`` takes AllSetTransformer, AllDeepSets, HGNN,
+    HCHA, HNHN, UniGNN (``--UniGNN_model_name`` UniGAT, UniGCN, UniGCN2,
+    UniGIN, UniSAGE), UniGCNII and MLP.
 """
 
 from __future__ import annotations
@@ -161,6 +164,12 @@ def run(argv=None):
         gpr=args.GPR,
         learn_mask=args.LearnMask,
         exclude_self=args.exclude_self,
+        hnhn_alpha=args.HNHN_alpha,
+        hnhn_beta=args.HNHN_beta,
+        hnhn_nonlinear_inbetween=args.HNHN_nonlinear_inbetween,
+        hcha_symdegnorm=args.HCHA_symdegnorm,
+        unignn_model_name=args.UniGNN_model_name,
+        unignn_use_norm=args.UniGNN_use_norm,
         seed=args.seed,
         dtype=args.dtype,
         **values,

@@ -1,7 +1,9 @@
 """Batch: the bundle every model consumes, on an explicit device.
 
-Counterpart of ``allset_tpu/graph/batch.py``: features, labels and the
-incidence, all tensors on one device; and ``split_masks``. The device is
+Counterpart of ``allset_tpu/graph/batch.py``: features, labels, the
+incidence (None for the structure-free MLP) and the per-model extras
+(HNHN's norm vectors, UniGNN's degrees), all tensors on one device; and
+``split_masks``. The device is
 the card unless the caller names another; without a card that default
 raises, it never falls back to the CPU.
 """
@@ -9,7 +11,7 @@ raises, it never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,7 +24,8 @@ from allset_tpu_torch.graph.transforms import HyperData
 class Batch:
     x: torch.Tensor  # [N, F] float32
     y: torch.Tensor  # [N] int64
-    inc: Incidence
+    inc: Optional[Incidence]
+    extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_nodes(self) -> int:
@@ -30,7 +33,8 @@ class Batch:
 
     @classmethod
     def from_hyperdata(
-        cls, data: HyperData, device="cuda", bucket: int = 256
+        cls, data: HyperData, device="cuda", bucket: int = 256,
+        with_incidence: bool = True,
     ) -> "Batch":
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -39,7 +43,8 @@ class Batch:
         return cls(
             x=torch.as_tensor(data.x, dtype=torch.float32).to(device),
             y=torch.as_tensor(data.y, dtype=torch.int64).to(device),
-            inc=data.to_incidence(bucket=bucket).to(device),
+            inc=data.to_incidence(bucket=bucket).to(device) if with_incidence else None,
+            extras={k: torch.as_tensor(v).to(device) for k, v in data.extras.items()},
         )
 
 

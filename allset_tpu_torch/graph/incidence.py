@@ -144,6 +144,20 @@ def chunk_plan(indptr, budget: int = ROW_BUDGET) -> SegPlan:
     return SegPlan(chunks=_t(chunks), cuts=_t(cuts), num_partials=int(count.sum()))
 
 
+@dataclasses.dataclass(frozen=True)
+class SegOrder:
+    """A sort of segment ids over their valid entries: ``ids[perm[:n]]``
+    ascending, n = ``indptr[-1]`` (``perm`` None: the ids are sorted already
+    and the valid entries come first), with the CSR ``indptr`` of that
+    order and K1's chunk ``plan`` over it. A reduce by the ids is then K1
+    over the entries in that order, and the transpose of a gather by the
+    ids is the same (``ops/segment.py``)."""
+
+    perm: Optional[Tensor]
+    indptr: Tensor
+    plan: SegPlan
+
+
 def _to(obj, device):
     """Move every tensor field of a dataclass (recursively) to ``device``."""
     changes = {}
@@ -296,6 +310,14 @@ class Incidence:
             ),
             **sl_fields,
         )
+
+    def edge_order(self) -> SegOrder:
+        """The sort of ``edge`` (canonical order: sorted already)."""
+        return SegOrder(None, self.edge_indptr, self.edge_plan)
+
+    def node_order(self) -> SegOrder:
+        """The sort of ``node``: the node-sorted order ``node_perm``."""
+        return SegOrder(self.node_perm, self.node_indptr, self.node_plan)
 
     # --- directed views (see Direction below) ---
 

@@ -1,9 +1,10 @@
 """Host-side hypergraph transforms (numpy), mirroring reference preprocessing.
 
 Counterpart of ``allset_tpu/graph/transforms.py``, limited to what the
-AllSetTransformer runs protocol needs: ``HyperData``, ``coalesce``,
-``add_self_loops``, ``expand_edge_index``, ``norm_construction`` and
-``rand_train_test_idx``.
+ported methods need: ``HyperData``, ``coalesce``, ``add_self_loops``,
+``expand_edge_index``, ``norm_construction``, ``rand_train_test_idx``,
+and the zoo's degree vectors ``generate_norm_hnhn`` (HNHN) and
+``unignn_degrees`` (UniGNN, UniGCNII), carried in ``HyperData.extras``.
 The port keeps its own copy because importing the JAX package's module
 loads jax. Given the same inputs (and the same numpy generator state),
 every function returns the same arrays as the JAX package's.
@@ -37,6 +38,8 @@ class HyperData:
     num_hyperedges: int
     norm: Optional[np.ndarray] = None  # [nnz] float32
     num_sl_edges: int = 0
+    # per-model host arrays (HNHN's norm vectors, UniGNN's degrees)
+    extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
     @property
     def nnz(self) -> int:
@@ -56,6 +59,7 @@ class HyperData:
             node=self.node.copy(),
             edge=self.edge.copy(),
             norm=None if self.norm is None else self.norm.copy(),
+            extras=dict(self.extras),
         )
 
     def to_incidence(self, bucket: int = 256):
@@ -178,6 +182,81 @@ def expand_edge_index(data: HyperData, edge_th: int = 0) -> HyperData:
     out.node, out.edge = out.node[order], out.edge[order]
     out.norm = None
     return out
+
+
+def generate_norm_hnhn(
+    data: HyperData, alpha: float = -1.5, beta: float = -0.5
+) -> HyperData:
+    """HNHN degree-powered norm vectors (reference
+    ``src/preprocessing.py:295-340``), computed sparsely over the COO:
+
+      D_e_alpha[e]     = d_e^alpha
+      D_v_alpha_inv[v] = 1 / sum_{e ∋ v} d_e^alpha     (inf -> 0)
+      D_v_beta[v]      = d_v^beta
+      D_e_beta_inv[e]  = 1 / sum_{v ∈ e} d_v^beta      (inf -> 0)
+    """
+    dv = np.bincount(data.node, minlength=data.num_nodes).astype(np.float64)
+    de = np.bincount(data.edge, minlength=data.num_hyperedges).astype(np.float64)
+    with np.errstate(divide="ignore"):
+        de_alpha = de ** alpha
+        dv_beta = dv ** beta
+    d_v_alpha = np.zeros(data.num_nodes)
+    np.add.at(d_v_alpha, data.node, de_alpha[data.edge])
+    d_e_beta = np.zeros(data.num_hyperedges)
+    np.add.at(d_e_beta, data.edge, dv_beta[data.node])
+    with np.errstate(divide="ignore"):
+        d_v_alpha_inv = 1.0 / d_v_alpha
+        d_e_beta_inv = 1.0 / d_e_beta
+    d_v_alpha_inv[~np.isfinite(d_v_alpha_inv)] = 0.0
+    d_e_beta_inv[~np.isfinite(d_e_beta_inv)] = 0.0
+
+    out = data.copy()
+    # isolated rows (degree 0 with a negative power) are never gathered
+    out.extras.update(
+        D_e_alpha=np.nan_to_num(de_alpha, posinf=0.0, neginf=0.0).astype(np.float32),
+        D_v_alpha_inv=d_v_alpha_inv.astype(np.float32),
+        D_v_beta=np.nan_to_num(dv_beta, posinf=0.0, neginf=0.0).astype(np.float32),
+        D_e_beta_inv=d_e_beta_inv.astype(np.float32),
+    )
+    return out
+
+
+def unignn_degrees(data: HyperData):
+    """UniGCNII degree vectors (reference ``src/train.py:396-412``):
+    degV = d_v^{-1/2} with inf -> 1, degE = (mean_{v in e} d_v)^{-1/2};
+    both float32 columns [rows, 1]."""
+    dv = np.bincount(data.node, minlength=data.num_nodes).astype(np.float64)
+    sums = np.zeros(data.num_hyperedges)
+    np.add.at(sums, data.edge, dv[data.node])
+    cnt = np.maximum(np.bincount(data.edge, minlength=data.num_hyperedges), 1)
+    degE = (sums / cnt) ** -0.5
+    with np.errstate(divide="ignore"):
+        degV = dv ** -0.5
+    degV[~np.isfinite(degV)] = 1.0
+    degE = np.nan_to_num(degE)
+    return degV.astype(np.float32)[:, None], degE.astype(np.float32)[:, None]
+
+
+def construct_h_dense(data: HyperData) -> np.ndarray:
+    """Dense incidence H [N, M] (reference ``src/preprocessing.py:186-221``);
+    only for the small legacy path."""
+    H = np.zeros((data.num_nodes, data.num_hyperedges), dtype=np.float32)
+    H[data.node, data.edge] = 1.0
+    return H
+
+
+def generate_g_from_h(H: np.ndarray) -> np.ndarray:
+    """Legacy HGNN dense propagation matrix
+    G = D_v^{-1/2} H W D_e^{-1} H^T D_v^{-1/2}
+    (reference ``src/preprocessing.py:224-259``)."""
+    W = np.ones(H.shape[1])
+    DV = (H * W).sum(axis=1)
+    DE = H.sum(axis=0)
+    with np.errstate(divide="ignore"):
+        invDE = np.where(DE > 0, 1.0 / DE, 0.0)
+        DV2 = np.where(DV > 0, DV ** -0.5, 0.0)
+    G = (DV2[:, None] * H * W[None, :] * invDE[None, :]) @ (H.T * DV2[None, :])
+    return np.nan_to_num(G).astype(np.float32)
 
 
 def rand_train_test_idx(

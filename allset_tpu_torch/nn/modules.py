@@ -1,9 +1,10 @@
 """Core neural modules: TorchDense, NormLayer, MLP, PMA (attention
-pooling), HalfNLHconv.
+pooling), HalfNLHconv, PReLU, and the zoo's helpers head_expand and
+normalize_l2.
 
 Counterpart of ``allset_tpu/nn/modules.py`` for SetGNN (the
-AllSetTransformer and AllDeepSets half-layers). Parameter names and
-shapes follow the JAX package's flax names, so a ``state_dict`` key is
+AllSetTransformer and AllDeepSets half-layers) and the conv zoo. Parameter
+names and shapes follow the JAX package's flax names, so a ``state_dict`` key is
 the flax path joined by dots (see ``utils/jax_bridge.py``); kernels keep
 the flax layout ``[in, out]``.
 Parameters are float32; ``dtype`` is the activation dtype.
@@ -68,6 +69,58 @@ def runs_apply(fn, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
     R = params[0].shape[0]
     per = zip(per_run(x, R), *(p.unbind(0) for p in params))
     return torch.stack([fn(*a) for a in per], dim=1)
+
+
+def row_scale(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [rows, ...] times a per-row scale s [rows], in x's dtype."""
+    return x * s.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+
+
+def fold(x: torch.Tensor, R: Optional[int]) -> torch.Tensor:
+    """The table a sparse op takes: x [rows, F] alone, or with R runs x
+    [rows, R, F] (a shared [rows, F] repeated per run) as [rows, R*F]."""
+    if R is None:
+        return x
+    if x.dim() == 2:
+        x = x[:, None].expand(-1, R, -1)
+    return x.reshape(x.shape[0], -1)
+
+
+def unfold(y: torch.Tensor, R: Optional[int]) -> torch.Tensor:
+    """[rows, R*F] -> [rows, R, F] with runs; y itself without."""
+    return y if R is None else y.view(y.shape[0], R, -1)
+
+
+def head_expand(a: torch.Tensor, C: int) -> torch.Tensor:
+    """Per-head column expansion ``repeat(a, C)`` along the last axis: a
+    [..., H] -> [..., H*C] (JAX ``_head_expand``, exact either way)."""
+    return a.repeat_interleave(C, dim=-1)
+
+
+def normalize_l2(x: torch.Tensor) -> torch.Tensor:
+    """Row-normalize along the last axis (reference
+    ``src/models.py:590-596``); zero rows stay zero."""
+    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    scale = torch.where(norm > 0, 1.0 / norm, torch.zeros((), dtype=norm.dtype,
+                                                           device=norm.device))
+    return x * scale
+
+
+class PReLU(nn.Module):
+    """flax ``nn.PReLU``: one learned slope 'negative_slope' (a scalar,
+    [R] with runs), initialised to 0.01; x where x >= 0, else slope * x."""
+
+    def __init__(self, lead: tuple = ()):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.full(lead, 0.01))
+
+    @staticmethod
+    def _prelu(x, a):
+        return torch.where(x >= 0, x, a.to(x.dtype) * x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.negative_slope
+        return self._prelu(x, a) if a.dim() == 0 else runs_apply(self._prelu, x, a)
 
 
 def dropout(x: torch.Tensor, p: float, train: bool, generator=None) -> torch.Tensor:

@@ -34,7 +34,7 @@ _SO = osp.join(BUILD_DIR, "libkernels.so")
 
 KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
            "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack",
-           "layer_norm_fwd", "layer_norm_bwd")
+           "layer_norm_fwd", "layer_norm_bwd", "gather")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "allset_pma_pack": [P] * 5 + [I] * 6 + [P],
     "allset_layer_norm_fwd": [P] * 4 + [LL, I, I, LL, LL, I, I, P],
     "allset_layer_norm_bwd": [P] * 8 + [LL, I, I, LL, LL, I, I, I, P],
+    "allset_pma_wide_fwd": [P] * 10 + [I] * 9 + [P],
+    "allset_pma_wide_bwd": [P] * 17 + [I] * 9 + [P],
+    "allset_gather": [P, P, I, P, LL, LL, LL, P],
 }
 
 

@@ -14,19 +14,22 @@ vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
     y    = relu(y)                       when ``relu`` (SetGNN's folded
                                          inter-stage activation)
 
-On the H100 the rFF products bound it. The kernels keep each row
-tile's intermediates in registers (16 warps: two row halves, each warp
-an eighth of the columns), stage the tile's rows and the weights in
-shared memory, and run every product on the tensor cores: bf16 operands as bf16 MMA
-with f32 accumulation, the products the JAX package takes in f32 as
-3xTF32 (operands split into two TF32 parts, three products; f32
-accuracy, see the source note). A tile is 64 rows up to HC 256 and 32
-rows at HC 384 and 512 (:func:`tile_rows`), where 64 rows would overflow
-the registers and shared memory. The forward (K2) is a persistent kernel
-that fetches the next tile's rows while it multiplies the current one.
-The backward (K3) recomputes the forward per tile and sums the parameter
-gradients through per-block f32 partials and second reduce kernels, so
-they repeat bit for bit.
+On the H100 the rFF products bound it. At HC in {64, 128, 192, 256, 384,
+512} the kernels keep each row tile's intermediates in registers (16
+warps: two row halves, each warp an eighth of the columns), stage the
+tile's rows and the weights in shared memory, and run every product on
+the tensor cores: bf16 operands as bf16 MMA with f32 accumulation, the
+products the JAX package takes in f32 as 3xTF32 (operands split into two
+TF32 parts, three products; f32 accuracy, see the source note). A tile is
+64 rows up to HC 256 and 32 rows at HC 384 and 512 (:func:`tile_rows`),
+where 64 rows would overflow the registers and shared memory. The forward
+(K2) is a persistent kernel that fetches the next tile's rows while it
+multiplies the current one. The backward (K3) recomputes the forward per
+tile and sums the parameter gradients through per-block f32 partials and
+second reduce kernels, so they repeat bit for bit. Above 512, at any HC
+that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``), a simpler pair
+takes HC at run time: f32 FMA products on the CUDA cores, intermediates in
+global scratch, the same per-block partials.
 
 With R runs folded into the width, ``agg`` is ``[M, R*WP]`` (run r in
 columns ``[r*WP, (r+1)*WP)``), ``y`` is ``[M, R*HC]``, every parameter
@@ -40,11 +43,12 @@ The plain versions below follow the kernel's math (``_fwd_recompute`` and
 versions apply them run by run. The plain versions take any HC, head
 count and rFF depth L. For CUDA tensors :func:`epilogue_route` picks the
 route by shape: the kernels where :func:`epilogue_supported` holds (HC
-in {64, 128, 192, 256, 384, 512}), the plain versions where the JAX
+in {64, 128, 192, 256, 384, 512}, or a multiple of 128 above 512 within
+the JAX kernel's own VMEM budget), the plain versions where the JAX
 package's gate composes the epilogue too (an rFF of L outside (1, 2), HC
-not a multiple of 128), and a raise for the rest (HC a multiple of 128
-above 512 with L in (1, 2), where the JAX package runs its fused kernel
-and the port has none yet). CPU tensors take the plain versions; any
+not a multiple of 128), and a raise for the rest: widths whose JAX kernel
+exceeds its scoped-VMEM cap (:func:`jax_vmem_need`), so that the JAX
+package cannot run them either. CPU tensors take the plain versions; any
 other device raises.
 """
 
@@ -59,7 +63,14 @@ Tensor = torch.Tensor
 EPS = 1e-5  # torch/flax LayerNorm default
 DEN_FLOOR = 1e-16  # softmax denominator clamp
 
-KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)  # the HC the kernels take
+KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)  # the HC the tiled kernels take
+WIDE_G = 264  # blocks of the wide kernels' row grid: 2 waves of 132
+WIDE_TR = 16  # rows per tile of the wide kernels
+WIDE_NBUF = 10  # [WIDE_TR, HC] f32 tile buffers per wide block
+# the JAX kernel's scoped-VMEM cap (allset_tpu/ops/pallas_pma.py::
+# _compiler_params) and the row block its callers pass
+JAX_VMEM_CAP = 110 * 2**20
+JAX_BLK = 1024
 _BWD_MAX_BLOCKS = 264  # row-kernel blocks (= small-grad partials) of K3: 2 waves of 132
 DW_PARTIALS = 64  # row chunks of K3, each a dW partial (part_w below)
 
@@ -189,35 +200,57 @@ def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
 
 
 def tile_rows(HC: int) -> int:
-    """Rows per tile of the kernels at width HC: 64 up to HC 256, 32 above
-    (the note in ``csrc/pma_epilogue.cuh`` has the byte counts)."""
-    return 64 if HC <= 256 else 32
+    """Rows per tile of the kernels at width HC: 64 up to HC 256, 32 up to
+    512 (the note in ``csrc/pma_epilogue.cuh`` has the byte counts), the
+    wide pair's WIDE_TR above."""
+    return 64 if HC <= 256 else 32 if HC <= 512 else WIDE_TR
 
 
-def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1) -> bool:
+def jax_vmem_need(HC: int, WP: int, L: int, itemsize: int) -> int:
+    """Bytes of scoped VMEM the JAX kernel asks for at a row block of
+    JAX_BLK (``_compiler_params``): six f32 [blk, HC] intermediates, three
+    [blk, WP] blocks, three f32 [L, HC, HC] weight and accumulator
+    blocks. Above JAX_VMEM_CAP the JAX kernel cannot run."""
+    return 6 * JAX_BLK * HC * 4 + 3 * JAX_BLK * WP * itemsize + 3 * L * HC * HC * 4
+
+
+def wide(HC: int) -> bool:
+    """HC is served by the wide pair (csrc/pma_epilogue_wide.cu)."""
+    return HC > KERNEL_WIDTHS[-1]
+
+
+def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1,
+                       itemsize: int = 4) -> bool:
     """The shapes K2/K3 (R = 1) and K2R/K3R (R runs) take: HC in
-    KERNEL_WIDTHS, H dividing HC, a packed width WP >= HC + H of whole
-    16-byte rows (WP % 8 == 0), an rFF of L in (1, 2) layers and at most
-    65535 runs."""
-    return (HC in KERNEL_WIDTHS and H >= 1 and HC % H == 0
+    KERNEL_WIDTHS, or a multiple of 128 above them whose JAX kernel fits
+    its VMEM cap (:func:`jax_vmem_need` at the activation's ``itemsize``);
+    H dividing HC, a packed width WP >= HC + H of whole 16-byte rows (WP %
+    8 == 0), an rFF of L in (1, 2) layers and at most 65535 runs."""
+    width_ok = HC in KERNEL_WIDTHS or (
+        wide(HC) and HC % 128 == 0 and jax_vmem_need(HC, WP, L, itemsize) <= JAX_VMEM_CAP)
+    return (width_ok and H >= 1 and HC % H == 0
             and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and 1 <= R <= 65535)
 
 
-def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1) -> str:
+def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1, itemsize: int = 4) -> str:
     """The epilogue's route on the card: 'kernel' where
     :func:`epilogue_supported` holds; 'plain' where the JAX package's gate
     (``allset_tpu/ops/pallas_pma.py::epilogue_active``) composes the
     epilogue as well, an rFF of L outside (1, 2) or HC not a multiple of
-    128; a raise for any other shape, since the JAX package runs its fused
-    kernel there (HC a multiple of 128 above 512: ROADMAP Queue 3)."""
-    if epilogue_supported(HC, H, L, WP, R):
+    128; a raise for any other shape: a width whose JAX kernel needs more
+    than its scoped-VMEM cap, where the JAX package cannot run either
+    (ROADMAP Queue 3)."""
+    if epilogue_supported(HC, H, L, WP, R, itemsize):
         return "kernel"
     if L not in (1, 2) or HC % 128 != 0:
         return "plain"
+    need = jax_vmem_need(HC, WP, L, itemsize)
     raise ValueError(
-        f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}: K2/K3 take HC "
-        f"in {KERNEL_WIDTHS}, H dividing HC, WP >= HC + H, WP % 8 == 0, runs <= 65535, "
-        "and the JAX package runs its fused kernel at this shape (ROADMAP Queue 3)"
+        f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}, itemsize "
+        f"{itemsize}: the JAX kernel needs 6*{JAX_BLK}*{HC}*4 + 3*{JAX_BLK}*{WP}*{itemsize} + "
+        f"3*{L}*{HC}*{HC}*4 = {need} bytes ({need / 2**20:.1f} MiB) of scoped VMEM, above its "
+        f"cap of {JAX_VMEM_CAP // 2**20} MiB, so it cannot run this shape either; the kernels "
+        "also need H dividing HC, WP >= HC + H, WP % 8 == 0 and runs <= 65535 (ROADMAP Queue 3)"
     )
 
 
@@ -233,12 +266,14 @@ def _check_cuda_args(agg, seed, Wrff, H, R):
     L = Wrff.shape[-3]
     WP = W // runs
     if not (seed.shape == lead + (HC,) and Wrff.shape == lead + (L, HC, HC)
-            and W == runs * WP and epilogue_supported(HC, H, L, WP, runs)):
+            and W == runs * WP
+            and epilogue_supported(HC, H, L, WP, runs, agg.element_size())):
         raise ValueError(
             f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
             f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC in "
-            f"{KERNEL_WIDTHS}, H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte "
-            "rows), L in (1, 2), runs <= 65535)"
+            f"{KERNEL_WIDTHS} or a multiple of 128 above within the JAX kernel's VMEM cap, "
+            "H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte rows), L in (1, 2), "
+            "runs <= 65535)"
         )
     return M, WP, HC, L
 
@@ -265,6 +300,9 @@ def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
     runs = 1 if R is None else R
     agg = agg.contiguous()
+    if wide(HC):
+        return _launch_wide_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
+                                M, WP, HC, L)
     Wf, Wbt = _weights(Wrff, agg.dtype)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     out = torch.empty(M, runs * HC, dtype=agg.dtype, device=agg.device)
@@ -287,6 +325,9 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     dev, cdt = agg.device, agg.dtype
     agg = agg.contiguous()
     gy = gy.to(cdt).contiguous()
+    if wide(HC):
+        return _launch_wide_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
+                                lead, M, WP, HC, L)
     Wf, Wbt = _weights(Wrff, cdt)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     grid_rows = max(1, min(-(-M // tile_rows(HC)), _BWD_MAX_BLOCKS))
@@ -313,6 +354,56 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
         _kernels.stream_ptr(agg),
     )
     _kernels.check(rc, "pma_epilogue_bwd")
+    return dagg, dW, dsmall
+
+
+def _wide_grid(M: int) -> int:
+    return max(1, min(-(-M // WIDE_TR), WIDE_G))
+
+
+def _launch_wide_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, M, WP, HC, L):
+    """K2/K2R above HC 512 (csrc/pma_epilogue_wide.cu): the weights as f32
+    holding their values rounded to the activation dtype."""
+    dev, cdt = agg.device, agg.dtype
+    Wf = Wrff.to(cdt).float().contiguous()
+    seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
+    G = _wide_grid(M)
+    out = torch.empty(M, runs * HC, dtype=cdt, device=dev)
+    tile = torch.empty(runs, G, WIDE_NBUF, WIDE_TR, HC, dtype=torch.float32, device=dev)
+    rc = _kernels.lib().allset_pma_wide_fwd(
+        agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(), Wf.data_ptr(),
+        brff.data_ptr(), g1.data_ptr(), b1.data_ptr(), out.data_ptr(), tile.data_ptr(),
+        M, WP, HC, H, L, runs, int(relu), _kernels.dtype_code(agg), G,
+        _kernels.stream_ptr(agg),
+    )
+    _kernels.check(rc, "pma_epilogue_fwd (wide)")
+    return out
+
+
+def _launch_wide_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead, M, WP,
+                     HC, L):
+    """K3/K3R above HC 512: the row pass, dW = hin^T dp and the small
+    vectors' reduce. The products through W^T take the f32 weights."""
+    dev, cdt, f32 = agg.device, agg.dtype, torch.float32
+    Wf = Wrff.to(cdt).float().contiguous()
+    WT = Wrff.float().transpose(-1, -2).contiguous()
+    seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
+    G = _wide_grid(M)
+    dagg = torch.empty(M, runs * WP, dtype=cdt, device=dev)
+    dW = torch.empty(lead + (L, HC, HC), dtype=f32, device=dev)
+    dsmall = torch.empty(lead + (8, HC), dtype=f32, device=dev)
+    hin = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
+    dpbuf = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
+    tile = torch.empty(runs, G, WIDE_NBUF, WIDE_TR, HC, dtype=f32, device=dev)
+    part = torch.empty(runs, G, 8, HC, dtype=f32, device=dev)
+    rc = _kernels.lib().allset_pma_wide_bwd(
+        agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
+        Wf.data_ptr(), WT.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+        dagg.data_ptr(), dW.data_ptr(), dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
+        tile.data_ptr(), part.data_ptr(), M, WP, HC, H, L, runs, int(relu),
+        _kernels.dtype_code(agg), G, _kernels.stream_ptr(agg),
+    )
+    _kernels.check(rc, "pma_epilogue_bwd (wide)")
     return dagg, dW, dsmall
 
 
@@ -352,7 +443,7 @@ def _use_kernel(agg, seed, Wrff, H) -> bool:
     if agg.is_cuda:
         R = seed.shape[0] if seed.dim() == 2 else 1
         return epilogue_route(seed.shape[-1], H, Wrff.shape[-3], agg.shape[1] // R,
-                              R) == "kernel"
+                              R, agg.element_size()) == "kernel"
     if agg.device.type == "cpu":
         return False
     raise ValueError(f"pma epilogue: unsupported device {agg.device}")

@@ -27,6 +27,19 @@ segment max does.
 Padding sorts to the tail of both entry orders, so only the first ``nnz``
 entries are gathered: no out-of-range id is ever read.
 
+``dir_gather``, ``dir_reduce`` and ``dir_propagate`` are the composable
+pieces (JAX ``ops/exchange.py``): the gather ``w[src]`` over every padded
+entry (ids clamped) through the B10 row-gather kernel, whose backward
+permutes the cotangent into src-sorted order (one more B10 gather) and
+sums it with K1 over ``src_indptr``; the reduce by ``dst`` through K1
+('add', 'mean') or a scatter max, whose backward is a row gather.
+
+``_Spmm``'s own two row gathers (forward ``w[src]``, backward
+``g[dst_srcsort]``) are B10 as well: in pairs on an H100 it took 0.480 ms
+against index_select's 1.101 per bench step (bf16) and 30.472 against
+32.136 per 20-run walmart epoch (f32) (PERF.md, PR 8;
+``chip_smoke.gather_guard``).
+
 Runs: every op here acts on whole rows, so a table with R runs folded into
 its width, [rows, R*W], gives each run's columns exactly what the run's
 own [rows, W] table gives (tests/test_torch_runs_epilogue.py). A norm with
@@ -38,8 +51,10 @@ from __future__ import annotations
 
 import torch
 
-from allset_tpu_torch.graph.incidence import Direction
+from allset_tpu_torch.graph.incidence import Direction, SegOrder
+from allset_tpu_torch.ops.cuda_gather import gather_fwd
 from allset_tpu_torch.ops.cuda_segment import segment_sum
+from allset_tpu_torch.ops.segment import gather_rows, segment_reduce
 
 Tensor = torch.Tensor
 
@@ -57,7 +72,7 @@ class _Spmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, norm, d: Direction, norm_grad: bool):
         k = d.nnz
-        msgs = w.index_select(0, d.src[:k])
+        msgs = gather_fwd(w, d.src[:k])
         if norm is not None:
             msgs = _scale(msgs, norm[..., :k])
         ctx.d, ctx.norm_grad = d, norm_grad
@@ -69,7 +84,7 @@ class _Spmm(torch.autograd.Function):
         d, k = ctx.d, ctx.d.nnz
         w, norm = ctx.saved_tensors
         g = g.contiguous()
-        rows = g.index_select(0, d.dst_srcsort[:k])
+        rows = gather_fwd(g, d.dst_srcsort[:k])
         if norm is not None:
             rows = _scale(rows, norm[..., d.perm_srcsort[:k]])
         dw = segment_sum(rows, d.src_indptr, d.num_src, d.src_plan)
@@ -150,3 +165,39 @@ def dir_spmm(w: Tensor, d: Direction, norm=None, reduce: str = "add",
     if reduce == "mean":
         out = out / d.dst_count.clamp_min(1.0)[:, None].to(out.dtype)
     return out
+
+
+def dir_gather(x: Tensor, d: Direction) -> Tensor:
+    """Row gather ``x[d.src]`` -> [nnz_pad, F] (B10, ids clamped) whose
+    backward is a sorted segment-sum: the cotangent permuted into
+    src-sorted order (B10) and summed by K1 over ``src_indptr`` (a
+    scatter-add when x is not the source table). The padded entries read
+    the last row and must get a zero cotangent (the norm/mask
+    discipline)."""
+    order = (SegOrder(d.perm_srcsort, d.src_indptr, d.src_plan) if x.shape[0] == d.num_src
+             else None)
+    return gather_rows(x, d.src, order)
+
+
+def dir_reduce(msgs: Tensor, d: Direction, reduce: str = "add") -> Tensor:
+    """Segment-reduce ``msgs`` (execution order, [nnz_pad, F]) by ``d.dst``
+    -> [num_dst, F]: K1 for 'add' ('sum') and 'mean' (over ``dst_count``
+    clamped at 1), a scatter max for 'max' (0 on an empty segment). The
+    padded tail is never read."""
+    reduce = "add" if reduce == "sum" else reduce
+    if reduce not in ("add", "mean", "max"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    out = segment_reduce(msgs, d.dst, d.num_dst, "max" if reduce == "max" else "add",
+                         SegOrder(None, d.indptr, d.plan))
+    if reduce == "mean":
+        out = out / d.dst_count[: d.num_dst].clamp_min(1.0)[:, None].to(out.dtype)
+    return out
+
+
+def dir_propagate(x: Tensor, d: Direction, norm=None, reduce: str = "add") -> Tensor:
+    """gather -> (norm-scale) -> sorted segment-reduce."""
+    msgs = dir_gather(x, d)
+    w = d.norm if norm is None else norm
+    if w is not None:
+        msgs = msgs * w[:, None].to(msgs.dtype)
+    return dir_reduce(msgs, d, reduce)

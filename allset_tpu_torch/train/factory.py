@@ -1,11 +1,12 @@
 """Experiment config and per-method preparation.
 
-Counterpart of ``allset_tpu/train/factory.py`` for SetGNN
-(AllSetTransformer and AllDeepSets): the typed flag surface of the
-reference (``src/train.py:221-287``) and the host preprocessing the
-methods need (self-loops, the exclude_self expansion, entry norms), then
-the device Batch and the model configuration. The other methods raise,
-naming the ROADMAP item that ports them.
+Counterpart of ``allset_tpu/train/factory.py``: the typed flag surface of
+the reference (``src/train.py:221-287``) and the host preprocessing each
+method needs (self-loops, the exclude_self expansion, entry norms, HNHN's
+norm vectors, UniGNN's degrees), then the device Batch and the model
+configuration, for AllSetTransformer, AllDeepSets, HCHA, HGNN (HCHA with
+the symmetric degree norm), HNHN, UniGNN, UniGCNII and MLP. CEGCN, CEGAT
+and HyperGCN raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from allset_tpu_torch.graph.transforms import (
     HyperData,
     add_self_loops,
     expand_edge_index,
+    generate_norm_hnhn,
     norm_construction,
+    unignn_degrees,
 )
-from allset_tpu_torch.models.setgnn import SetGNNConfig
+from allset_tpu_torch.models import (HCHAConfig, HNHNConfig, MLPConfig, SetGNNConfig,
+                                     UniGCNIIConfig, UniGNNConfig)
 
 METHODS = (
     "AllSetTransformer",
@@ -69,21 +73,80 @@ class ExperimentConfig:
     gpr: bool = False
     learn_mask: bool = False
     exclude_self: bool = False
+    # HNHN
+    hnhn_alpha: float = -1.5
+    hnhn_beta: float = -0.5
+    hnhn_nonlinear_inbetween: bool = True
+    # HCHA
+    hcha_symdegnorm: bool = False
+    # UniGNN
+    unignn_model_name: str = "UniGCN"
+    unignn_use_norm: bool = False
     # misc
     seed: int = 0
     bucket: int = 256
     dtype: str = "float32"  # or 'bfloat16' (mixed precision)
 
 
+# the methods still to port and the ROADMAP item that ports them
+NOT_PORTED = {
+    "CEGCN": "ROADMAP Queue 1 item 9: CEGCN/CEGAT (construct_v2v, gcn_norm, models/cegnn.py)",
+    "CEGAT": "ROADMAP Queue 1 item 9: CEGCN/CEGAT (construct_v2v, gcn_norm, models/cegnn.py)",
+    "HyperGCN": "ROADMAP Queue 1 item 9: HyperGCN (its Laplacian and the reapprox path, "
+                "models/hypergcn.py)",
+}
+
+
 def prepare(cfg: ExperimentConfig, data: HyperData,
-            device: torch.device | str = "cuda") -> Tuple[SetGNNConfig, Batch]:
+            device: torch.device | str = "cuda") -> Tuple[object, Batch]:
     """(method, raw HyperData) -> (model configuration, Batch on ``device``);
     the default, the card, raises without one."""
-    if cfg.method not in METHODS:
-        raise ValueError(f"unknown method {cfg.method!r}; choose from {METHODS}")
-    if cfg.method not in ("AllSetTransformer", "AllDeepSets"):
-        raise NotImplementedError(
-            f"--method {cfg.method} is not ported yet (ROADMAP Queue 1 item 9)")
+    method = cfg.method
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
+    if method in NOT_PORTED:
+        raise NotImplementedError(f"--method {method} is not ported yet ({NOT_PORTED[method]})")
+    if method in ("AllSetTransformer", "AllDeepSets"):
+        return _prepare_setgnn(cfg, data, device)
+    mcfg = zoo_config(cfg, data.num_features, data.num_classes)
+    if method == "MLP":
+        return mcfg, Batch.from_hyperdata(data, device=device, bucket=cfg.bucket,
+                                          with_incidence=False)
+    d = add_self_loops(data) if cfg.add_self_loop else data
+    if method == "HNHN":
+        d = generate_norm_hnhn(d, alpha=cfg.hnhn_alpha, beta=cfg.hnhn_beta)
+    elif method in ("UniGCNII", "UniGNN"):
+        degV, degE = unignn_degrees(d)
+        d = d.copy()
+        d.extras.update(degV=degV, degE=degE)
+    return mcfg, Batch.from_hyperdata(d, device=device, bucket=cfg.bucket)
+
+
+def zoo_config(cfg: ExperimentConfig, num_features: int, num_classes: int):
+    """The model configuration of a zoo method (HCHA, HGNN, HNHN, UniGNN,
+    UniGCNII, MLP) from the flags."""
+    method = cfg.method
+    common = dict(num_features=num_features, num_classes=num_classes,
+                  all_num_layers=cfg.all_num_layers, mlp_hidden=cfg.mlp_hidden,
+                  dtype=cfg.dtype)
+    if method == "MLP":
+        return MLPConfig(dropout=cfg.dropout, normalization=cfg.normalization, **common)
+    if method in ("HCHA", "HGNN"):
+        # --method HGNN is HCHA with the symmetric degree norm (src/train.py:77-82)
+        return HCHAConfig(dropout=cfg.dropout,
+                          symdegnorm=(method == "HGNN") or cfg.hcha_symdegnorm, **common)
+    if method == "HNHN":
+        return HNHNConfig(dropout=cfg.dropout,
+                          nonlinear_inbetween=cfg.hnhn_nonlinear_inbetween, **common)
+    if method == "UniGCNII":
+        return UniGCNIIConfig(heads=cfg.heads, use_norm=cfg.unignn_use_norm, **common)
+    if method == "UniGNN":
+        return UniGNNConfig(model_name=cfg.unignn_model_name, heads=cfg.heads,
+                            dropout=cfg.dropout, use_norm=cfg.unignn_use_norm, **common)
+    raise ValueError(f"{method!r} is not a zoo method")
+
+
+def _prepare_setgnn(cfg: ExperimentConfig, data: HyperData, device):
     d = data
     if cfg.add_self_loop:
         d = add_self_loops(d)
@@ -111,3 +174,21 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
     if cfg.method == "AllDeepSets":
         return SetGNNConfig.all_deep_sets(**kw), batch
     return SetGNNConfig(pma=True, aggregate=cfg.aggregate, **kw), batch
+
+
+def make_optimizer(model: torch.nn.Module, lr: float, wd: float) -> torch.optim.Optimizer:
+    """torch Adam with coupled L2 (weight decay added to the gradient before
+    the moments, as optax's add_decayed_weights then scale_by_adam). UniGCNII
+    takes the reference's two groups (``src/train.py:463-467``): its convs
+    weight decay 0.01, ``lin_in``/``lin_out`` 5e-4, both at lr 0.01,
+    whatever ``lr`` and ``wd``."""
+    from allset_tpu_torch.models import UniGCNII
+
+    if isinstance(model, UniGCNII):
+        groups = {"reg": [], "nonreg": []}
+        for name, p in model.named_parameters():
+            groups["nonreg" if name.split(".")[0] in ("lin_in", "lin_out") else "reg"].append(p)
+        return torch.optim.Adam([{"params": groups["reg"], "weight_decay": 0.01},
+                                 {"params": groups["nonreg"], "weight_decay": 5e-4}],
+                                lr=0.01, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(model.parameters(), lr=lr, weight_decay=wd)

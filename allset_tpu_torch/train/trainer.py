@@ -7,10 +7,12 @@ backward, Adam) and an evaluation forward; per run the epoch with the
 best validation accuracy gives the reported test accuracy, and the runs
 aggregate as mean +- std (ddof=1), as the reference Logger does.
 
-The JAX package vmaps the runs; here the runs ride an explicit leading
-[R] axis of the parameters and are folded into the width of every sparse
-exchange and fused-epilogue launch, so R runs share each kernel launch
-(``vmap_runs``). The runs go in groups whose size follows the free device
+Any ported model trains here (``models.build_model``): SetGNN
+(AllSetTransformer, AllDeepSets) and the conv zoo (HCHA, HNHN, UniGNN,
+UniGCNII, MLP). The JAX package vmaps the runs; here the runs ride an
+explicit leading [R] axis of the parameters and are folded into the
+width of every sparse exchange and fused-epilogue launch, so R runs share
+each kernel launch (``vmap_runs``). The runs go in groups whose size follows the free device
 memory; without ``vmap_runs`` every group holds one run. Runs do not
 depend on their group: run r's split is the r-th draw of
 ``numpy.random.default_rng(seed)``, its parameter init and its dropout
@@ -32,14 +34,21 @@ import torch
 
 from allset_tpu_torch.graph.batch import Batch, split_masks
 from allset_tpu_torch.graph.transforms import rand_train_test_idx
-from allset_tpu_torch.models.setgnn import SetGNN, SetGNNConfig
+from allset_tpu_torch.models import (HCHAConfig, HNHNConfig, LegacyHGNNConfig, MLPConfig,
+                                     SetGNNConfig, UniGCNIIConfig, UniGNNConfig, build_model)
 from allset_tpu_torch.nn.modules import packed_width
 from allset_tpu_torch.ops.cuda_pma import DW_PARTIALS
+from allset_tpu_torch.train.factory import make_optimizer
 
 
 # [rows, hid] tables an AllDeepSets layer keeps per run at its peak
 # (Trainer._bytes_per_run)
 DEEPSETS_TABLES = 14
+# the conv zoo's tables per run at its peak, two layers: (gathered
+# [nnz_pad, width] tables, f32 [rows, width] tables), rows the nodes plus the
+# exchange's hyperedge rows (Trainer._zoo_bytes_per_run)
+ZOO_TABLES = {"HCHA": (1, 2), "HNHN": (1, 4), "UniGNN": (1, 3), "UniGAT": (6, 3),
+              "UniGCNII": (1, 5)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,10 +125,11 @@ def count_params(model: torch.nn.Module, runs: Optional[int]) -> int:
 
 
 class Trainer:
-    """The runs protocol for one SetGNN configuration on one Batch; the
-    batch's device decides where everything runs."""
+    """The runs protocol for one model configuration (any of
+    ``models.MODELS``) on one Batch; the batch's device decides where
+    everything runs."""
 
-    def __init__(self, model_cfg: SetGNNConfig, batch: Batch, cfg: TrainConfig):
+    def __init__(self, model_cfg, batch: Batch, cfg: TrainConfig):
         self.model_cfg = model_cfg
         self.batch = batch
         self.cfg = cfg
@@ -127,13 +137,13 @@ class Trainer:
 
     # --- per group of runs ---
 
-    def _init(self, runs: Sequence[int]) -> SetGNN:
+    def _init(self, runs: Sequence[int]) -> torch.nn.Module:
         """A model holding ``runs`` (a leading runs axis on every
         parameter), run r initialised from its own CPU generator."""
         gens = [torch.Generator().manual_seed(run_seeds(self.cfg.seed, r)[0]) for r in runs]
-        return SetGNN(self.model_cfg, gens).to(self.device)
+        return build_model(self.model_cfg, gens).to(self.device)
 
-    def _apply(self, model: SetGNN, train: bool, generators) -> torch.Tensor:
+    def _apply(self, model: torch.nn.Module, train: bool, generators) -> torch.Tensor:
         """Logits [N, R, C]."""
         return model(self.batch, train, generators)
 
@@ -158,7 +168,7 @@ class Trainer:
         model = self._init(runs)
         gens = [torch.Generator(device=self.device).manual_seed(run_seeds(cfg.seed, r)[1])
                 for r in runs]
-        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, weight_decay=cfg.wd)
+        opt = make_optimizer(model, cfg.lr, cfg.wd)
         k = max(1, cfg.eval_every)
         metrics = torch.zeros(len(runs), cfg.epochs, 6, device=self.device)
         prev = torch.zeros(len(runs), 6, device=self.device)
@@ -197,8 +207,10 @@ class Trainer:
         against measured peaks of 1.69, 2.18, 1.78 and 1.09 GiB per run,
         3.610 GiB at --MLP_hidden 512 against a measured 3.345, and 3.740
         GiB for AllDeepSets against a measured 3.634 (PERF.md has the
-        LearnMask figure)."""
+        LearnMask figure). The conv zoo: :meth:`_zoo_bytes_per_run`."""
         mc, inc = self.model_cfg, self.batch.inc
+        if not isinstance(mc, SetGNNConfig):
+            return self._zoo_bytes_per_run()
         item = 2 if mc.dtype == "bfloat16" else 4
         HC, L = mc.mlp_hidden, mc.all_num_layers
         WP = packed_width(HC, mc.heads)
@@ -222,6 +234,34 @@ class Trainer:
         if mc.learn_mask:
             total += 3 * 4 * inc.nnz_padded
         return total
+
+    def _zoo_bytes_per_run(self) -> int:
+        """The conv zoo's bytes per folded run: the f32 logits and their
+        gradient; ZOO_TABLES' gathered [nnz_pad, width] and [rows, width]
+        tables at the widest activation (hidden x heads for UniGNN and
+        UniGCNII), rows the nodes plus the exchange's hyperedge rows (the
+        N-slot layout's real edges + N on the split), for two layers and
+        in proportion to more; MLP and the legacy HGNN seven [N, hidden]
+        f32 tables for two layers. On an H100 at synthetic-walmart, f32,
+        hidden 256 (20 runs in groups of 10; 6 for UniGAT) the measured
+        peaks per run were 0.724 GiB (HCHA, HGNN), 1.199 (HNHN), 1.268
+        (UniGCNII), 0.875 (UniGCN), 2.943 (UniGAT) and 0.447 (MLP); the
+        tables give 0.96, 1.43, 1.67, 1.19, 3.56 and 0.60 GiB."""
+        mc, inc, N = self.model_cfg, self.batch.inc, self.batch.num_nodes
+        item = 2 if getattr(mc, "dtype", "float32") == "bfloat16" else 4
+        total = 3 * 4 * N * mc.num_classes
+        depth = max(getattr(mc, "all_num_layers", 2), 2) / 2
+        if isinstance(mc, (MLPConfig, LegacyHGNNConfig)):
+            return int(total + 7 * 4 * N * mc.mlp_hidden * depth)
+        width = mc.mlp_hidden * getattr(mc, "heads", 1)
+        if isinstance(mc, UniGNNConfig):
+            key = "UniGAT" if mc.model_name == "UniGAT" else "UniGNN"
+        else:
+            key = {HCHAConfig: "HCHA", HNHNConfig: "HNHN", UniGCNIIConfig: "UniGCNII"}[type(mc)]
+        edges = inc.num_edges if inc.real is None or key.startswith("Uni") else (
+            inc.real.num_edges + N)
+        a, b = ZOO_TABLES[key]
+        return int(total + depth * width * (a * item * inc.nnz_padded + b * 4 * (N + edges)))
 
     def _group_size(self) -> int:
         cfg = self.cfg

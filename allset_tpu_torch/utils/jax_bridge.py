@@ -1,8 +1,11 @@
 """Carry the JAX package's parameters across, without importing jax.
 
 The port's modules use the flax names (``V2E_0/prop/lin_K/kernel``,
-``att_r``, ``ln0/scale``, ``rFF/lin{i}``, ``classifier/lin0``...), so a
-``state_dict`` key is the flax path joined by dots. Kernels keep the flax
+``att_r``, ``ln0/scale``, ``rFF/lin{i}``, ``classifier/lin0``...; the
+zoo's ``conv{i}/weight``, ``conv{i}/W/kernel``, ``att_e``, ``eps``,
+``weight_v2e``, ``lin_in``, ``mlp/norm0/LayerNorm_0``, ``PReLU_0/
+negative_slope``...), so a ``state_dict`` key is the flax path joined by
+dots. Kernels keep the flax
 layout ``[in, out]``: nothing is transposed. The input is the flax
 ``params`` tree with its leaves converted to numpy arrays. A vmapped
 tree (a leading runs axis on every leaf, the same keys) gives the

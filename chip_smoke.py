@@ -11,26 +11,32 @@ Phases (any failure raises and exits non-zero):
      bit for bit against the plain version in the kernel's order of
      additions, and at 4 and 20 runs x 264 run by run against launches
      on each run's slice), K2/K3 the PMA epilogue (HC in {64, 128, 192,
-     256, 384, 512}, heads 1 to HC, rows below one tile (64 rows, 32
-     above HC 256) and not a multiple of it) and K2R/K3R its
-     runs grids (HC 256 and 512, R in {2, 5}; L in {1, 2}, relu on/off;
-     each run of K2R/K3R also bit for bit against a K2/K3 launch on its
-     slice), K4/K5 the PMA score+pack ((HC, H) in {(256, 8), (64, 1),
-     (128, 4), (512, 8)}, rows
-     not a multiple of the tile; gmax bit-equal, w within 2 f32 / 1 bf16
-     ulps, a NaN score reaching gmax, R in {2, 5} bit for bit against
-     single launches), B12/B13 the LayerNorm (f32, bf16, f32 -> bf16;
-     F in {7, 64, 256, 512}, rows not a multiple of the 64-row block; R
-     in {2, 5} and an input shared by the runs, each run bit for bit
-     against a launch on it alone), the epilogue's route by shape (an
+     256, 384, 512} and, through the wide pair, 640, 768 and 1024; heads
+     1 to HC, rows below one tile (64 rows, 32 above HC 256, 16 above 512)
+     and not a multiple of it; the widest the wide pair takes, 1536 with 2
+     layers in f32 and 2048 with 1 layer in bf16) and K2R/K3R its runs
+     grids (HC 256, 512, 640, 768 and 1024, R in {2, 5}; L in {1, 2},
+     relu on/off; the widest two at R=2; each run of K2R/K3R also bit for
+     bit against a K2/K3 launch on its slice), K4/K5
+     the PMA score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4), (512,
+     8)}, rows not a multiple of the tile; gmax bit-equal, w within 2 f32
+     / 1 bf16 ulps, a NaN score reaching gmax, R in {2, 5} bit for bit
+     against single launches), B12/B13 the LayerNorm (f32, bf16, f32 ->
+     bf16; F in {7, 64, 256, 512}, rows not a multiple of the 64-row
+     block; R in {2, 5} and an input shared by the runs, each run bit for
+     bit against a launch on it alone), the epilogue's route by shape (an
      rFF of 3 layers and HC 96, which the JAX package composes too, on the
-     plain version with no launch; HC 256 and 512 on K2/K3 and K2R/K3R;
-     HC 640, which has no kernel yet, raises before any launch), and at the main
-     paths' shapes (K1 on the bench
-     graph's real indptrs, bit for bit as well; K3R at R=20 on the walmart
-     rows, each run bit for bit against K3; B12/B13 at the AllDeepSets
-     step's [131072, 256] and [196608, 256] bf16 launches), with the
-     kernel, plain and library times and the kernel's bound;
+     plain version with no launch; HC 256, 512, 640 and 1024 on K2/K3 and
+     K2R/K3R; HC 2048 in f32, whose JAX kernel exceeds its VMEM cap,
+     raises before any launch), B10 the row gather (bit for bit: f32 and
+     bf16, widths 1, 8, 256, 264, 5,280 and 20 x 264, int32 and int64 ids,
+     clamped ids, narrow rows on an unaligned view), and at the main
+     paths' shapes (K1 on the bench graph's real indptrs, bit for bit as
+     well; K3R at R=20 on the walmart rows, each run bit for bit against
+     K3; B12/B13 at the AllDeepSets step's [131072, 256] and [196608, 256]
+     bf16 launches and at an AllDeepSets 20-run epoch's; B10 at a UniGAT
+     step's gathers), with the kernel, plain and library times and the
+     kernel's bound;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
@@ -38,47 +44,63 @@ Phases (any failure raises and exits non-zero):
      over all 582,248 entries), and the AllDeepSets step on the same
      graph, also with LearnMask: the loss is finite and falls, each step
      launches K1 4 times and K2, K3, K4, K5 twice (AllDeepSets: K1 4 and
-     B12, B13 8 times; GPR adds one B12 and one B13 for gpr_mlp), and
-     two runs from one state give identical losses; the bench step also
-     at hidden 512 (K2/K3 at HC 512, timed at its shapes too);
-  5. a small f32 graph, as the bench step, with GPR, with LearnMask, and
-     AllDeepSets with and without LearnMask: one step through the kernels
-     against one step of the plain versions (on the CPU) from the same
-     parameters, on a loss without the nodes a relu argument within
-     rounding of 0 reaches;
+     B12, B13 8 times; GPR adds one B12 and one B13 for gpr_mlp), B10
+     once per K1 launch (_Spmm's gathers), and two runs from
+     one state give identical losses; the bench step also at hidden 384,
+     512 and 1024 (K2/K3 at those widths, timed at its shapes too); then
+     the conv zoo on the same graph (2 layers, hidden 256, bf16): HCHA,
+     HGNN, HNHN, UniGCNII, MLP and UniGNN with each of its five convs
+     (UniGAT at 8 heads of 32; UniGIN and UniSAGE with --UniGNN_use_norm,
+     see ZOO), 8 steps each with the same checks and launch counts as the
+     code predicts (zoo_launches), the step time and edges/s;
+  5. a small f32 graph, as the bench step, with GPR, with LearnMask,
+     AllDeepSets with and without LearnMask, and each zoo model (UniGIN
+     and UniSAGE also without the norm): one step
+     through the kernels against one step of the plain versions (on the
+     CPU) from the same parameters, on a loss without the nodes a relu,
+     ELU or leaky_relu argument within rounding of 0 reaches;
   6. the runs protocol through the CLI (allset_tpu_torch.cli) on
      synthetic-walmart with the tuned preset (hidden 256, 8 heads, f32):
-     20 runs folded into each launch for a few epochs; per group and
-     epoch 6 K1, 4 K2R, 2 K3R, 4 K4 and 4 K5 launches whatever the
-     number of runs (and B12/B13 where a LayerNorm runs outside the
-     epilogue: GPR's gpr_mlp, a 2-layer classifier); finite metrics, a
-     falling training loss; 2 runs folded against 2 runs one by one:
-     equal accuracies, losses within rtol 2e-3; 20 runs x 2 epochs with
-     --GPR, --LearnMask and --add_self_loop false, and one run of
-     --exclude_self on synthetic; --method AllDeepSets with the same
-     preset, 20 runs x 3 epochs (6 K1, 16 B12 and 8 B13 per group and
-     epoch), then three warm runs of 4 epochs, 20 runs x 2 epochs with
-     --LearnMask (the peak device memory per run of both against the
-     trainer's estimate, which must not be lower) and 2 folded against 2
-     one by one; --MLP_hidden 512 (20 runs x 2 epochs: 4 K2R and 2 K3R
-     at HC 512 per group and epoch, timed at its shapes too; the peak
-     per run against the trainer's estimate; 2 folded against 2 one by
-     one); --MLP_num_layers 3 (2 runs x 2 epochs) with the
-     epilogue on its plain route (K2R/K3R never launch);
+     20 runs folded into each launch for a few
+     epochs; per group and epoch 6 K1, 4 K2R, 2 K3R, 4 K4 and 4 K5
+     launches whatever the number of runs (and B12/B13 where a LayerNorm
+     runs outside the epilogue: GPR's gpr_mlp, a 2-layer classifier);
+     finite metrics, a falling training loss; 2 runs folded against 2
+     runs one by one: equal accuracies, losses within rtol 2e-3; 20 runs
+     x 2 epochs with --GPR, --LearnMask and --add_self_loop false, and one
+     run of --exclude_self on synthetic; --MLP_hidden 512 (20 runs x 2
+     epochs: 4 K2R and 2 K3R at HC 512 per group and epoch, timed at its
+     shapes too; the peak per run against the trainer's estimate; 2
+     folded against 2 one by one); --MLP_hidden 1024 (2 runs x 1 epoch
+     through the wide pair, timed at its shapes); --method AllDeepSets
+     with the same preset, 20 runs x 3 epochs (6 K1, 16 B12 and 8 B13 per
+     group and epoch), then three warm runs of 4 epochs, 20 runs x 2
+     epochs with --LearnMask (the peak device memory per run of both
+     against the trainer's estimate, which must not be lower) and 2
+     folded against 2 one by one; one AllDeepSets epoch whose LayerNorm
+     launches are recorded and timed; --MLP_num_layers 3 (2 runs x 2
+     epochs) with the epilogue on its plain route (K2R/K3R never launch);
+     the zoo without the preset (--MLP_hidden 256, f32, 20 runs x 2
+     epochs): --method HGNN, HCHA, HNHN, UniGCNII, UniGNN (each of its
+     five convs) and MLP, launches per group and epoch as predicted, finite
+     metrics, each peak per run against the trainer's estimate, HCHA's 2
+     runs folded against 2 one by one;
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
 The line before the last is a JSON object of per-kernel results (K2R,
 K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step,
-B12, B13 from phase 4's AllDeepSets step; K2, K3, K2R, K3R again at HC
-512, "_hc512", from the hidden-512 step and CLI run): launches, the kernel's time
-and its plain version's summed over a bench step (K1, K2, K3, K4, K5,
-B12, B13) or a 20-run epoch (K2R, K3R), the bound (the larger of the
-bytes over 3.35 TB/s and the products over the tensor cores: bf16 at
-989 TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s; other arithmetic
-at 67 TFLOP/s) and one library call's time where one computes the same
-function (K1: torch.segment_reduce; B12/B13: F.layer_norm and its
-autograd backward); the last line is {"ok": true, "device": {...}}.
+B12, B13 from phase 4's AllDeepSets step and again, "_epoch", per
+AllDeepSets 20-run epoch; B10 from phase 4's UniGAT step; K2 and K3
+again at HC 384, 512 and 1024, K2R and K3R at 512 and 1024, "_hc...",
+from the bench steps and CLI runs at those widths): launches, the
+kernel's time and its plain version's summed over a bench step or an
+epoch, the bound (the larger of the bytes over 3.35 TB/s and the
+products over the tensor cores: bf16 at 989 TFLOP/s, f32 products at
+3xTF32, 495 / 3 TFLOP/s; other arithmetic at 67 TFLOP/s) and one library
+call's time where one computes the same function (K1:
+torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
+B10: index_select); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -86,6 +108,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -356,36 +379,47 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
 EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (192, 192, 384),
               (128, 4, 136),
               (64, 1, 72), (64, 64, 128), (384, 1, 392), (384, 8, 392), (384, 384, 768),
-              (512, 1, 520), (512, 8, 520), (512, 512, 1024))
+              (512, 1, 520), (512, 8, 520), (512, 512, 1024),
+              # the wide pair (csrc/pma_epilogue_wide.cu): HC above 512
+              (640, 8, 648), (768, 1, 776), (768, 768, 1536), (1024, 8, 1032),
+              (1024, 64, 1088))
+# (HC, H, WP, dtype, L): the widest shapes the wide pair takes, where the
+# JAX kernel's scoped VMEM (cuda_pma.jax_vmem_need) is just under its cap
+WIDEST = ((1536, 8, 1544, torch.float32, 2), (2048, 8, 2056, torch.bfloat16, 1))
 
 
 def check_epilogue(dev, gen):
+    """K2/K3 against their plain versions at EPI_SHAPES (f32 and bf16, L 1
+    and 2) and at WIDEST, each shape routed to the kernels."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    for HC, H, WP in EPI_SHAPES:
-        small = cp.tile_rows(HC) * 5 // 8  # below one tile (64 or 32 rows)
+    cases = [(shape, dtype, L) for shape in EPI_SHAPES
+             for dtype in (torch.float32, torch.bfloat16) for L in (1, 2)]
+    cases += [((HC, H, WP), dtype, L) for HC, H, WP, dtype, L in WIDEST]
+    for (HC, H, WP), dtype, L in cases:
+        item = torch.empty((), dtype=dtype).element_size()
+        require(cp.epilogue_route(HC, H, L, WP, 1, item) == "kernel",
+                f"HC={HC}, L={L}, {dtype} is not routed to the kernels")
+        small = cp.tile_rows(HC) * 5 // 8  # below one tile (64, 32 or 16 rows)
         for M in (1000, small):  # not a multiple of the tile; below one tile
-            for dtype in (torch.float32, torch.bfloat16):
-                for L in (1, 2):
-                    for relu in (False, True):
-                        if M == small and relu:
-                            continue
-                        agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
-                        seed, g0, b0, W, b, g1, b1 = p
-                        y = cp.epilogue_fwd_cuda(agg, seed, g0, b0, W, b, g1, b1, H, relu)
-                        y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
-                        got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
-                        want = cp.epilogue_bwd_plain(agg, gy, seed, g0, b0, W, b, g1, b1, H,
-                                                     relu)
-                        torch.cuda.synchronize()
-                        what = f"{dtype}, HC={HC}, H={H}, M={M}, L={L}, relu={relu}"
-                        err, rel = scaled_err(y, y_ref)
-                        ftol = EPI_FWD_TOL[dtype]
-                        require(rel <= ftol, f"K2 disagrees ({what}): {rel}")
-                        msg = check_bwd(got, want, TOL[dtype][1], what)
-                        log(f"  K2/K3 {str(dtype)[6:]:8s} HC={HC:3d} H={H:2d} M={M:4d} L={L} "
-                            f"relu={int(relu)}: fwd max_abs_err={err:.3e} scaled={rel:.3e} "
-                            f"(tol {ftol:g}); bwd scaled max {msg}")
+            for relu in (False, True):
+                if M == small and relu:
+                    continue
+                agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
+                seed, g0, b0, W, b, g1, b1 = p
+                y = cp.epilogue_fwd_cuda(agg, seed, g0, b0, W, b, g1, b1, H, relu)
+                y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
+                got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
+                want = cp.epilogue_bwd_plain(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
+                torch.cuda.synchronize()
+                what = f"{dtype}, HC={HC}, H={H}, M={M}, L={L}, relu={relu}"
+                err, rel = scaled_err(y, y_ref)
+                ftol = EPI_FWD_TOL[dtype]
+                require(rel <= ftol, f"K2 disagrees ({what}): {rel}")
+                msg = check_bwd(got, want, TOL[dtype][1], what)
+                log(f"  K2/K3 {str(dtype)[6:]:8s} HC={HC:3d} H={H:2d} M={M:4d} L={L} "
+                    f"relu={int(relu)}: fwd max_abs_err={err:.3e} scaled={rel:.3e} "
+                    f"(tol {ftol:g}); bwd scaled max {msg}")
     _kernels.reset_launches()
 
 
@@ -402,39 +436,42 @@ def runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen, floor_rows=True):
 def check_runs_epilogue(dev, gen):
     """K2R/K3R against their plain versions (phase 3's tolerances) and, run
     by run, bit for bit against K2/K3 launched on the run's slice, at HC
-    256 and 512."""
+    256 and 512, at 640, 768 and 1024 (the wide pair; R 2 and 5, L 1 and
+    2), and at WIDEST (R 2)."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    M = 1000  # not a multiple of the 64- or 32-row tile
-    for (HC, H, WP), dtype in ((s, d) for s in ((256, 8, 264), (512, 8, 520))
-                               for d in (torch.float32, torch.bfloat16)):
-        for R in (2, 5):
-            for L in (1, 2):
-                for relu in (False, True):
-                    agg, gy, p = runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen)
-                    y = cp.epilogue_fwd_runs_cuda(agg, *p, H, relu)
-                    y_ref = cp.epilogue_fwd_runs_plain(agg, *p, H, relu)
-                    got = cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, relu)
-                    want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, relu)
-                    what = f"{dtype}, HC={HC}, R={R}, L={L}, relu={relu}"
-                    err, rel = scaled_err(y, y_ref)
-                    require(rel <= EPI_FWD_TOL[dtype], f"K2R disagrees ({what})")
-                    msg = check_bwd(got, want, TOL[dtype][1], what)
-                    for r in range(R):
-                        a = agg[:, r * WP:(r + 1) * WP].contiguous()
-                        g = gy[:, r * HC:(r + 1) * HC].contiguous()
-                        q = [t[r] for t in p]
-                        y1 = cp.epilogue_fwd_cuda(a, *q, H, relu)
-                        d1 = cp.epilogue_bwd_cuda(a, g, *q, H, relu)
-                        require(torch.equal(y[:, r * HC:(r + 1) * HC], y1),
-                                f"K2R run {r} differs from K2 on its slice ({what})")
-                        require(torch.equal(got[0][:, r * WP:(r + 1) * WP], d1[0])
-                                and torch.equal(got[1][r], d1[1])
-                                and torch.equal(got[2][r], d1[2]),
-                                f"K3R run {r} differs from K3 on its slice ({what})")
-                    log(f"  K2R/K3R {str(dtype)[6:]:8s} HC={HC} R={R} L={L} relu={int(relu)}: fwd "
-                        f"max_abs_err={err:.3e} scaled={rel:.3e}; bwd scaled max {msg}; "
-                        f"every run bit-identical to K2/K3 on its slice")
+    M = 1000  # not a multiple of the 64-, 32- or 16-row tile
+    cases = [(shape, dtype, R, L)
+             for shape in ((256, 8, 264), (512, 8, 520), (640, 8, 648), (768, 8, 776),
+                           (1024, 8, 1032))
+             for dtype in (torch.float32, torch.bfloat16) for R in (2, 5) for L in (1, 2)]
+    cases += [((HC, H, WP), dtype, 2, L) for HC, H, WP, dtype, L in WIDEST]
+    for (HC, H, WP), dtype, R, L in cases:
+        for relu in (False, True):
+            agg, gy, p = runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen)
+            y = cp.epilogue_fwd_runs_cuda(agg, *p, H, relu)
+            y_ref = cp.epilogue_fwd_runs_plain(agg, *p, H, relu)
+            got = cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, relu)
+            want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, relu)
+            what = f"{dtype}, HC={HC}, R={R}, L={L}, relu={relu}"
+            err, rel = scaled_err(y, y_ref)
+            require(rel <= EPI_FWD_TOL[dtype], f"K2R disagrees ({what})")
+            msg = check_bwd(got, want, TOL[dtype][1], what)
+            for r in range(R):
+                a = agg[:, r * WP:(r + 1) * WP].contiguous()
+                g = gy[:, r * HC:(r + 1) * HC].contiguous()
+                q = [t[r] for t in p]
+                y1 = cp.epilogue_fwd_cuda(a, *q, H, relu)
+                d1 = cp.epilogue_bwd_cuda(a, g, *q, H, relu)
+                require(torch.equal(y[:, r * HC:(r + 1) * HC], y1),
+                        f"K2R run {r} differs from K2 on its slice ({what})")
+                require(torch.equal(got[0][:, r * WP:(r + 1) * WP], d1[0])
+                        and torch.equal(got[1][r], d1[1])
+                        and torch.equal(got[2][r], d1[2]),
+                        f"K3R run {r} differs from K3 on its slice ({what})")
+            log(f"  K2R/K3R {str(dtype)[6:]:8s} HC={HC} R={R} L={L} relu={int(relu)}: fwd "
+                f"max_abs_err={err:.3e} scaled={rel:.3e}; bwd scaled max {msg}; "
+                f"every run bit-identical to K2/K3 on its slice")
     _kernels.reset_launches()
 
 
@@ -583,26 +620,29 @@ def check_routes(dev, gen):
     """The epilogue's route on the card is chosen by shape: an rFF of 3
     layers and HC 96 (shapes the JAX package composes too) take the plain
     version and launch no kernel; HC 256 and 512 with 2 layers launch K2/K3
-    (K2R/K3R with runs); HC 640 with 2 layers, where the JAX package runs
-    its fused kernel and the port has none yet, raises before any
-    launch."""
+    (K2R/K3R with runs), and so do HC 640 and 1024 (the wide pair); HC
+    2048 with 2 layers in f32, where the JAX kernel's scoped VMEM exceeds
+    its cap, raises before any launch."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     for R in (None, 2):
-        agg, gy, p = (epi_inputs(300, 640, 8, 648, 2, torch.float32, dev, gen) if R is None
-                      else runs_inputs(300, 640, 8, 648, 2, R, torch.float32, dev, gen))
+        agg, gy, p = (epi_inputs(300, 2048, 8, 2056, 2, torch.float32, dev, gen) if R is None
+                      else runs_inputs(300, 2048, 8, 2056, 2, R, torch.float32, dev, gen))
         _kernels.reset_launches()
         for fn, args in (((cp.epilogue_fwd, (agg,)), (cp.epilogue_bwd, (agg, gy))) if R is None
                          else ((cp.epilogue_fwd_runs, (agg,)), (cp.epilogue_bwd_runs, (agg, gy)))):
             try:
                 fn(*args, *p, 8, True)
-            except ValueError:
+            except ValueError as e:
+                msg = str(e)
                 continue
-            require(False, f"HC 640 (R={R or 1}) did not raise")
-        require(not any(_kernels.launches.values()), "HC 640: a launch before the raise")
-        log(f"  route HC=640, H=8, L=2, R={R or 1}: raises, no launch (no kernel yet)")
+            require(False, f"HC 2048 (R={R or 1}) did not raise")
+        require(not any(_kernels.launches.values()), "HC 2048: a launch before the raise")
+        log(f"  route HC=2048, H=8, L=2, R={R or 1}, f32: raises, no launch ({msg[:150]}...)")
+        del agg, gy, p
     for HC, H, WP, L, want in ((256, 8, 264, 3, "plain"), (96, 4, 104, 2, "plain"),
-                               (256, 8, 264, 2, "kernel"), (512, 8, 520, 2, "kernel")):
+                               (256, 8, 264, 2, "kernel"), (512, 8, 520, 2, "kernel"),
+                               (640, 8, 648, 2, "kernel"), (1024, 16, 1040, 1, "kernel")):
         for R in (None, 2):
             _kernels.reset_launches()
             if R is None:
@@ -844,14 +884,21 @@ def log_tallies(out, per):
 # --- phases 4 and 5: the training step --------------------------------------
 
 
-def bench_batch(dev):
+def bench_hyperdata():
+    """The bench graph with its self-loops, on the host."""
     from allset_tpu_torch.data import scale_free_hypergraph
-    from allset_tpu_torch.graph import Batch, add_self_loops, norm_construction
+    from allset_tpu_torch.graph import add_self_loops, norm_construction
 
     hd = scale_free_hypergraph(num_nodes=131072, num_hyperedges=65536,
                                avg_edge_size=12, feature_dim=256, seed=0)
-    hd = norm_construction(add_self_loops(hd), "all_one")
-    return Batch.from_hyperdata(hd, device=dev, bucket=1024)
+    return norm_construction(add_self_loops(hd), "all_one")
+
+
+def bench_batch(dev, hd=None):
+    from allset_tpu_torch.graph import Batch
+
+    return Batch.from_hyperdata(bench_hyperdata() if hd is None else hd, device=dev,
+                                bucket=1024)
 
 
 def bench_model(seed: int, nnz_padded: int, hidden: int = 256, **mode):
@@ -892,15 +939,15 @@ PER_STEP_DEEPSETS = {"segment_sum": 4, "layer_norm_fwd": 8, "layer_norm_bwd": 8}
 
 
 def main_path(batch, dev, card, per_step=None, hidden=256, **mode):
-    """8 bench steps at ``hidden`` (``mode``: the bench step, gpr=True,
-    learn_mask=True, pma=False for AllDeepSets) with every launch count
-    set to 0 just before, checked against ``per_step`` (default: the bench
-    step's PER_STEP, as ``scripts/pair_timing.py`` calls it in any tree);
-    returns the counts and the median step time."""
+    """8 bench steps at ``hidden`` (``mode``: the bench step,
+    gpr=True, learn_mask=True, pma=False for AllDeepSets) with every launch
+    count set to 0 just before, checked against ``per_step`` (default: the
+    bench step's PER_STEP, as ``scripts/pair_timing.py`` calls it in any
+    tree); returns the counts and the median step time."""
     from allset_tpu_torch.ops import _kernels
 
-    per_step = PER_STEP if per_step is None else per_step
     steps = 8
+    per_step = with_spmm_gathers(PER_STEP if per_step is None else per_step)
     label = ", ".join(f"{k}={v}" for k, v in mode.items()) or "bench step"
     if hidden != 256:
         label += f", hidden {hidden}"
@@ -1042,7 +1089,7 @@ def cli_run(argv, epochs, per=None):
     torch.cuda.synchronize()
     counts = dict(_kernels.launches)
     n = len(res.groups) * epochs
-    per = pma_group_epoch() if per is None else per
+    per = with_spmm_gathers(pma_group_epoch() if per is None else per)
     got = {k: counts[k] / n for k in _kernels.KERNELS}
     want = {k: float(per.get(k, 0)) for k in _kernels.KERNELS}
     require(got == want, f"launches per group and epoch {got}, expected {want} "
@@ -1110,6 +1157,19 @@ def hidden512_protocol(card, tmp, dev):
     return counts
 
 
+def wide_protocol(card, tmp):
+    """--MLP_hidden 1024 through the CLI at the walmart preset (8 heads,
+    f32): 2 runs x 1 epoch through K2R/K3R's wide pair (launches per group
+    and epoch as at 256), finite metrics. Returns the counts."""
+    res, counts = cli_run(["--dname", WALMART, "--preset", "--MLP_hidden", "1024", "--dtype",
+                           "float32", "--device", "cuda", "--runs", "2", "--epochs", "1",
+                           "--res_root", tmp], 1)
+    log(f"  --MLP_hidden 1024: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
+        f"{counts}; params {res.num_params}; {res.wall_time * 1e3:.1f} ms for the epoch "
+        f"[{card}]")
+    return counts
+
+
 def folded_vs_one_by_one(argv, epochs, per=None):
     """2 runs folded into each launch against the same 2 runs one by one:
     equal accuracies, losses within rtol 2e-3."""
@@ -1126,11 +1186,11 @@ def folded_vs_one_by_one(argv, epochs, per=None):
         f"{rel.max():.2e} (rtol 2e-3)")
 
 
-def cli_peak(argv, epochs, per, dev, **cfg):
-    """One checked CLI run (walmart preset, f32; ``per`` as in cli_run) ->
+def cli_peak(argv, epochs, per, dev, preset=True, **cfg):
+    """One checked CLI run (walmart, f32; ``per`` as in cli_run) ->
     (Results, counts, the peak device memory per folded run, the trainer's
-    estimate for the same configuration: the preset with ``cfg``, fields
-    of ExperimentConfig, over it)."""
+    estimate for the same configuration: the preset (unless ``preset`` is
+    False) with ``cfg``, fields of ExperimentConfig, over it)."""
     from allset_tpu_torch.data import load_dataset
     from allset_tpu_torch.train import TrainConfig, Trainer
     from allset_tpu_torch.train.factory import ExperimentConfig, prepare
@@ -1142,9 +1202,9 @@ def cli_peak(argv, epochs, per, dev, **cfg):
     res, counts = cli_run(argv, epochs, per)
     peak = (torch.cuda.max_memory_allocated(dev) - before) / max(res.groups)
     fields = ExperimentConfig.__dataclass_fields__
-    preset = {k: v for k, v in preset_for(WALMART, 1.0).items() if k in fields}
+    tuned = {k: v for k, v in preset_for(WALMART, 1.0).items() if k in fields} if preset else {}
     data = load_dataset(WALMART, feature_noise=1.0, seed=0)
-    mcfg, batch = prepare(ExperimentConfig(dname=WALMART, **{**preset, **cfg}), data, dev)
+    mcfg, batch = prepare(ExperimentConfig(dname=WALMART, **{**tuned, **cfg}), data, dev)
     est = Trainer(mcfg, batch, TrainConfig())._bytes_per_run()
     del batch
     return res, counts, peak, est
@@ -1386,6 +1446,465 @@ def small_parity(dev, **mode):
         f"tol 1e-3 for each tensor)")
 
 
+# --- B10, the row gather ----------------------------------------------------
+
+
+GATHER_WIDTHS = (1, 8, 256, 264, 5280, 20 * 264)
+
+
+def check_gather(dev, gen):
+    """B10 against its plain version bit for bit (a gather is exact): f32
+    and bf16, W in GATHER_WIDTHS (20 x 264: a folded table), int32 and
+    int64 ids, with ids at -1, at ``rows`` and past it (clamped) among the
+    ids below; narrow rows on a view whose rows lose 16-byte alignment
+    (the 2- and 4-byte paths)."""
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg
+
+    rows = 3000
+    for dtype in (torch.float32, torch.bfloat16):
+        for W in GATHER_WIDTHS:
+            table = torch.randn(rows, W, generator=gen).to(dtype).to(dev)
+            ids = torch.randint(0, rows, (20_011,), generator=gen)
+            ids[::97], ids[1::101], ids[2::103] = rows, rows + 5, -1
+            for idt in (torch.int32, torch.int64):
+                i = ids.to(idt).to(dev)
+                got = cg.gather_fwd_cuda(table, i)
+                want = cg.gather_fwd_plain(table, i)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"B10 differs ({dtype}, W={W}, {idt})")
+            log(f"  B10 gather {str(dtype)[6:]:8s} W={W:4d}: bit-equal to the plain version "
+                f"(int32 and int64 ids, clamped ids at -1, {rows} and {rows + 5})")
+        for W in (3, 5):  # rows of 6 to 20 bytes, offset by one row: no 16-byte alignment
+            base = torch.randn(rows + 1, W, generator=gen).to(dtype).to(dev)
+            table = base[1:]
+            i = torch.randint(0, rows + 2, (4099,), generator=gen).to(dev)
+            require(torch.equal(cg.gather_fwd_cuda(table, i), cg.gather_fwd_plain(table, i)),
+                    f"B10 differs on an unaligned view ({dtype}, W={W})")
+        log(f"  B10 gather {str(dtype)[6:]:8s} W=3, 5 on a view offset by one row: bit-equal")
+    _kernels.reset_launches()
+
+
+def gather_cost(rows, n, W, item, id_item=8):
+    """(bytes, ops) of B10: the [rows, W] table read once, the [n, W]
+    output written once, and the ids."""
+    return (rows + n) * W * item + n * id_item, []
+
+
+def time_gather(tally, table, ids, launches):
+    """B10 on ``table`` by ``ids``: kernel, plain and index_select times (the
+    library call, on the ids clamped beforehand), held bit for bit to the
+    plain version; added to ``tally`` for ``launches`` launches. Returns
+    (kernel ms, index_select ms)."""
+    from allset_tpu_torch.ops import cuda_gather as cg
+
+    k = cuda_ms(lambda: cg.gather_fwd_cuda(table, ids), iters=20)
+    p = cuda_ms(lambda: cg.gather_fwd_plain(table, ids), iters=5)
+    clamped = ids.clamp(0, table.shape[0] - 1)
+    lib = cuda_ms(lambda: table.index_select(0, clamped), iters=20)
+    require(torch.equal(cg.gather_fwd_cuda(table, ids), cg.gather_fwd_plain(table, ids)),
+            f"B10 differs at [{ids.shape[0]}, {table.shape[1]}]")
+    tally.add(launches, k, p, 0.0, *gather_cost(table.shape[0], ids.shape[0], table.shape[1],
+                                               table.element_size(), ids.element_size()),
+              library_ms=lib)
+    return k, lib
+
+
+def time_gather_step(batches, dev):
+    """B10 per UniGAT bench step: the gathers of one training step are
+    recorded (table shape and dtype, the ids), as many as zoo_launches
+    predicts, then each is timed at its shape on a random table, summed
+    per step."""
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg
+
+    model, batch, mask = zoo_model(batches, dev, "UniGAT", dict(ZOO)["UniGAT"])
+    calls, orig = [], cg.gather_fwd_cuda
+
+    def record(table, ids):
+        calls.append((tuple(table.shape), table.dtype, ids))
+        return orig(table, ids)
+
+    cg.gather_fwd_cuda = record
+    try:
+        run_steps(model, batch, mask, 1)
+    finally:
+        cg.gather_fwd_cuda = orig
+    want = zoo_launches("UniGAT")["gather"]
+    require(len(calls) == want, f"a UniGAT step gathered {len(calls)} times, expected {want}")
+    del model
+    t = Tally()
+    groups = {}
+    for shape, dtype, ids in calls:  # the same ids and table shape: timed once
+        key = (shape, dtype, ids.data_ptr(), ids.shape[0], ids.dtype)
+        groups.setdefault(key, [shape, dtype, ids, 0])[3] += 1
+    for shape, dtype, ids, n in groups.values():
+        table = torch.randn(shape, device=dev).to(dtype)
+        k, lib = time_gather(t, table, ids, n)
+        log(f"  B10 at [{ids.shape[0]}, {list(shape[1:])}] {str(dtype)[6:]} from {shape[0]} rows "
+            f"(x{n} per step): kernel {k:.4f} ms, index_select {lib:.4f} ms")
+    _kernels.reset_launches()
+    return {"gather": t}
+
+
+# --- the conv zoo ---------------------------------------------------------------
+
+# (name, ExperimentConfig overrides) of the zoo's full-width bench steps
+# (phase 4) and small-graph steps (phase 5): UniGAT at 8 heads of 32 (a
+# concatenated width of 256). UniGIN and UniSAGE sum over the bench
+# graph's hub (node 0, in 64,855 of the 65,536 hyperedges) into logits
+# near 5e3, where 8 Adam steps at lr 1e-3 do not lower the loss, as the
+# JAX model's do not (tests/test_torch_zoo.py, on a smaller hub graph);
+# so their bench steps take the reference's --UniGNN_use_norm (each
+# conv's rows L2-normalised), and phase 5 checks them also without it
+# (HUB_CONVS). The CLI runs of phase 6 take no norm.
+HUB_CONVS = tuple((n, dict(method="UniGNN", unignn_model_name=n)) for n in ("UniGIN", "UniSAGE"))
+ZOO = (("HCHA", dict(method="HCHA")), ("HGNN", dict(method="HGNN")),
+       ("HNHN", dict(method="HNHN")), ("UniGCNII", dict(method="UniGCNII")),
+       ("MLP", dict(method="MLP")),
+       ("UniGAT", dict(method="UniGNN", unignn_model_name="UniGAT", heads=8, mlp_hidden=32)),
+       ("UniGCN", dict(method="UniGNN", unignn_model_name="UniGCN")),
+       ("UniGCN2", dict(method="UniGNN", unignn_model_name="UniGCN2")),
+       *((n, dict(over, unignn_use_norm=True)) for n, over in HUB_CONVS))
+
+
+def zoo_launches(name, epoch=False):
+    """The launches the code predicts per training step (forward, backward)
+    or, with ``epoch``, per group and epoch (forward twice, train and
+    eval, backward once) of a 2-conv zoo model. A dir_spmm launches K1
+    forward and K1 backward, the backward only where its input needs a
+    gradient (not UniGCN2's first conv, on the features), and B10 twice
+    more (with_spmm_gathers); a UniGAT
+    conv launches, forward,
+    K1 three times (the hyperedge reduce, the softmax's denominators and the
+    sum by node, both in the node-sorted order) and B10 seven times (node
+    rows, edge scores, the segment max and denominators by entry, edge
+    rows, the two permutations into the node-sorted order), and backward K1
+    five times (the transposes of the five gathers) and B10 six times (the
+    three sums' transposes, the three permutations into the node-sorted
+    order); the MLP one LayerNorm per step."""
+    nf = 2 if epoch else 1
+    if name == "MLP":
+        return {"layer_norm_fwd": nf, "layer_norm_bwd": 1}
+    if name == "UniGAT":
+        return {"segment_sum": 6 * nf + 10, "gather": 14 * nf + 12}
+    fwd, bwd = 4, 2 if name == "UniGCN2" else 4
+    return with_spmm_gathers({"segment_sum": nf * fwd + bwd})
+
+
+def with_spmm_gathers(per):
+    """``per`` with _Spmm's B10 launches: one per K1 launch of a dir_spmm
+    (each follows one gather, forward and backward). A ``per`` that names
+    "gather" already is kept."""
+    if "gather" in per:
+        return per
+    return {**per, "gather": per.get("segment_sum", 0)}
+
+
+def zoo_batches(batch, hd):
+    """The bench batch with each zoo model's extras (the factory's host
+    transforms on the same self-loop graph, without building the
+    incidence again): HNHN's norms, UniGNN's degrees."""
+    import dataclasses
+
+    from allset_tpu_torch.graph.transforms import generate_norm_hnhn, unignn_degrees
+
+    dev = batch.x.device
+    hn = {k: torch.as_tensor(v).to(dev) for k, v in generate_norm_hnhn(hd).extras.items()}
+    degV, degE = unignn_degrees(hd)
+    uni = {"degV": torch.as_tensor(degV).to(dev), "degE": torch.as_tensor(degE).to(dev)}
+    return {"HNHN": dataclasses.replace(batch, extras=hn),
+            "Uni": dataclasses.replace(batch, extras=uni), "": batch}
+
+
+def zoo_model(batches, dev, name, over, seed=0):
+    """Zoo model ``name`` at the bench width (bf16, hidden 256), its batch
+    and the even nodes' mask."""
+    from allset_tpu_torch.models import build_model
+    from allset_tpu_torch.train.factory import ExperimentConfig, zoo_config
+
+    batch = batches["HNHN" if name == "HNHN" else "Uni" if name.startswith("Uni") else ""]
+    mcfg = zoo_config(ExperimentConfig(**{"mlp_hidden": 256, "dropout": 0.0,
+                                          "dtype": "bfloat16", **over}), 256, 8)
+    mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
+    return build_model(mcfg, torch.Generator().manual_seed(seed)).to(dev), batch, mask
+
+
+def zoo_path(batches, dev, card, name, over):
+    """8 bf16 bench steps of zoo model ``name`` at full width with every
+    launch count set to 0 just before, checked against zoo_launches; a
+    finite, falling loss; two runs from one state bit-identical. Returns
+    the counts and the median step time."""
+    from allset_tpu_torch.ops import _kernels
+
+    steps = 8
+    model, batch, mask = zoo_model(batches, dev, name, over)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    run_steps(zoo_model(batches, dev, name, over)[0], batch, mask, 1)
+    _kernels.reset_launches()
+    losses, times = run_steps(model, batch, mask, steps)
+    counts = dict(_kernels.launches)
+    per = zoo_launches(name)
+    for k in _kernels.KERNELS:
+        require(counts[k] == per.get(k, 0) * steps,
+                f"{name}: {k} launched {counts[k]} times, expected {per.get(k, 0) * steps}")
+    lo = losses.cpu()
+    log(f"  [{name}] losses: {[round(v, 6) for v in lo.tolist()]}")
+    require(bool(torch.isfinite(lo).all()), f"{name}: non-finite loss")
+    require(lo[-1] < lo[0], f"{name}: loss did not fall")
+    model2 = zoo_model(batches, dev, name, over, seed=1)[0]
+    model2.load_state_dict(state)
+    losses2, _ = run_steps(model2, batch, mask, steps)
+    require(torch.equal(losses, losses2), f"{name}: two runs from one state differ")
+    ms = statistics.median(times) * 1e3
+    nnz = batch.inc.nnz
+    log(f"  [{name}] launches over {steps} steps {counts}; two runs from one state "
+        f"bit-identical; median "
+        f"step {ms:.3f} ms; {nnz / (ms / 1e3):,.0f} edges/s [{card}] (smoke, not a benchmark)")
+    del model, model2
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def tied_nodes_zoo(model, batch, margin=TIE_MARGIN):
+    """Nodes whose loss reaches a relu, ELU or leaky_relu argument within
+    ``margin`` of 0 in a forward of a zoo model (see tied_nodes). Events in
+    forward order: a tie marks rows of the current table (nodes, hyperedge
+    rows of an exchange's output, or a UniGAT score's entries, which mark
+    the entry's node); each dir_spmm carries the marks to the rows its
+    entries reach; a UniGAT conv carries its input's marks one hop (node,
+    hyperedges, nodes) and adds its entries' marks. Marked nodes stay
+    marked (skip connections and residuals keep a node's own value)."""
+    from allset_tpu_torch.models import hcha, hnhn, unignn
+    from allset_tpu_torch.ops.exchange import dir_spmm
+
+    inc, N = batch.inc, batch.num_nodes
+
+    def near(t):
+        return (t.detach().float().abs() < margin).reshape(t.shape[0], -1).any(dim=1)
+
+    events = []
+    orig_relu, orig_elu = torch.relu, torch.nn.functional.elu
+    orig_leaky, orig_spmm = unignn._leaky_relu, {m: m.dir_spmm for m in (hcha, hnhn, unignn)}
+
+    def relu(x):
+        events.append(("tie", near(x)))
+        return orig_relu(x)
+
+    def elu(x, *a, **k):
+        events.append(("tie", near(x)))
+        return orig_elu(x, *a, **k)
+
+    def leaky(x, slope):
+        events.append(("entry", near(x)))
+        return orig_leaky(x, slope)
+
+    def spmm(w, d, **kw):
+        events.append(("exchange", d))
+        return orig_spmm[hcha](w, d, **kw)
+
+    hooks = [m.register_forward_pre_hook(lambda m, i: events.append(("gat_in", None)))
+             for m in model.modules() if isinstance(m, unignn.UniGATConv)]
+    hooks += [m.register_forward_hook(lambda m, i, o: events.append(("gat_out", None)))
+              for m in model.modules() if isinstance(m, unignn.UniGATConv)]
+    torch.relu, torch.nn.functional.elu, unignn._leaky_relu = relu, elu, leaky
+    for m in orig_spmm:
+        m.dir_spmm = spmm
+    try:
+        with torch.no_grad():
+            model(batch, False)
+    finally:
+        torch.relu, torch.nn.functional.elu, unignn._leaky_relu = orig_relu, orig_elu, orig_leaky
+        for m, f in orig_spmm.items():
+            m.dir_spmm = f
+        for h in hooks:
+            h.remove()
+
+    def hop(marks):  # nodes -> their hyperedges -> those hyperedges' nodes
+        valid = inc.mask
+        edges = torch.zeros(inc.num_edges + 1, dtype=torch.bool, device=marks.device)
+        edges[inc.edge[valid][marks[inc.node[valid]]]] = True
+        out = torch.zeros(N + 1, dtype=torch.bool, device=marks.device)
+        out[inc.node[valid][edges[inc.edge[valid]]]] = True
+        return out[:N]
+
+    nodes = torch.zeros(N, dtype=torch.bool, device=batch.x.device)
+    hit, gat_in, gat_entry = nodes.clone(), None, None
+    for kind, v in events:
+        if kind == "tie":
+            if v.shape[0] == N:
+                nodes |= v
+                hit = nodes.clone()
+            else:
+                require(hit.shape == v.shape, "tied_nodes_zoo: a tie on another table")
+                hit = hit | v
+        elif kind == "exchange":
+            src = hit.float()
+            if src.shape[0] != v.num_src and v.sl_mode == "none":
+                src = src[: v.num_src]
+            hit = dir_spmm(src[:, None].expand(-1, 8).contiguous(), v)[:, 0] > 0
+            if hit.shape[0] == N:
+                nodes |= hit
+                hit = nodes.clone()
+        elif kind == "gat_in":
+            gat_in, gat_entry = nodes.clone(), torch.zeros_like(nodes)
+        elif kind == "entry":
+            m = v & inc.mask
+            gat_entry[inc.node[m]] = True
+        else:  # gat_out
+            nodes |= hop(gat_in) | gat_entry
+            hit = nodes.clone()
+    return nodes
+
+
+def zoo_small_parity(dev, name, over):
+    """One f32 step of zoo model ``name`` (hidden 64) through the kernels
+    (card) against one through the plain versions (CPU), from the same
+    parameters, as small_parity: the loss on the even nodes less
+    tied_nodes_zoo within 1e-5, every gradient within 1e-3 of its tensor's
+    max |.|."""
+    from allset_tpu_torch.data import synthetic_hypergraph
+    from allset_tpu_torch.models import build_model
+    from allset_tpu_torch.train import masked_nll
+    from allset_tpu_torch.train.factory import ExperimentConfig, prepare
+
+    hd = synthetic_hypergraph(num_nodes=3000, num_hyperedges=1500, feature_dim=64, seed=3)
+    cfg = ExperimentConfig(**{"mlp_hidden": 64, "dropout": 0.0, **over})
+    built = {}
+    for device in ("cpu", dev):
+        mcfg, batch = prepare(cfg, hd, device)
+        built[device] = build_model(mcfg, torch.Generator().manual_seed(5)).to(device), batch
+    if name == "MLP":
+        tied = torch.zeros(hd.num_nodes, dtype=torch.bool)
+    else:
+        tied = torch.stack([tied_nodes_zoo(*built[d]).cpu() for d in built]).any(dim=0)
+    even = torch.arange(hd.num_nodes) % 2 == 0
+    mask = even & ~tied
+    out = {}
+    for device, (model, batch) in built.items():
+        loss = masked_nll(model(batch, False), batch.y, mask.to(device))
+        loss.backward()
+        out[str(device)] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (l_ref, g_ref), (l_k, g_k) = out["cpu"], out[str(dev)]
+    rel = abs(l_k - l_ref) / abs(l_ref)
+    require(rel <= 1e-5, f"{name}: small-graph loss disagrees: {rel}")
+    worst = (0.0, "")
+    for k in g_ref:
+        scale = max(g_ref[k].abs().max().item(), 1e-6)
+        e = (g_k[k] - g_ref[k]).abs().max().item() / scale
+        require(e <= 1e-3, f"{name}: gradient {k} disagrees: {e}")
+        worst = max(worst, (e, k))
+    log(f"  [{name}] small f32 step: {int((even & tied).sum())} of {int(even.sum())} loss nodes "
+        f"left out (a tie within {TIE_MARGIN:g} upstream); loss rel {rel:.2e} (tol 1e-5); "
+        f"worst scaled gradient error {worst[0]:.2e} ({worst[1]}; tol 1e-3)")
+
+
+ZOO_CLI = (("HGNN", ["--method", "HGNN"]), ("HCHA", ["--method", "HCHA"]),
+           ("HNHN", ["--method", "HNHN"]), ("UniGCNII", ["--method", "UniGCNII"]),
+           *((n, ["--method", "UniGNN", "--UniGNN_model_name", n])
+             for n in ("UniGCN", "UniGAT", "UniGCN2", "UniGIN", "UniSAGE")),
+           ("MLP", ["--method", "MLP"]))
+
+
+def zoo_protocol(card, tmp, dev):
+    """The zoo through the CLI on synthetic-walmart, f32, --MLP_hidden 256,
+    20 runs x 2 epochs folded: launches per group and epoch as
+    zoo_launches predicts, finite metrics, the peak device memory per
+    folded run against the trainer's estimate (which must not be lower);
+    HCHA also 2 runs folded against 2 one by one. Returns the counts of
+    the UniGAT run."""
+    import dataclasses
+
+    from allset_tpu_torch.train.factory import ExperimentConfig
+
+    base = ["--dname", WALMART, "--dtype", "float32", "--device", "cuda", "--MLP_hidden", "256",
+            "--res_root", tmp]
+    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    out = {}
+    for name, flags in ZOO_CLI:
+        cfg = {"method": flags[1], "mlp_hidden": 256}
+        if "--UniGNN_model_name" in flags:
+            cfg["unignn_model_name"] = flags[3]
+        assert set(cfg) <= fields
+        res, counts, peak, est = cli_peak(base + ["--epochs", "2", *flags], 2,
+                                          zoo_launches(name, epoch=True), dev, preset=False,
+                                          **cfg)
+        out[name] = counts
+        log(f"  {name}: {res.metrics.shape[0]} runs in groups {res.groups}; launches {counts}; "
+            f"params {res.num_params}; final test {res.best_by_valid()['final_test'][0]:.2f}; "
+            f"{res.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included); peak "
+            f"{peak / 2**30:.3f} GiB per folded run, estimate {est / 2**30:.3f} GiB [{card}]")
+        require(est >= peak, f"{name}: the trainer's estimate is below the measured peak")
+    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2", "--method", "HCHA"], 2,
+                         zoo_launches("HCHA", epoch=True))
+    return out
+
+
+def time_layer_norm_epoch(tmp, dev, gen):
+    """B12/B13 per AllDeepSets 20-run epoch (walmart preset, f32): the
+    launches of one CLI epoch are recorded (shape, dtypes, whether dx is
+    needed), then each is timed at its shape with inputs from ln_inputs:
+    kernel and plain times, the bound, and F.layer_norm's forward (its
+    autograd backward for B13) on the run's slice as the library call,
+    times the runs. Returns {"layer_norm_fwd_epoch": Tally,
+    "layer_norm_bwd_epoch": Tally} and the launches of that epoch."""
+    import torch.nn.functional as tf
+
+    from allset_tpu_torch.ops import _kernels, cuda_ln as cl
+
+    calls = []
+    orig = cl.ln_fwd_cuda, cl.ln_bwd_cuda
+
+    def fwd(x, gamma, beta, ydt):
+        calls.append(("fwd", tuple(x.shape), x.dtype, tuple(gamma.shape), ydt, True))
+        return orig[0](x, gamma, beta, ydt)
+
+    def bwd(g, x, gamma, need_dx=True):
+        calls.append(("bwd", tuple(x.shape), x.dtype, tuple(gamma.shape), g.dtype, need_dx))
+        return orig[1](g, x, gamma, need_dx)
+
+    cl.ln_fwd_cuda, cl.ln_bwd_cuda = fwd, bwd
+    try:
+        _, counts = cli_run(["--method", "AllDeepSets", "--dname", WALMART, "--preset",
+                             "--dtype", "float32", "--device", "cuda", "--epochs", "1",
+                             "--res_root", tmp], 1, DEEPSETS_GROUP_EPOCH)
+    finally:
+        cl.ln_fwd_cuda, cl.ln_bwd_cuda = orig
+    out = {"layer_norm_fwd_epoch": Tally(), "layer_norm_bwd_epoch": Tally()}
+    for key in sorted(set(calls), key=str):
+        kind, xs, xdt, gs, ydt, need_dx = key
+        n = calls.count(key)
+        R = gs[0] if len(gs) == 2 else None
+        rows, F = xs[0], xs[-1]
+        shared = R is not None and len(xs) == 2
+        x, gamma, beta, g = ln_inputs(rows, F, xdt, ydt, dev, gen, R=R, shared=shared)
+        runs = R or 1
+        xr = x if R is None or shared else x[:, 0].contiguous()
+        wl, bl = gamma.reshape(-1, F)[0].to(xdt), beta.reshape(-1, F)[0].to(xdt)
+        if kind == "fwd":
+            k = cuda_ms(lambda: cl.ln_fwd_cuda(x, gamma, beta, ydt))
+            p = cuda_ms(lambda: cl.ln_fwd_plain(x, gamma, beta, ydt), iters=1)
+            lib = runs * cuda_ms(lambda: tf.layer_norm(xr, (F,), wl, bl, eps=cl.LN_EPS))
+            e = scaled_err(cl.ln_fwd_cuda(x, gamma, beta, ydt),
+                           cl.ln_fwd_plain(x, gamma, beta, ydt))[0]
+        else:
+            k = cuda_ms(lambda: cl.ln_bwd_cuda(g, x, gamma, need_dx))
+            p = cuda_ms(lambda: cl.ln_bwd_plain(g, x, gamma), iters=1)
+            xl = xr.detach().requires_grad_(need_dx)
+            wq, bq = wl.clone().requires_grad_(), bl.clone().requires_grad_()
+            yl = tf.layer_norm(xl, (F,), wq, bq, eps=cl.LN_EPS)
+            ins = (xl, wq, bq) if need_dx else (wq, bq)
+            gl = (g if R is None else g[:, 0]).to(yl.dtype).contiguous()
+            lib = runs * cuda_ms(lambda: torch.autograd.grad(yl, ins, gl, retain_graph=True))
+            e = scaled_err(cl.ln_bwd_cuda(g, x, gamma)[1], cl.ln_bwd_plain(g, x, gamma)[1])[0]
+        out[f"layer_norm_{kind}_epoch"].add(n, k, p, e, *ln_cost(rows, F, xdt, ydt, kind == "bwd",
+                                                                 need_dx, runs),
+                                            library_ms=lib)
+        log(f"  B1{2 if kind == 'fwd' else 3} at x {list(xs)} {str(xdt)[6:]}, gamma {list(gs)} "
+            f"(x{n} per epoch{', dx' if kind == 'bwd' and need_dx else ''}): kernel {k:.4f} ms, "
+            f"plain {p:.3f} ms, library {lib:.4f} ms")
+    _kernels.reset_launches()
+    return out, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1417,9 +1936,12 @@ def main() -> int:
     check_layer_norm(dev, gen)
     check_routes(dev, gen)
 
+    check_gather(dev, gen)
+
     log("phase 4: main path at bench size (bf16)")
     t0 = time.perf_counter()
-    batch = bench_batch(dev)
+    hd = bench_hyperdata()
+    batch = bench_batch(dev, hd)
     log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {batch.num_nodes}, "
         f"nnz {batch.inc.nnz}, real edges {batch.inc.real.num_edges}")
     timings = time_main_shapes(batch, dev, gen)
@@ -1427,41 +1949,64 @@ def main() -> int:
     log_tallies({k: timings[k] for k in ("layer_norm_fwd", "layer_norm_bwd")},
                 "AllDeepSets bench step")
     counts, _ = main_path(batch, dev, card, PER_STEP)
-    timings.update(time_epilogue_step(batch, dev, gen, 512, "_hc512"))
-    log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_hc512", "pma_epilogue_bwd_hc512")},
-                "bench step at hidden 512")
-    counts512, _ = main_path(batch, dev, card, PER_STEP, hidden=512)
+    wide_counts = {}
+    for HC in (384, 512, 1024):  # the 32-row tiles and the wide pair
+        suffix = f"_hc{HC}"
+        timings.update(time_epilogue_step(batch, dev, gen, HC, suffix))
+        log_tallies({k: timings[k] for k in ("pma_epilogue_fwd" + suffix,
+                                             "pma_epilogue_bwd" + suffix)},
+                    f"bench step at hidden {HC}")
+        wide_counts[HC], _ = main_path(batch, dev, card, PER_STEP, hidden=HC)
     main_path(batch, dev, card, PER_STEP_GPR, gpr=True)
     main_path(batch, dev, card, PER_STEP, learn_mask=True)
     deepsets = dict(pma=False, aggregate="add")
     ds_counts, _ = main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets)
     main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets, learn_mask=True)
+    log("phase 4b: the conv zoo at bench size (bf16, 2 layers, hidden 256)")
+    batches = zoo_batches(batch, hd)
+    timings.update(time_gather_step(batches, dev))
+    log_tallies({"gather": timings["gather"]}, "UniGAT bench step")
+    zoo_counts = {name: zoo_path(batches, dev, card, name, over)[0] for name, over in ZOO}
+    del batches
     require("jax" not in sys.modules, "the port loaded jax")
 
     log("phase 5: small f32 graph, kernels against plain")
     for mode in ({}, dict(gpr=True), dict(learn_mask=True), deepsets,
                  dict(deepsets, learn_mask=True)):
         small_parity(dev, **mode)
+    for name, over in ZOO:
+        zoo_small_parity(dev, name, over)
+    for name, over in HUB_CONVS:
+        zoo_small_parity(dev, f"{name}, no norm", over)
 
-    del batch
     torch.cuda.empty_cache()
     log("phase 6: the runs protocol through the CLI (synthetic-walmart preset, f32)")
     t0 = time.perf_counter()
     wb = walmart_batch(dev)
     log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {wb.num_nodes}, "
         f"nnz {wb.inc.real.nnz}, real edges {wb.inc.real.num_edges}")
+    del batch
     timings.update(time_runs_shapes(wb, dev, gen))
     timings.update(time_epilogue_epoch(wb, dev, gen, 20, 512, "_hc512"))
     log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc512",
                                          "pma_epilogue_bwd_runs_hc512")},
                 "20-run epoch at hidden 512")
+    timings.update(time_epilogue_epoch(wb, dev, gen, 2, 1024, "_hc1024"))
+    log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc1024",
+                                         "pma_epilogue_bwd_runs_hc1024")},
+                "2-run epoch at hidden 1024")
     del wb
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         runs_counts, _ = runs_protocol(card, tmp)
         runs512_counts = hidden512_protocol(card, tmp, dev)
+        runs1024_counts = wide_protocol(card, tmp)
         deepsets_protocol(card, tmp, dev)
+        ln_epoch, ln_epoch_counts = time_layer_norm_epoch(tmp, dev, gen)
+        timings.update(ln_epoch)
+        log_tallies(ln_epoch, "AllDeepSets 20-run epoch")
         route_runs(card, tmp)
+        zoo_cli_counts = zoo_protocol(card, tmp, dev)
         require("jax" not in sys.modules, "the port loaded jax")
         log("phase 7: the accuracy band (5 runs x 500 epochs)")
         band_replay(card, tmp)
@@ -1485,18 +2030,29 @@ def main() -> int:
                            "benchmarks/exp_ln.py:50", ds_counts),
         "layer_norm_bwd": ("allset_tpu_torch/csrc/layer_norm.cu",
                            "benchmarks/exp_ln.py:60", ds_counts),
+        "gather": ("allset_tpu_torch/csrc/gather.cu", "benchmarks/exp_fused_gather.py:135",
+                   zoo_counts["UniGAT"]),
     }
-    # the epilogue kernels at HC 512: the hidden-512 bench step and CLI run
-    for k, cnt in (("pma_epilogue_fwd", counts512), ("pma_epilogue_bwd", counts512),
-                   ("pma_epilogue_fwd_runs", runs512_counts),
-                   ("pma_epilogue_bwd_runs", runs512_counts)):
-        sources[f"{k}_hc512"] = (*sources[k][:2], cnt)
+    # the epilogue kernels at the other widths: the bench steps at hidden
+    # 384, 512 and 1024 (the wide pair), the CLI runs at 512 and 1024
+    wide = "allset_tpu_torch/csrc/pma_epilogue_wide.cu"
+    for HC in (384, 512, 1024):
+        for k in ("pma_epilogue_fwd", "pma_epilogue_bwd"):
+            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else sources[k][0], sources[k][1],
+                                      wide_counts[HC])
+    for HC, cnt in ((512, runs512_counts), (1024, runs1024_counts)):
+        for k in ("pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs"):
+            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else sources[k][0], sources[k][1], cnt)
+    for k in ("layer_norm_fwd", "layer_norm_bwd"):  # per AllDeepSets 20-run epoch
+        sources[f"{k}_epoch"] = (*sources[k][:2], ln_epoch_counts)
+    log(f"  zoo CLI launches: {zoo_cli_counts}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"(the build included) [{card}]")
     kernels = []
     for name, (src, rep, cnt) in sources.items():
+        base = re.sub(r"_(hc\d+|epoch)$", "", name)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": cnt[name.removesuffix("_hc512")], **timings[name].row()})
+                        "launches": cnt[base], **timings[name].row()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
