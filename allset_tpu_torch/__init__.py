@@ -10,12 +10,14 @@ CUDA tensors launch the kernel, CPU tensors take the plain version.
 Ported so far: AllSetTransformer and AllDeepSets in every mode of the JAX
 CLI (SetGNN on the self-loop split or the unsplit exchange; GPR,
 LearnMask, All_num_layers=0; masked NLL, torch Adam), the conv zoo
-(HCHA/HGNN, HNHN, UniGNN with its five convs, UniGCNII, MLP) and the
-statistical runs protocol with its CLI (``python -m allset_tpu_torch.cli``),
-through the sorted segment-sum (K1), PMA's score+pack (K4 global max, K5
-packed table), the fused PMA epilogue forward and backward, for one run
-(K2, K3) and for R runs folded into the width (K2R, K3R), the LayerNorm
-pair (B12, B13) and the row gather (B10).
+(HCHA/HGNN, HNHN, UniGNN with its five convs, UniGCNII, MLP), the
+clique-expansion baselines (CEGCN, CEGAT), HyperGCN (fast and reapprox)
+and the statistical runs protocol with its CLI (``python -m
+allset_tpu_torch.cli``), through the sorted segment-sum (K1), PMA's
+score+pack (K4 global max, K5 packed table), the fused PMA epilogue
+forward and backward, for one run (K2, K3) and for R runs folded into the
+width (K2R, K3R), the LayerNorm pair (B12, B13), the row gather (B10) and
+the sorted gather through shared memory (B9).
 
 Layout:
   graph/     Incidence (host build + sorted orders), Batch, transforms, splits
@@ -23,7 +25,8 @@ Layout:
   ops/       segment-sum, row gather, segment ops, exchange (dir_spmm),
              PMA score+pack and epilogue, LayerNorm, kernel build
   nn/        TorchDense, NormLayer, MLP, PMA, HalfNLHconv, PReLU
-  models/    SetGNN, HCHA, HNHN, UniGNN/UniGCNII, MLPModel/LegacyHGNN
+  models/    SetGNN, HCHA, HNHN, UniGNN/UniGCNII, MLPModel/LegacyHGNN,
+             CEGCN/CEGAT, HyperGCN
   train/     Trainer (runs protocol), presets, experiment factory
   utils/     parameter bridge from the JAX package
   cli.py     the experiment command line

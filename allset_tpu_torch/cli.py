@@ -20,11 +20,12 @@ Differences from the JAX CLI:
   * ``--add_self_loop`` takes an optional boolean (default true); the
     reference's flag is ``store_false``, which turns self-loops off.
   * Flags of parts not ported yet (``--plot``, ``--save_params``,
-    ``--profile``, ``--remat``, ``--epoch_chunk``) raise; so do the methods
-    not ported yet (CEGCN, CEGAT, HyperGCN), whose flags are parsed and
-    not read. ``--method`` takes AllSetTransformer, AllDeepSets, HGNN,
-    HCHA, HNHN, UniGNN (``--UniGNN_model_name`` UniGAT, UniGCN, UniGCN2,
-    UniGIN, UniSAGE), UniGCNII and MLP.
+    ``--profile``, ``--remat``, ``--epoch_chunk``) raise. ``--method``
+    takes every method of the JAX CLI: AllSetTransformer, AllDeepSets,
+    CEGCN, CEGAT (``--heads``, ``--output_heads``), HyperGCN
+    (``--HyperGCN_mediators``, ``--HyperGCN_fast false`` for the reapprox
+    path), HGNN, HCHA, HNHN, UniGNN (``--UniGNN_model_name`` UniGAT,
+    UniGCN, UniGCN2, UniGIN, UniSAGE), UniGCNII and MLP.
 """
 
 from __future__ import annotations
@@ -168,6 +169,9 @@ def run(argv=None):
         hnhn_beta=args.HNHN_beta,
         hnhn_nonlinear_inbetween=args.HNHN_nonlinear_inbetween,
         hcha_symdegnorm=args.HCHA_symdegnorm,
+        output_heads=args.output_heads,
+        hypergcn_mediators=args.HyperGCN_mediators,
+        hypergcn_fast=args.HyperGCN_fast,
         unignn_model_name=args.UniGNN_model_name,
         unignn_use_norm=args.UniGNN_use_norm,
         seed=args.seed,

@@ -1,11 +1,12 @@
 """Batch: the bundle every model consumes, on an explicit device.
 
 Counterpart of ``allset_tpu/graph/batch.py``: features, labels, the
-incidence (None for the structure-free MLP) and the per-model extras
-(HNHN's norm vectors, UniGNN's degrees), all tensors on one device; and
-``split_masks``. The device is
-the card unless the caller names another; without a card that default
-raises, it never falls back to the CPU.
+incidence (None for the structure-free MLP and HyperGCN's reapprox
+path; the V2V graph for CEGCN/CEGAT, the Laplacian for HyperGCN) and the
+per-model extras (HNHN's norm vectors, UniGNN's degrees), all tensors on
+one device; and ``split_masks``. The device is the card unless the caller
+names another; without a card that default raises, it never falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -36,14 +37,22 @@ class Batch:
         cls, data: HyperData, device="cuda", bucket: int = 256,
         with_incidence: bool = True,
     ) -> "Batch":
+        inc = data.to_incidence(bucket=bucket) if with_incidence else None
+        return cls.from_incidence(data, inc, device)
+
+    @classmethod
+    def from_incidence(cls, data: HyperData, inc: Optional[Incidence],
+                       device="cuda") -> "Batch":
+        """``data``'s features, labels and extras with another structure
+        ``inc`` (a V2V graph, a Laplacian, or None), all on ``device``."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Batch.from_hyperdata: no CUDA device is available "
+            raise RuntimeError("Batch: no CUDA device is available "
                                "(pass device='cpu' for the plain versions)")
         return cls(
             x=torch.as_tensor(data.x, dtype=torch.float32).to(device),
             y=torch.as_tensor(data.y, dtype=torch.int64).to(device),
-            inc=data.to_incidence(bucket=bucket).to(device) if with_incidence else None,
+            inc=None if inc is None else inc.to(device),
             extras={k: torch.as_tensor(v).to(device) for k, v in data.extras.items()},
         )
 

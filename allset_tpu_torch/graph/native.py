@@ -26,6 +26,7 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -46,6 +47,10 @@ def _load() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(_SO)
     except (OSError, subprocess.CalledProcessError):
         return None  # no toolchain: the numpy fallbacks serve
+    lib.hypercore_clique_expand.restype = ctypes.c_int64
+    lib.hypercore_clique_expand.argtypes = [
+        I64P, I64P, ctypes.c_int64, ctypes.c_int64, I64P, I64P, F32P, ctypes.c_int64,
+    ]
     lib.hypercore_coalesce.restype = ctypes.c_int64
     lib.hypercore_coalesce.argtypes = [I64P, I64P, ctypes.c_int64, I64P, I64P]
     lib.hypercore_counting_argsort.restype = None
@@ -54,6 +59,31 @@ def _load() -> Optional[ctypes.CDLL]:
     ]
     _lib = lib
     return _lib
+
+
+def clique_expand(
+    node: np.ndarray, edge: np.ndarray, num_edges: int
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Native weighted clique expansion: (pairs [2, P] i<j, weights [P]) in
+    the library's order; None if the library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    node = np.ascontiguousarray(node, dtype=np.int64)
+    edge = np.ascontiguousarray(edge, dtype=np.int64)
+    sizes = np.bincount(edge, minlength=num_edges).astype(np.int64)
+    cap = int((sizes * (sizes - 1) // 2).sum())
+    if cap == 0:
+        return np.zeros((2, 0), np.int64), np.zeros(0, np.float32)
+    out_i = np.empty(cap, np.int64)
+    out_j = np.empty(cap, np.int64)
+    out_w = np.empty(cap, np.float32)
+    k = lib.hypercore_clique_expand(
+        node, edge, len(node), num_edges, out_i, out_j, out_w, cap
+    )
+    if k < 0:
+        return None
+    return np.stack([out_i[:k], out_j[:k]]), out_w[:k]
 
 
 def coalesce(node: np.ndarray, edge: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:

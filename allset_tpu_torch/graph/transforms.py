@@ -3,8 +3,10 @@
 Counterpart of ``allset_tpu/graph/transforms.py``, limited to what the
 ported methods need: ``HyperData``, ``coalesce``, ``add_self_loops``,
 ``expand_edge_index``, ``norm_construction``, ``rand_train_test_idx``,
-and the zoo's degree vectors ``generate_norm_hnhn`` (HNHN) and
-``unignn_degrees`` (UniGNN, UniGCNII), carried in ``HyperData.extras``.
+the zoo's degree vectors ``generate_norm_hnhn`` (HNHN) and
+``unignn_degrees`` (UniGNN, UniGCNII), carried in ``HyperData.extras``,
+the clique expansion ``construct_v2v`` with ``gcn_norm`` (CEGCN, CEGAT)
+and HyperGCN's ``hypergcn_edge_dict``.
 The port keeps its own copy because importing the JAX package's module
 loads jax. Given the same inputs (and the same numpy generator state),
 every function returns the same arrays as the JAX package's.
@@ -13,6 +15,7 @@ every function returns the same arrays as the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+from collections import defaultdict
 from typing import Dict, Optional
 
 import numpy as np
@@ -235,6 +238,83 @@ def unignn_degrees(data: HyperData):
     degV[~np.isfinite(degV)] = 1.0
     degE = np.nan_to_num(degE)
     return degV.astype(np.float32)[:, None], degE.astype(np.float32)[:, None]
+
+
+def construct_v2v(data: HyperData):
+    """Weighted clique expansion: each hyperedge contributes all (i<j) node
+    pairs; pair weight = co-occurrence count across hyperedges.
+
+    Reference ``src/preprocessing.py:343-391``. Returns (edge_index[2,P],
+    weight[P]) with each pair stored once (i<j), as the reference does,
+    in the native library's order (``native/hypercore.cpp``), or in
+    first-seen order by the python loop where the library is absent.
+    """
+    native_out = native.clique_expand(data.node, data.edge, data.num_hyperedges)
+    if native_out is not None:
+        return native_out
+    order = np.argsort(data.edge, kind="stable")
+    nodes = data.node[order]
+    edges = data.edge[order]
+    boundaries = np.searchsorted(edges, np.arange(data.num_hyperedges + 1))
+
+    pair_weight: Dict[tuple, int] = defaultdict(int)
+    for e in range(data.num_hyperedges):
+        lo, hi = boundaries[e], boundaries[e + 1]
+        members = np.sort(nodes[lo:hi])
+        k = len(members)
+        if k <= 1:
+            continue
+        ii, jj = np.triu_indices(k, k=1)
+        for a, b in zip(members[ii], members[jj]):
+            pair_weight[(int(a), int(b))] += 1
+
+    if not pair_weight:
+        return np.zeros((2, 0), dtype=np.int64), np.zeros(0, dtype=np.float32)
+    pairs = np.array(list(pair_weight.keys()), dtype=np.int64).T
+    weights = np.array(list(pair_weight.values()), dtype=np.float32)
+    return pairs, weights
+
+
+def gcn_norm(
+    edge_index: np.ndarray,
+    edge_weight: Optional[np.ndarray],
+    num_nodes: int,
+    add_self_loops: bool = True,
+):
+    """PyG-style GCN normalization (the reference's
+    ``torch_geometric.nn.conv.gcn_conv.gcn_norm`` at
+    ``src/preprocessing.py:466-468``): append unit self-loops, then
+    w_ij <- d_i^{-1/2} w_ij d_j^{-1/2} with d = weighted in-degree."""
+    row, col = edge_index[0].astype(np.int64), edge_index[1].astype(np.int64)
+    if edge_weight is None:
+        edge_weight = np.ones(row.shape[0], dtype=np.float32)
+    edge_weight = edge_weight.astype(np.float64)
+    if add_self_loops:
+        loop = np.arange(num_nodes, dtype=np.int64)
+        row = np.concatenate([row, loop])
+        col = np.concatenate([col, loop])
+        edge_weight = np.concatenate([edge_weight, np.ones(num_nodes)])
+    deg = np.zeros(num_nodes, dtype=np.float64)
+    np.add.at(deg, col, edge_weight)
+    with np.errstate(divide="ignore"):
+        dinv = deg ** -0.5
+    dinv[~np.isfinite(dinv)] = 0.0
+    norm = dinv[row] * edge_weight * dinv[col]
+    return np.stack([row, col]), norm.astype(np.float32)
+
+
+def hypergcn_edge_dict(data: HyperData) -> Dict[int, list]:
+    """Hyperedge -> member-node list dict for the HyperGCN Laplacian builder
+    (reference ``get_HyperGCN_He_dict``, ``src/preprocessing.py:148-183``)."""
+    out: Dict[int, list] = {}
+    order = np.argsort(data.edge, kind="stable")
+    nodes, edges = data.node[order], data.edge[order]
+    boundaries = np.searchsorted(edges, np.arange(data.num_hyperedges + 1))
+    for e in range(data.num_hyperedges):
+        lo, hi = boundaries[e], boundaries[e + 1]
+        if hi > lo:
+            out[e] = nodes[lo:hi].tolist()
+    return out
 
 
 def construct_h_dense(data: HyperData) -> np.ndarray:

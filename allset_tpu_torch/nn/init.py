@@ -8,7 +8,8 @@ every draw takes an explicit ``torch.Generator``:
   * glorot (reference ``src/layers.py:31-34``): U(+-sqrt(6/(fan_in+fan_out)))
     on PMA's lin_K / lin_V kernels;
   * xavier_uniform_ with torch's fan rule on the PMA seed ``att_r`` of
-    shape (1, heads, C): fan_in = heads*C, fan_out = C.
+    shape (1, heads, C): fan_in = heads*C, fan_out = C;
+  * U(+-bound) with an explicit bound: HyperGCN's layers.
 
 Runs: ``generator`` may be a list of R generators, one per statistical
 run; the draw then has a leading [R] axis, and slice r is what a single
@@ -55,3 +56,8 @@ def xavier_uniform_torch_fans(shape, generator: Generators) -> torch.Tensor:
     fan_in = shape[1] * receptive
     fan_out = shape[0] * receptive
     return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+
+
+def uniform_symmetric(shape, bound: float, generator: Generators) -> torch.Tensor:
+    """U(+-bound): the HyperGCN layer init (reference ``src/utils.py:27-30``)."""
+    return _uniform(shape, bound, generator)

@@ -34,7 +34,7 @@ _SO = osp.join(BUILD_DIR, "libkernels.so")
 
 KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
            "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack",
-           "layer_norm_fwd", "layer_norm_bwd", "gather")
+           "layer_norm_fwd", "layer_norm_bwd", "gather", "gather_sorted")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -55,6 +55,7 @@ _SIGNATURES = {
     "allset_pma_wide_fwd": [P] * 10 + [I] * 9 + [P],
     "allset_pma_wide_bwd": [P] * 17 + [I] * 9 + [P],
     "allset_gather": [P, P, I, P, LL, LL, LL, P],
+    "allset_gather_sorted": [P, P, I, P, LL, LL, LL, P],
 }
 
 

@@ -1,4 +1,5 @@
-"""Row gather (B10): ``out[i] = table[clamp(ids[i], 0, rows - 1)]``.
+"""Row gathers ``out[i] = table[clamp(ids[i], 0, rows - 1)]``: B10 for any
+ids, B9 for sorted ids and narrow rows.
 
 Counterpart of ``benchmarks/exp_fused_gather.py::dma_gather`` (the TPU
 per-row DMA gather, ``_dma_gather_kernel``) and of the JAX package's
@@ -14,9 +15,23 @@ plain version agree bit for bit.
 version for a CPU tensor; any other device raises. ``gather`` adds the
 backward: a scatter-add of the cotangent by the clamped ids in f32, as
 XLA's transpose of ``jnp.take`` is, returned in the table's dtype.
+
+B9 (``csrc/gather_sorted.cu``, counterpart of
+``benchmarks/exp_fused_gather.py::vmem_gather``, the gather from a table
+held on chip) serves the same function for ids that come in runs of equal
+values: each block stages the distinct rows of its chunk of 1,024 ids in
+shared memory, reading each once, and writes the chunk's output rows from
+there; B10 reads a row again for every id. It is exact for any ids and
+takes rows of up to 32 KB. ``gather_route`` picks the kernel by what the
+caller knows and the row's bytes: B9 for sorted ids and a row of at most
+``NARROW_BYTES``, B10 otherwise; each kernel counts its own launches.
+``gather_sorted_fwd`` launches B9 for a CUDA tensor and takes the plain
+version (the same ``index_select`` after the clamp) for a CPU one.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,23 +51,87 @@ def gather_fwd_plain(table: Tensor, ids: Tensor) -> Tensor:
 def gather_fwd_cuda(table: Tensor, ids: Tensor) -> Tensor:
     """Launch B10 on the current stream: table [rows, ...] (any trailing
     shape, contiguous rows), ids [n] int32 or int64 on the same device."""
-    if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
-        raise ValueError("gather_fwd_cuda needs table and ids on one CUDA device")
-    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"ids must be 1-D int32 or int64, got {ids.dtype} {tuple(ids.shape)}")
-    if table.dim() < 1 or table.shape[0] == 0:
-        raise ValueError(f"gather from a table of shape {tuple(table.shape)}")
+    _check_cuda_args(table, ids, "gather_fwd_cuda")
     table, ids = table.contiguous(), ids.contiguous()
     out = torch.empty((ids.shape[0],) + tuple(table.shape[1:]), dtype=table.dtype,
                       device=table.device)
-    row_bytes = table[0].numel() * table.element_size()
     rc = _kernels.lib().allset_gather(
         table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(),
-        ids.shape[0], table.shape[0], row_bytes, _kernels.stream_ptr(table),
+        ids.shape[0], table.shape[0], row_bytes(table), _kernels.stream_ptr(table),
     )
     _kernels.check(rc, "gather")
     _kernels.launches["gather"] += 1
     return out
+
+
+def _check_cuda_args(table: Tensor, ids: Tensor, name: str):
+    if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
+        raise ValueError(f"{name} needs table and ids on one CUDA device")
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids must be 1-D int32 or int64, got {ids.dtype} {tuple(ids.shape)}")
+    if table.dim() < 1 or table.shape[0] == 0:
+        raise ValueError(f"gather from a table of shape {tuple(table.shape)}")
+
+
+def row_bytes(table: Tensor) -> int:
+    """Bytes of one row of ``table`` [rows, ...]."""
+    return math.prod(table.shape[1:]) * table.element_size()
+
+
+# B9's shared-memory staging buffer (csrc/gather_sorted.cu): the widest row
+# it takes
+SORTED_STAGE_BYTES = 32 * 1024
+# the widest row that takes B9 when the ids are sorted: on an H100 (the
+# bench graph's V2V destination ids, scripts/gather_sorted_sweep.py) B9 was
+# within B10's spread for rows of 4 to 128 B and 6-11% slower from 256 B
+NARROW_BYTES = 128
+
+
+def gather_sorted_fwd_cuda(table: Tensor, ids: Tensor) -> Tensor:
+    """Launch B9 on the current stream: table [rows, ...] (contiguous rows
+    of at most SORTED_STAGE_BYTES, rows < 2^31), ids [n] int32 or int64 on
+    the same device, in any order (sorted ids share their rows)."""
+    _check_cuda_args(table, ids, "gather_sorted_fwd_cuda")
+    nbytes = row_bytes(table)
+    if nbytes > SORTED_STAGE_BYTES or table.shape[0] >= 2**31:
+        raise ValueError(f"B9 takes rows of at most {SORTED_STAGE_BYTES} bytes from fewer than "
+                         f"2^31 rows, got {tuple(table.shape)} {table.dtype}")
+    table, ids = table.contiguous(), ids.contiguous()
+    out = torch.empty((ids.shape[0],) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=table.device)
+    rc = _kernels.lib().allset_gather_sorted(
+        table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(),
+        ids.shape[0], table.shape[0], nbytes, _kernels.stream_ptr(table),
+    )
+    _kernels.check(rc, "gather_sorted")
+    _kernels.launches["gather_sorted"] += 1
+    return out
+
+
+# B9's plain version: the same function as B10's
+gather_sorted_fwd_plain = gather_fwd_plain
+
+
+def gather_sorted_fwd(table: Tensor, ids: Tensor) -> Tensor:
+    """B9 for a CUDA table, the plain version for a CPU one."""
+    if table.is_cuda:
+        return gather_sorted_fwd_cuda(table, ids)
+    if table.device.type == "cpu":
+        return gather_sorted_fwd_plain(table, ids)
+    raise ValueError(f"gather_sorted: unsupported device {table.device}")
+
+
+def gather_route(nbytes: int, ids_sorted: bool) -> str:
+    """'sorted' (B9) for sorted ids and a row of at most NARROW_BYTES,
+    'rows' (B10) otherwise: a choice by shape, made before any launch."""
+    return "sorted" if ids_sorted and nbytes <= NARROW_BYTES else "rows"
+
+
+def gather_routed(table: Tensor, ids: Tensor, ids_sorted: bool) -> Tensor:
+    """The forward gather through gather_route's kernel."""
+    if gather_route(row_bytes(table), ids_sorted) == "sorted":
+        return gather_sorted_fwd(table, ids)
+    return gather_fwd(table, ids)
 
 
 def gather_fwd(table: Tensor, ids: Tensor) -> Tensor:

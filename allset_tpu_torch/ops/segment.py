@@ -11,7 +11,10 @@ its entry.
 
   * ``gather_rows``: ``x[idx]`` with the ids clamped (``mode="clip"``), so
     a padded id equal to ``num_rows`` reads the last row; on the card the
-    B10 row-gather kernel (``ops/cuda_gather.py``);
+    B10 row-gather kernel (``ops/cuda_gather.py``), or B9 where the ids'
+    order says they are sorted and the row is narrow
+    (``cuda_gather.gather_route``: the score tables of a softmax by
+    sorted destination ids);
   * ``segment_sum`` and the reduces built on it;
   * ``segment_max``: a torch ``scatter_reduce`` (amax), whose backward
     splits the gradient evenly over tied entries, as the JAX segment max
@@ -24,11 +27,12 @@ The sums and the gathers' transposes take ``order``, the ids' sort
 ``node_order()``), where the caller has one: the entries then go through
 K1 in that order (after a B10 gather into it when the ids are not sorted
 already), deterministic and without atomics; a sum's backward is then a
-B10 gather of the cotangent by id. Without an order the ids are taken as
-unsorted and the sum, or a gather's transpose, is a torch scatter-add in
-f32 (``index_put_`` with ``accumulate``, which on the card sorts the ids
-and so adds in the same order every run), as the JAX package leaves them
-to XLA outside any Pallas kernel. Results have the data's dtype.
+gather of the cotangent by id (B9 or B10, as ``gather_route`` picks).
+Without an order the ids are taken as unsorted and the sum, or a
+gather's transpose, is a torch scatter-add in f32 (``index_put_`` with
+``accumulate``, which on the card sorts the ids and so adds in the same
+order every run), as the JAX package leaves them to XLA outside any
+Pallas kernel. Results have the data's dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 
 from allset_tpu_torch.graph.incidence import SegOrder
 from allset_tpu_torch.ops import cuda_segment
-from allset_tpu_torch.ops.cuda_gather import gather, gather_fwd
+from allset_tpu_torch.ops.cuda_gather import gather, gather_fwd, gather_routed
 
 Tensor = torch.Tensor
 
@@ -67,7 +71,7 @@ class _OrderedSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, ids, num_segments, order: SegOrder):
         ctx.save_for_backward(ids)
-        ctx.dtype = data.dtype
+        ctx.dtype, ctx.order = data.dtype, order
         rows = _sorted_rows(_flat(data), order, _num_valid(order))
         out = cuda_segment.segment_sum(rows, order.indptr, num_segments, order.plan)
         return out.reshape((num_segments,) + tuple(data.shape[1:]))
@@ -75,14 +79,15 @@ class _OrderedSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        dx = gather_fwd(g.contiguous(), ids)
+        dx = gather_routed(g.contiguous(), ids, ctx.order.perm is None)
         valid = (ids >= 0) & (ids < g.shape[0])
         dx = torch.where(valid.reshape((-1,) + (1,) * (dx.dim() - 1)), dx, torch.zeros_like(dx))
         return dx.to(ctx.dtype), None, None, None
 
 
 class _OrderedGather(torch.autograd.Function):
-    """B10 gather by ids; backward: the cotangent's valid entries in the
+    """Gather by ids (B9 where the order says they are sorted and the row is
+    narrow, else B10); backward: the cotangent's valid entries in the
     order's sort, summed by K1 into the table's rows (one per segment)."""
 
     @staticmethod
@@ -91,7 +96,7 @@ class _OrderedGather(torch.autograd.Function):
             raise ValueError(f"gather_rows: a table of {x.shape[0]} rows and an order over "
                              f"{order.indptr.shape[0] - 1} segments")
         ctx.order, ctx.dtype = order, x.dtype
-        return gather_fwd(x, ids)
+        return gather_routed(x, ids, order.perm is None)
 
     @staticmethod
     def backward(ctx, g):

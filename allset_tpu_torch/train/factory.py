@@ -5,28 +5,37 @@ the reference (``src/train.py:221-287``) and the host preprocessing each
 method needs (self-loops, the exclude_self expansion, entry norms, HNHN's
 norm vectors, UniGNN's degrees), then the device Batch and the model
 configuration, for AllSetTransformer, AllDeepSets, HCHA, HGNN (HCHA with
-the symmetric degree norm), HNHN, UniGNN, UniGCNII and MLP. CEGCN, CEGAT
-and HyperGCN raise, naming the ROADMAP item that ports them.
+the symmetric degree norm), HNHN, UniGNN, UniGCNII, MLP, CEGCN and CEGAT
+(the clique expansion: ``gcn_norm`` with self-loops for CEGCN, host-side
+self-loops and unit weights for CEGAT) and HyperGCN (the Laplacian built
+once on the fast path; the hyperedge dict for the reapprox path, which
+rebuilds it in every forward).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from allset_tpu_torch.graph.batch import Batch
+from allset_tpu_torch.graph.incidence import Incidence
 from allset_tpu_torch.graph.transforms import (
     HyperData,
     add_self_loops,
+    construct_v2v,
     expand_edge_index,
+    gcn_norm,
     generate_norm_hnhn,
+    hypergcn_edge_dict,
     norm_construction,
     unignn_degrees,
 )
-from allset_tpu_torch.models import (HCHAConfig, HNHNConfig, MLPConfig, SetGNNConfig,
-                                     UniGCNIIConfig, UniGNNConfig)
+from allset_tpu_torch.models import (CEConfig, HCHAConfig, HNHNConfig, HyperGCNConfig,
+                                     MLPConfig, SetGNNConfig, UniGCNIIConfig, UniGNNConfig)
+from allset_tpu_torch.models.hypergcn import build_hypergcn_laplacian
 
 METHODS = (
     "AllSetTransformer",
@@ -64,6 +73,7 @@ class ExperimentConfig:
     classifier_num_layers: int = 2
     classifier_hidden: int = 64
     heads: int = 1
+    output_heads: int = 1  # CEGAT's output conv
     dropout: float = 0.5
     aggregate: str = "mean"
     normtype: str = "all_one"  # 'all_one' | 'deg_half_sym'
@@ -79,6 +89,9 @@ class ExperimentConfig:
     hnhn_nonlinear_inbetween: bool = True
     # HCHA
     hcha_symdegnorm: bool = False
+    # HyperGCN
+    hypergcn_mediators: bool = True
+    hypergcn_fast: bool = True
     # UniGNN
     unignn_model_name: str = "UniGCN"
     unignn_use_norm: bool = False
@@ -88,15 +101,6 @@ class ExperimentConfig:
     dtype: str = "float32"  # or 'bfloat16' (mixed precision)
 
 
-# the methods still to port and the ROADMAP item that ports them
-NOT_PORTED = {
-    "CEGCN": "ROADMAP Queue 1 item 9: CEGCN/CEGAT (construct_v2v, gcn_norm, models/cegnn.py)",
-    "CEGAT": "ROADMAP Queue 1 item 9: CEGCN/CEGAT (construct_v2v, gcn_norm, models/cegnn.py)",
-    "HyperGCN": "ROADMAP Queue 1 item 9: HyperGCN (its Laplacian and the reapprox path, "
-                "models/hypergcn.py)",
-}
-
-
 def prepare(cfg: ExperimentConfig, data: HyperData,
             device: torch.device | str = "cuda") -> Tuple[object, Batch]:
     """(method, raw HyperData) -> (model configuration, Batch on ``device``);
@@ -104,10 +108,20 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
     method = cfg.method
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
-    if method in NOT_PORTED:
-        raise NotImplementedError(f"--method {method} is not ported yet ({NOT_PORTED[method]})")
     if method in ("AllSetTransformer", "AllDeepSets"):
         return _prepare_setgnn(cfg, data, device)
+    if method in ("CEGCN", "CEGAT"):
+        return (zoo_config(cfg, data.num_features, data.num_classes),
+                Batch.from_incidence(data, v2v_incidence(data, method, cfg.bucket), device))
+    if method == "HyperGCN":
+        edge_dict = hypergcn_edge_dict(data)
+        mcfg = zoo_config(cfg, data.num_features, data.num_classes, edge_dict=edge_dict)
+        struct = None
+        if cfg.hypergcn_fast:
+            struct = build_hypergcn_laplacian(data.num_nodes, edge_dict, data.x,
+                                              mediators=cfg.hypergcn_mediators, seed=cfg.seed,
+                                              bucket=cfg.bucket)
+        return mcfg, Batch.from_incidence(data, struct, device)
     mcfg = zoo_config(cfg, data.num_features, data.num_classes)
     if method == "MLP":
         return mcfg, Batch.from_hyperdata(data, device=device, bucket=cfg.bucket,
@@ -122,10 +136,40 @@ def prepare(cfg: ExperimentConfig, data: HyperData,
     return mcfg, Batch.from_hyperdata(d, device=device, bucket=cfg.bucket)
 
 
-def zoo_config(cfg: ExperimentConfig, num_features: int, num_classes: int):
+def v2v_incidence(data: HyperData, method: str, bucket: int = 256) -> Incidence:
+    """The clique expansion's V2V graph (each pair once, i<j) with the
+    self-loops of every node: weighted by gcn_norm for CEGCN, unit weights
+    for CEGAT (PyG's GATConv adds the loops at call time; here the host
+    appends them)."""
+    pairs, weights = construct_v2v(data)
+    if method == "CEGCN":
+        ei, norm = gcn_norm(pairs, weights, data.num_nodes, add_self_loops=True)
+    else:
+        loop = np.arange(data.num_nodes, dtype=np.int64)
+        ei = np.concatenate([pairs, np.stack([loop, loop])], axis=1)
+        norm = np.ones(ei.shape[1], dtype=np.float32)
+    return Incidence.from_arrays(ei[0], ei[1], norm=norm, num_nodes=data.num_nodes,
+                                 num_edges=data.num_nodes, bucket=bucket)
+
+
+def zoo_config(cfg: ExperimentConfig, num_features: int, num_classes: int,
+               edge_dict: Optional[dict] = None):
     """The model configuration of a zoo method (HCHA, HGNN, HNHN, UniGNN,
-    UniGCNII, MLP) from the flags."""
+    UniGCNII, MLP, CEGCN, CEGAT, HyperGCN) from the flags; HyperGCN's
+    reapprox path takes the hyperedge dict ``edge_dict``."""
     method = cfg.method
+    if method in ("CEGCN", "CEGAT"):
+        return CEConfig(num_features=num_features, num_classes=num_classes,
+                        all_num_layers=cfg.all_num_layers, mlp_hidden=cfg.mlp_hidden,
+                        dropout=cfg.dropout, normalization=cfg.normalization, heads=cfg.heads,
+                        output_heads=cfg.output_heads, dtype=cfg.dtype,
+                        conv="GCN" if method == "CEGCN" else "GAT")
+    if method == "HyperGCN":
+        return HyperGCNConfig(num_features=num_features, num_classes=num_classes,
+                              all_num_layers=cfg.all_num_layers, dropout=cfg.dropout,
+                              mediators=cfg.hypergcn_mediators, fast=cfg.hypergcn_fast,
+                              dname=cfg.dname, dtype=cfg.dtype,
+                              edge_dict=None if cfg.hypergcn_fast else edge_dict, seed=cfg.seed)
     common = dict(num_features=num_features, num_classes=num_classes,
                   all_num_layers=cfg.all_num_layers, mlp_hidden=cfg.mlp_hidden,
                   dtype=cfg.dtype)

@@ -9,10 +9,11 @@ aggregate as mean +- std (ddof=1), as the reference Logger does.
 
 Any ported model trains here (``models.build_model``): SetGNN
 (AllSetTransformer, AllDeepSets) and the conv zoo (HCHA, HNHN, UniGNN,
-UniGCNII, MLP). The JAX package vmaps the runs; here the runs ride an
-explicit leading [R] axis of the parameters and are folded into the
-width of every sparse exchange and fused-epilogue launch, so R runs share
-each kernel launch (``vmap_runs``). The runs go in groups whose size follows the free device
+UniGCNII, MLP, CEGCN, CEGAT, HyperGCN). The JAX package vmaps the runs;
+here the runs ride an explicit leading [R] axis of the parameters and
+are folded into the width of every sparse exchange and fused-epilogue
+launch, so R runs share each kernel launch (``vmap_runs``; HyperGCN's
+reapprox path runs them one after another inside its forward). The runs go in groups whose size follows the free device
 memory; without ``vmap_runs`` every group holds one run. Runs do not
 depend on their group: run r's split is the r-th draw of
 ``numpy.random.default_rng(seed)``, its parameter init and its dropout
@@ -34,8 +35,10 @@ import torch
 
 from allset_tpu_torch.graph.batch import Batch, split_masks
 from allset_tpu_torch.graph.transforms import rand_train_test_idx
-from allset_tpu_torch.models import (HCHAConfig, HNHNConfig, LegacyHGNNConfig, MLPConfig,
-                                     SetGNNConfig, UniGCNIIConfig, UniGNNConfig, build_model)
+from allset_tpu_torch.models import (CEConfig, HCHAConfig, HNHNConfig, HyperGCNConfig,
+                                     LegacyHGNNConfig, MLPConfig, SetGNNConfig, UniGCNIIConfig,
+                                     UniGNNConfig, build_model)
+from allset_tpu_torch.models.hypergcn import laplacian_nnz_bound
 from allset_tpu_torch.nn.modules import packed_width
 from allset_tpu_torch.ops.cuda_pma import DW_PARTIALS
 from allset_tpu_torch.train.factory import make_optimizer
@@ -46,9 +49,20 @@ from allset_tpu_torch.train.factory import make_optimizer
 DEEPSETS_TABLES = 14
 # the conv zoo's tables per run at its peak, two layers: (gathered
 # [nnz_pad, width] tables, f32 [rows, width] tables), rows the nodes plus the
-# exchange's hyperedge rows (Trainer._zoo_bytes_per_run)
+# exchange's hyperedge rows (Trainer._zoo_bytes_per_run). A weighted
+# dir_spmm (CEGCN, HyperGCN) holds the gathered rows and their scaled copy;
+# CEGAT's backward holds the gathered rows and the expanded attention, the
+# cotangent gathered by destination, masked, and the two products
 ZOO_TABLES = {"HCHA": (1, 2), "HNHN": (1, 4), "UniGNN": (1, 3), "UniGAT": (6, 3),
-              "UniGCNII": (1, 5)}
+              "UniGCNII": (1, 5), "CEGCN": (2, 2), "CEGAT": (6, 3), "HyperGCN": (2, 8)}
+# CEGAT's f32 [nnz_pad, heads] score tables per conv at its peak (the two
+# gathered scores, their sum, leaky_relu, the expanded max and denominator,
+# exp, the softmax, its dropout mask and the masked softmax, and their
+# gradients' share)
+CEGAT_SCORE_TABLES = 12
+# bytes per entry of one reapprox Laplacian's Incidence (its index arrays,
+# norm and mask, both orders), held from the forward to the backward
+REAPPROX_ENTRY_BYTES = 96
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,22 +260,45 @@ class Trainer:
         hidden 256 (20 runs in groups of 10; 6 for UniGAT) the measured
         peaks per run were 0.724 GiB (HCHA, HGNN), 1.199 (HNHN), 1.268
         (UniGCNII), 0.875 (UniGCN), 2.943 (UniGAT) and 0.447 (MLP); the
-        tables give 0.96, 1.43, 1.67, 1.19, 3.56 and 0.60 GiB."""
+        tables give 0.96, 1.43, 1.67, 1.19, 3.56 and 0.60 GiB. CEGCN and
+        CEGAT count the V2V graph's entries and its N destination rows (CEGAT
+        also its f32 score tables, CEGAT_SCORE_TABLES per conv), HyperGCN the
+        Laplacian's entries at its widest layer; on the reapprox path, where
+        no Laplacian is built ahead, laplacian_nnz_bound's entries, with
+        the structures' own index arrays. At the same setting the measured
+        peaks were 1.153 (CEGCN), 2.852 (CEGAT, groups of 16) and 0.080 GiB
+        (HyperGCN); the tables give 1.416, 3.744 and 0.165 GiB."""
         mc, inc, N = self.model_cfg, self.batch.inc, self.batch.num_nodes
         item = 2 if getattr(mc, "dtype", "float32") == "bfloat16" else 4
         total = 3 * 4 * N * mc.num_classes
         depth = max(getattr(mc, "all_num_layers", 2), 2) / 2
         if isinstance(mc, (MLPConfig, LegacyHGNNConfig)):
             return int(total + 7 * 4 * N * mc.mlp_hidden * depth)
-        width = mc.mlp_hidden * getattr(mc, "heads", 1)
-        if isinstance(mc, UniGNNConfig):
-            key = "UniGAT" if mc.model_name == "UniGAT" else "UniGNN"
+        if isinstance(mc, HyperGCNConfig):
+            width, key = max(mc.widths()[1:]), "HyperGCN"
+            if mc.fast:
+                nnz = inc.nnz_padded
+            else:  # f32; each layer's Laplacian lives until the backward
+                item, nnz = 4, laplacian_nnz_bound(mc.edge_dict, N, mc.mediators)
+                total += 2 * depth * REAPPROX_ENTRY_BYTES * nnz
         else:
-            key = {HCHAConfig: "HCHA", HNHNConfig: "HNHN", UniGCNIIConfig: "UniGCNII"}[type(mc)]
-        edges = inc.num_edges if inc.real is None or key.startswith("Uni") else (
-            inc.real.num_edges + N)
+            width, nnz = mc.mlp_hidden * getattr(mc, "heads", 1), inc.nnz_padded
+            if isinstance(mc, UniGNNConfig):
+                key = "UniGAT" if mc.model_name == "UniGAT" else "UniGNN"
+            elif isinstance(mc, CEConfig):
+                key = "CEGCN" if mc.conv == "GCN" else "CEGAT"
+                if key == "CEGAT":
+                    total += depth * CEGAT_SCORE_TABLES * 4 * nnz * max(mc.heads,
+                                                                        mc.output_heads)
+            else:
+                key = {HCHAConfig: "HCHA", HNHNConfig: "HNHN",
+                       UniGCNIIConfig: "UniGCNII"}[type(mc)]
+        if inc is None or inc.real is None or key.startswith("Uni"):
+            edges = N if inc is None else inc.num_edges
+        else:
+            edges = inc.real.num_edges + N
         a, b = ZOO_TABLES[key]
-        return int(total + depth * width * (a * item * inc.nnz_padded + b * 4 * (N + edges)))
+        return int(total + depth * width * (a * item * nnz + b * 4 * (N + edges)))
 
     def _group_size(self) -> int:
         cfg = self.cfg

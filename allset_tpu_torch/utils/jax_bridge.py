@@ -4,8 +4,10 @@ The port's modules use the flax names (``V2E_0/prop/lin_K/kernel``,
 ``att_r``, ``ln0/scale``, ``rFF/lin{i}``, ``classifier/lin0``...; the
 zoo's ``conv{i}/weight``, ``conv{i}/W/kernel``, ``att_e``, ``eps``,
 ``weight_v2e``, ``lin_in``, ``mlp/norm0/LayerNorm_0``, ``PReLU_0/
-negative_slope``...), so a ``state_dict`` key is the flax path joined by
-dots. Kernels keep the flax
+negative_slope``...; CEGCN's and CEGAT's ``conv{i}/weight``,
+``conv{i}/att_l``, ``conv{i}/att_r``, ``conv{i}/bias``; HyperGCN's
+``layer{i}/W``, ``layer{i}/bias`` and, on the reapprox path, ``W{i}``,
+``bias{i}``), so a ``state_dict`` key is the flax path joined by dots. Kernels keep the flax
 layout ``[in, out]``: nothing is transposed. The input is the flax
 ``params`` tree with its leaves converted to numpy arrays. A vmapped
 tree (a leading runs axis on every leaf, the same keys) gives the

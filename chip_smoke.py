@@ -30,13 +30,16 @@ Phases (any failure raises and exits non-zero):
      K2R/K3R; HC 2048 in f32, whose JAX kernel exceeds its VMEM cap,
      raises before any launch), B10 the row gather (bit for bit: f32 and
      bf16, widths 1, 8, 256, 264, 5,280 and 20 x 264, int32 and int64 ids,
-     clamped ids, narrow rows on an unaligned view), and at the main
+     clamped ids, narrow rows on an unaligned view), B9 the sorted gather
+     (bit for bit: f32 and bf16 rows of 2 B to 1 KiB, sorted ids with
+     gaps, a hub run of 10,000 equal ids and ids past both ends, the same
+     ids unsorted, int32 and int64), and at the main
      paths' shapes (K1 on the bench graph's real indptrs, bit for bit as
      well; K3R at R=20 on the walmart rows, each run bit for bit against
      K3; B12/B13 at the AllDeepSets step's [131072, 256] and [196608, 256]
      bf16 launches and at an AllDeepSets 20-run epoch's; B10 at a UniGAT
-     step's gathers), with the kernel, plain and library times and the
-     kernel's bound;
+     step's gathers; B9 at a CEGAT step's, against B10 as well), with the
+     kernel, plain and library times and the kernel's bound;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
@@ -52,10 +55,15 @@ Phases (any failure raises and exits non-zero):
      HGNN, HNHN, UniGCNII, MLP and UniGNN with each of its five convs
      (UniGAT at 8 heads of 32; UniGIN and UniSAGE with --UniGNN_use_norm,
      see ZOO), 8 steps each with the same checks and launch counts as the
-     code predicts (zoo_launches), the step time and edges/s;
+     code predicts (zoo_launches), the step time and edges/s; CEGCN
+     (hidden 256), CEGAT (8 heads of 32) on the bench graph's clique
+     expansion (279,962 entries with the self-loops) and HyperGCN (its
+     Laplacian with mediators, built once on the host), 8 steps each with
+     the same checks (CEGAT's sorted narrow gathers on B9); 2 steps of
+     HyperGCN's reapprox path (f32), its host build time per step;
   5. a small f32 graph, as the bench step, with GPR, with LearnMask,
      AllDeepSets with and without LearnMask, and each zoo model (UniGIN
-     and UniSAGE also without the norm): one step
+     and UniSAGE also without the norm; CEGCN, CEGAT, HyperGCN): one step
      through the kernels against one step of the plain versions (on the
      CPU) from the same parameters, on a loss without the nodes a relu,
      ELU or leaky_relu argument within rounding of 0 reaches;
@@ -84,14 +92,18 @@ Phases (any failure raises and exits non-zero):
      epochs): --method HGNN, HCHA, HNHN, UniGCNII, UniGNN (each of its
      five convs) and MLP, launches per group and epoch as predicted, finite
      metrics, each peak per run against the trainer's estimate, HCHA's 2
-     runs folded against 2 one by one;
+     runs folded against 2 one by one; --method CEGCN, CEGAT and HyperGCN
+     the same way (CEGAT's routes by each group's folded width), CEGAT's 2
+     runs folded against 2 one by one, and --HyperGCN_fast false on
+     synthetic (2 runs x 2 epochs, each run on its own structures);
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
 The line before the last is a JSON object of per-kernel results (K2R,
 K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step,
 B12, B13 from phase 4's AllDeepSets step and again, "_epoch", per
-AllDeepSets 20-run epoch; B10 from phase 4's UniGAT step; K2 and K3
+AllDeepSets 20-run epoch; B10 from phase 4's UniGAT step, B9
+("gather_sorted") from its CEGAT step; K2 and K3
 again at HC 384, 512 and 1024, K2R and K3R at 512 and 1024, "_hc...",
 from the bench steps and CLI runs at those widths): launches, the
 kernel's time and its plain version's summed over a bench step or an
@@ -100,7 +112,7 @@ products over the tensor cores: bf16 at 989 TFLOP/s, f32 products at
 3xTF32, 495 / 3 TFLOP/s; other arithmetic at 67 TFLOP/s) and one library
 call's time where one computes the same function (K1:
 torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
-B10: index_select); the last line is {"ok": true, "device": {...}}.
+B10, B9: index_select); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -884,14 +896,20 @@ def log_tallies(out, per):
 # --- phases 4 and 5: the training step --------------------------------------
 
 
-def bench_hyperdata():
-    """The bench graph with its self-loops, on the host."""
+def bench_raw():
+    """The bench graph as generated, without self-loops, on the host."""
     from allset_tpu_torch.data import scale_free_hypergraph
+
+    return scale_free_hypergraph(num_nodes=131072, num_hyperedges=65536,
+                                 avg_edge_size=12, feature_dim=256, seed=0)
+
+
+def bench_hyperdata(raw=None):
+    """The bench graph (``raw``, or bench_raw()) with its self-loops, on
+    the host."""
     from allset_tpu_torch.graph import add_self_loops, norm_construction
 
-    hd = scale_free_hypergraph(num_nodes=131072, num_hyperedges=65536,
-                               avg_edge_size=12, feature_dim=256, seed=0)
-    return norm_construction(add_self_loops(hd), "all_one")
+    return norm_construction(add_self_loops(bench_raw() if raw is None else raw), "all_one")
 
 
 def bench_batch(dev, hd=None):
@@ -1080,7 +1098,9 @@ def cli_run(argv, epochs, per=None):
     """One CLI run with every launch count set to 0 just before; returns
     the Results and the counts of that run, checked per group and epoch
     against ``per`` (default: pma_group_epoch(); the epilogue's route shows
-    in its launches)."""
+    in its launches), or, where ``per`` is a function of a group's number
+    of runs (routes chosen by the folded width), against its sum over the
+    groups."""
     from allset_tpu_torch import cli
     from allset_tpu_torch.ops import _kernels
 
@@ -1089,6 +1109,11 @@ def cli_run(argv, epochs, per=None):
     torch.cuda.synchronize()
     counts = dict(_kernels.launches)
     n = len(res.groups) * epochs
+    if callable(per):
+        total = {k: sum(per(g).get(k, 0) for g in res.groups) * epochs for k in _kernels.KERNELS}
+        require(total == counts, f"launches {counts}, expected {total} (groups {res.groups})")
+        require(bool(math.isfinite(res.metrics.sum())), "non-finite metrics")
+        return res, counts
     per = with_spmm_gathers(pma_group_epoch() if per is None else per)
     got = {k: counts[k] / n for k in _kernels.KERNELS}
     want = {k: float(per.get(k, 0)) for k in _kernels.KERNELS}
@@ -1484,6 +1509,51 @@ def check_gather(dev, gen):
     _kernels.reset_launches()
 
 
+# B9's row widths in bytes (4 B to 1 KiB), as f32 and bf16 columns
+SORTED_ROW_BYTES = (4, 8, 16, 32, 64, 256, 1024)
+
+
+def sorted_ids_with_hub(rows, n, gen, hub=10_000):
+    """n ids sorted ascending: runs of random lengths with gaps between
+    them, one run of ``hub`` equal ids, and ids below 0 and at or past
+    ``rows`` at the two ends (clamped)."""
+    ids = torch.randint(-3, rows + 3, (n - hub,), generator=gen)
+    ids = torch.cat([ids, torch.full((hub,), rows // 3)])
+    return ids.sort().values
+
+
+def check_gather_sorted(dev, gen):
+    """B9 against its plain version bit for bit (a gather is exact): f32
+    and bf16 tables with rows of 4 B to 1 KiB (SORTED_ROW_BYTES; also 2 and
+    6 B bf16 rows), sorted ids with gaps, a hub run of 10,000 equal ids and
+    ids past both ends, the same ids unsorted, int32 and int64 ids; a
+    chunk's rows over the 32 KB stage (1 KiB rows from unsorted ids) in
+    passes."""
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg
+
+    rows, n = 5000, 60_013
+    sorted_ids = sorted_ids_with_hub(rows, n, gen)
+    shuffled = sorted_ids[torch.randperm(n, generator=gen)]
+    require(int(sorted_ids[0]) < 0 and int(sorted_ids[-1]) >= rows, "ids past both ends")
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=dtype).element_size()
+        widths = sorted({b // item for b in SORTED_ROW_BYTES} | ({1, 3} if item == 2 else set()))
+        for W in widths:
+            table = torch.randn(rows, W, generator=gen).to(dtype).to(dev)
+            for what, ids in (("sorted", sorted_ids), ("unsorted", shuffled)):
+                for idt in (torch.int32, torch.int64):
+                    i = ids.to(idt).to(dev)
+                    got = cg.gather_sorted_fwd_cuda(table, i)
+                    want = cg.gather_sorted_fwd_plain(table, i)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, want),
+                            f"B9 differs ({dtype}, {W * item} B rows, {what}, {idt})")
+            log(f"  B9 sorted gather {str(dtype)[6:]:8s} rows of {W * item:4d} B: bit-equal to "
+                f"the plain version ({n} ids sorted with a 10,000-id hub run and unsorted; "
+                f"int32 and int64; clamped ids below 0 and past {rows})")
+    _kernels.reset_launches()
+
+
 def gather_cost(rows, n, W, item, id_item=8):
     """(bytes, ops) of B10: the [rows, W] table read once, the [n, W]
     output written once, and the ids."""
@@ -1545,6 +1615,61 @@ def time_gather_step(batches, dev):
     return {"gather": t}
 
 
+def time_gather_sorted_step(batches, dev):
+    """B9 per CEGAT bench step: the sorted gathers of one training step
+    are recorded (table shape and dtype, the ids), as many as
+    ce_gat_launches predicts, then each is timed at its shape on a random
+    table with B9, B10 and index_select (on the ids clamped beforehand),
+    held bit for bit to the plain version, summed per step; the bound
+    counts each distinct row read once, each output row written once and
+    the ids. Returns {"gather_sorted": Tally} (B10's time at the same
+    shapes is logged)."""
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg
+
+    model, batch, mask = zoo_model(batches, dev, "CEGAT", dict(CE)["CEGAT"])
+    calls, orig = [], cg.gather_sorted_fwd_cuda
+
+    def record(table, ids):
+        calls.append((tuple(table.shape), table.dtype, ids))
+        return orig(table, ids)
+
+    cg.gather_sorted_fwd_cuda = record
+    try:
+        run_steps(model, batch, mask, 1)
+    finally:
+        cg.gather_sorted_fwd_cuda = orig
+    want = zoo_launches("CEGAT")["gather_sorted"]
+    require(len(calls) == want, f"a CEGAT step gathered sorted {len(calls)} times, expected {want}")
+    del model
+    t, b10_total = Tally(), 0.0
+    groups = {}
+    for shape, dtype, ids in calls:  # the same ids and table shape: timed once
+        key = (shape, dtype, ids.data_ptr(), ids.shape[0], ids.dtype)
+        groups.setdefault(key, [shape, dtype, ids, 0])[3] += 1
+    for shape, dtype, ids, n in groups.values():
+        table = torch.randn(shape, device=dev).to(dtype)
+        k = cuda_ms(lambda: cg.gather_sorted_fwd_cuda(table, ids), iters=20)
+        b10 = cuda_ms(lambda: cg.gather_fwd_cuda(table, ids), iters=20)
+        p = cuda_ms(lambda: cg.gather_sorted_fwd_plain(table, ids), iters=5)
+        clamped = ids.clamp(0, shape[0] - 1)
+        lib = cuda_ms(lambda: table.index_select(0, clamped), iters=20)
+        require(torch.equal(cg.gather_sorted_fwd_cuda(table, ids),
+                            cg.gather_sorted_fwd_plain(table, ids)),
+                f"B9 differs at [{ids.shape[0]}, {list(shape[1:])}]")
+        distinct = int(torch.unique(clamped).numel())
+        nbytes = table[0].numel() * table.element_size()
+        t.add(n, k, p, 0.0, (distinct + ids.shape[0]) * nbytes + ids.shape[0] * ids.element_size(),
+              [], library_ms=lib)
+        b10_total += n * b10
+        log(f"  B9 at [{ids.shape[0]}, {list(shape[1:])}] {str(dtype)[6:]} from {shape[0]} rows "
+            f"({distinct} distinct; x{n} per step): kernel {k:.4f} ms, B10 {b10:.4f} ms, "
+            f"index_select {lib:.4f} ms, plain {p:.4f} ms")
+    log(f"  B9's gathers per CEGAT step: B9 {t.ms:.4f} ms, B10 at the same shapes "
+        f"{b10_total:.4f} ms")
+    _kernels.reset_launches()
+    return {"gather_sorted": t}
+
+
 # --- the conv zoo ---------------------------------------------------------------
 
 # (name, ExperimentConfig overrides) of the zoo's full-width bench steps
@@ -1566,28 +1691,90 @@ ZOO = (("HCHA", dict(method="HCHA")), ("HGNN", dict(method="HGNN")),
        *((n, dict(over, unignn_use_norm=True)) for n, over in HUB_CONVS))
 
 
+# the clique expansion's models and HyperGCN, at the bench width (phase 4,
+# bf16; UniGAT's CEGAT counterpart at 8 heads of 32) and on the small graph
+# (phase 5, f32)
+CE = (("CEGCN", dict(method="CEGCN")),
+      ("CEGAT", dict(method="CEGAT", heads=8, mlp_hidden=32)),
+      ("HyperGCN", dict(method="HyperGCN")))
+
+
 def zoo_launches(name, epoch=False):
     """The launches the code predicts per training step (forward, backward)
     or, with ``epoch``, per group and epoch (forward twice, train and
     eval, backward once) of a 2-conv zoo model. A dir_spmm launches K1
     forward and K1 backward, the backward only where its input needs a
     gradient (not UniGCN2's first conv, on the features), and B10 twice
-    more (with_spmm_gathers); a UniGAT
-    conv launches, forward,
-    K1 three times (the hyperedge reduce, the softmax's denominators and the
-    sum by node, both in the node-sorted order) and B10 seven times (node
-    rows, edge scores, the segment max and denominators by entry, edge
-    rows, the two permutations into the node-sorted order), and backward K1
-    five times (the transposes of the five gathers) and B10 six times (the
-    three sums' transposes, the three permutations into the node-sorted
-    order); the MLP one LayerNorm per step."""
+    more (with_spmm_gathers); the MLP one LayerNorm per step; CEGCN and
+    HyperGCN one dir_spmm per conv; UniGAT and CEGAT at the bench width as
+    unigat_launches and ce_gat_launches count them."""
     nf = 2 if epoch else 1
     if name == "MLP":
         return {"layer_norm_fwd": nf, "layer_norm_bwd": 1}
     if name == "UniGAT":
-        return {"segment_sum": 6 * nf + 10, "gather": 14 * nf + 12}
+        over = dict(ZOO)["UniGAT"]
+        return unigat_launches(1, over["heads"], over["mlp_hidden"], 8, 2, epoch)
+    if name in ("CEGCN", "HyperGCN"):
+        return with_spmm_gathers({"segment_sum": 2 * nf + 2})
+    if name == "CEGAT":
+        over = dict(CE)["CEGAT"]
+        return ce_gat_launches(1, over["heads"], over["mlp_hidden"], 8, 1, 2, epoch)
     fwd, bwd = 4, 2 if name == "UniGCN2" else 4
     return with_spmm_gathers({"segment_sum": nf * fwd + bwd})
+
+
+def sorted_route(nbytes):
+    """The counter of the kernel that gathers rows of ``nbytes`` bytes by
+    sorted ids (cuda_gather.gather_route)."""
+    from allset_tpu_torch.ops.cuda_gather import gather_route
+
+    return {"sorted": "gather_sorted", "rows": "gather"}[gather_route(nbytes, True)]
+
+
+def unigat_launches(R, heads, hidden, classes, item, epoch=False):
+    """The launches of a 2-conv UniGAT per step or, with ``epoch``, per
+    group of R runs and epoch (see zoo_launches): per conv of H heads of C
+    channels, forward K1 3 times and B10 5 times (the node rows, the
+    segment max and denominators by entry, the two permutations into the
+    node-sorted order) and two gathers by the sorted hyperedge ids, of the
+    [E, R*H] f32 edge scores and of the [E, R*H*C] edge rows; backward K1 5
+    times, B10 5 times (the three permutations into the node-sorted
+    order, the two sums by node's transposes) and one gather of [E,
+    R*H*C] rows by the sorted hyperedge ids (the hyperedge reduce's
+    transpose). A gather by sorted ids takes B9 where its row is narrow
+    (sorted_route), else B10. The hidden conv has ``heads`` heads of
+    ``hidden``, the output conv 1 head of ``classes``."""
+    nf = 2 if epoch else 1
+    out = {"segment_sum": 0, "gather": 0, "gather_sorted": 0}
+    for H, C in ((heads, hidden), (1, classes)):
+        out["segment_sum"] += 3 * nf + 5
+        out["gather"] += 5 * nf + 5
+        out[sorted_route(R * H * 4)] += nf
+        out[sorted_route(R * H * C * item)] += nf + 1
+    return out
+
+
+def ce_gat_launches(R, heads, hidden, classes, out_heads, item, epoch=False):
+    """The launches of a 2-conv CEGAT per step (forward, backward) or, with
+    ``epoch``, per group of R runs and epoch (forward twice). Per conv,
+    forward: B10 twice (the source scores in the node-sorted order, the
+    source rows), K1 twice (the softmax's denominators, the sum by
+    destination) and three gathers of [N, R*heads] f32 score rows by the
+    sorted destination ids (a_dst, the segment max, the denominators);
+    backward: K1 five times (the five gathers' transposes), B10 twice (the
+    two permutations into the node-sorted order), and two gathers by the
+    sorted destination ids (the denominators' sum's transpose, a score
+    row; the sum by destination's transpose, a row of the conv's output).
+    A gather by sorted ids takes B9 when its row has at most
+    cuda_gather.NARROW_BYTES bytes, else B10 (gather_route)."""
+    nf = 2 if epoch else 1
+    out = {"segment_sum": 0, "gather": 0, "gather_sorted": 0}
+    for H, C in ((heads, hidden), (out_heads, classes)):
+        out["segment_sum"] += 2 * nf + 5
+        out["gather"] += 2 * nf + 2
+        out[sorted_route(R * H * 4)] += 3 * nf + 1
+        out[sorted_route(R * H * C * item)] += 1
+    return out
 
 
 def with_spmm_gathers(per):
@@ -1599,20 +1786,38 @@ def with_spmm_gathers(per):
     return {**per, "gather": per.get("segment_sum", 0)}
 
 
-def zoo_batches(batch, hd):
+def zoo_batches(batch, hd, raw=None):
     """The bench batch with each zoo model's extras (the factory's host
     transforms on the same self-loop graph, without building the
-    incidence again): HNHN's norms, UniGNN's degrees."""
+    incidence again): HNHN's norms, UniGNN's degrees; with ``raw`` (the
+    bench graph without its self-loops, as the CLI hands the factory
+    every graph) also the V2V graphs of CEGCN and CEGAT and HyperGCN's
+    Laplacian (its build's host time logged)."""
     import dataclasses
 
-    from allset_tpu_torch.graph.transforms import generate_norm_hnhn, unignn_degrees
+    from allset_tpu_torch.graph import Batch
+    from allset_tpu_torch.graph.transforms import (generate_norm_hnhn, hypergcn_edge_dict,
+                                                   unignn_degrees)
+    from allset_tpu_torch.models.hypergcn import build_hypergcn_laplacian
+    from allset_tpu_torch.train.factory import v2v_incidence
 
     dev = batch.x.device
     hn = {k: torch.as_tensor(v).to(dev) for k, v in generate_norm_hnhn(hd).extras.items()}
     degV, degE = unignn_degrees(hd)
     uni = {"degV": torch.as_tensor(degV).to(dev), "degE": torch.as_tensor(degE).to(dev)}
-    return {"HNHN": dataclasses.replace(batch, extras=hn),
-            "Uni": dataclasses.replace(batch, extras=uni), "": batch}
+    out = {"HNHN": dataclasses.replace(batch, extras=hn),
+           "Uni": dataclasses.replace(batch, extras=uni), "": batch}
+    if raw is not None:
+        for m in ("CEGCN", "CEGAT"):
+            out[m] = Batch.from_incidence(raw, v2v_incidence(raw, m, bucket=1024), dev)
+        t0 = time.perf_counter()
+        lap = build_hypergcn_laplacian(raw.num_nodes, hypergcn_edge_dict(raw), raw.x,
+                                       mediators=True, seed=0, bucket=1024)
+        log(f"  V2V graph: {out['CEGAT'].inc.nnz} entries with the self-loops; HyperGCN's "
+            f"Laplacian: {lap.nnz} entries, built on the host in "
+            f"{time.perf_counter() - t0:.2f} s")
+        out["HyperGCN"] = Batch.from_incidence(raw, lap, dev)
+    return out
 
 
 def zoo_model(batches, dev, name, over, seed=0):
@@ -1621,7 +1826,8 @@ def zoo_model(batches, dev, name, over, seed=0):
     from allset_tpu_torch.models import build_model
     from allset_tpu_torch.train.factory import ExperimentConfig, zoo_config
 
-    batch = batches["HNHN" if name == "HNHN" else "Uni" if name.startswith("Uni") else ""]
+    batch = batches.get(name) or batches[
+        "HNHN" if name == "HNHN" else "Uni" if name.startswith("Uni") else ""]
     mcfg = zoo_config(ExperimentConfig(**{"mlp_hidden": 256, "dropout": 0.0,
                                           "dtype": "bfloat16", **over}), 256, 8)
     mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
@@ -1755,6 +1961,57 @@ def tied_nodes_zoo(model, batch, margin=TIE_MARGIN):
     return nodes
 
 
+def tied_nodes_ce(model, batch, margin=TIE_MARGIN):
+    """Nodes whose loss reaches a relu or leaky_relu argument within
+    ``margin`` of 0 in a forward of CEGCN, CEGAT or HyperGCN (see
+    tied_nodes). A relu tie marks its rows (nodes); a GATConv's
+    leaky_relu tie marks the entry's destination (its softmax and output
+    row); a conv's output row reads the rows of its sources, so each conv
+    carries the marks along the graph's entries (batch.inc: the V2V graph
+    or the Laplacian, self-loops included). Marked nodes stay marked."""
+    from allset_tpu_torch.models import cegnn, hypergcn
+
+    inc, N = batch.inc, batch.num_nodes
+    nodes = torch.zeros(N, dtype=torch.bool, device=batch.x.device)
+    entry = nodes.clone()
+    valid = inc.mask
+
+    def near(t):
+        return (t.detach().float().abs() < margin).reshape(t.shape[0], -1).any(dim=1)
+
+    def hop(marks):  # sources -> destinations
+        out = torch.zeros(N + 1, dtype=torch.bool, device=marks.device)
+        out[inc.edge[valid][marks[inc.node[valid]]]] = True
+        return out[:N]
+
+    orig_relu, orig_leaky = torch.relu, cegnn._leaky_relu
+
+    def relu(x):
+        nodes.logical_or_(near(x))
+        return orig_relu(x)
+
+    def leaky(x, slope):
+        entry[inc.edge[near(x) & valid]] = True
+        return orig_leaky(x, slope)
+
+    def conv_out(m, i, o):
+        nodes.copy_(nodes | hop(nodes) | entry)
+        entry.zero_()
+
+    convs = (cegnn.GCNConv, cegnn.GATConv, hypergcn.HyperGCNLayer)
+    hooks = [m.register_forward_hook(conv_out) for m in model.modules()
+             if isinstance(m, convs)]
+    torch.relu, cegnn._leaky_relu = relu, leaky
+    try:
+        with torch.no_grad():
+            model(batch, False)
+    finally:
+        torch.relu, cegnn._leaky_relu = orig_relu, orig_leaky
+        for h in hooks:
+            h.remove()
+    return nodes
+
+
 def zoo_small_parity(dev, name, over):
     """One f32 step of zoo model ``name`` (hidden 64) through the kernels
     (card) against one through the plain versions (CPU), from the same
@@ -1775,7 +2032,8 @@ def zoo_small_parity(dev, name, over):
     if name == "MLP":
         tied = torch.zeros(hd.num_nodes, dtype=torch.bool)
     else:
-        tied = torch.stack([tied_nodes_zoo(*built[d]).cpu() for d in built]).any(dim=0)
+        ties = tied_nodes_ce if name in dict(CE) else tied_nodes_zoo
+        tied = torch.stack([ties(*built[d]).cpu() for d in built]).any(dim=0)
     even = torch.arange(hd.num_nodes) % 2 == 0
     mask = even & ~tied
     out = {}
@@ -1819,14 +2077,19 @@ def zoo_protocol(card, tmp, dev):
             "--res_root", tmp]
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     out = {}
+    from allset_tpu_torch.data import load_dataset
+
+    classes = load_dataset(WALMART, feature_noise=1.0, seed=0).num_classes
     for name, flags in ZOO_CLI:
+        per = (zoo_launches(name, epoch=True) if name != "UniGAT" else  # 1 head, by group
+               lambda R: unigat_launches(R, 1, 256, classes, 4, epoch=True))
         cfg = {"method": flags[1], "mlp_hidden": 256}
         if "--UniGNN_model_name" in flags:
             cfg["unignn_model_name"] = flags[3]
         assert set(cfg) <= fields
         res, counts, peak, est = cli_peak(base + ["--epochs", "2", *flags], 2,
-                                          zoo_launches(name, epoch=True), dev, preset=False,
-                                          **cfg)
+                                          per, dev,
+                                          preset=False, **cfg)
         out[name] = counts
         log(f"  {name}: {res.metrics.shape[0]} runs in groups {res.groups}; launches {counts}; "
             f"params {res.num_params}; final test {res.best_by_valid()['final_test'][0]:.2f}; "
@@ -1835,6 +2098,82 @@ def zoo_protocol(card, tmp, dev):
         require(est >= peak, f"{name}: the trainer's estimate is below the measured peak")
     folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2", "--method", "HCHA"], 2,
                          zoo_launches("HCHA", epoch=True))
+    return out
+
+
+def reapprox_steps(raw, dev, card, steps=2):
+    """HyperGCN's reapprox path on the bench graph (f32, as the JAX model):
+    ``steps`` training steps, each forward rebuilding both layers'
+    Laplacians on the host from the current activations; launches as
+    HyperGCN's fast step (one dir_spmm per layer), finite losses; the host
+    build time per step is logged."""
+    from allset_tpu_torch.graph import Batch
+    from allset_tpu_torch.graph.transforms import hypergcn_edge_dict
+    from allset_tpu_torch.models import build_model
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.train.factory import ExperimentConfig, zoo_config
+
+    mcfg = zoo_config(ExperimentConfig(method="HyperGCN", hypergcn_fast=False, dropout=0.0), 256,
+                      8, edge_dict=hypergcn_edge_dict(raw))
+    batch = Batch.from_incidence(raw, None, dev)
+    model = build_model(mcfg, torch.Generator().manual_seed(0)).to(dev)
+    mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
+    _kernels.reset_launches()
+    losses, times = run_steps(model, batch, mask, steps)
+    counts = dict(_kernels.launches)
+    per = zoo_launches("HyperGCN")
+    for k in _kernels.KERNELS:
+        require(counts[k] == per.get(k, 0) * steps,
+                f"HyperGCN reapprox: {k} launched {counts[k]} times, expected "
+                f"{per.get(k, 0) * steps}")
+    lo = losses.cpu()
+    require(bool(torch.isfinite(lo).all()), "HyperGCN reapprox: non-finite loss")
+    log(f"  [HyperGCN reapprox] losses {[round(v, 6) for v in lo.tolist()]}; launches over "
+        f"{steps} steps {counts}; step times {[round(x * 1e3, 1) for x in times]} ms, of which "
+        f"{model.host_seconds / steps * 1e3:.1f} ms per step rebuild two Laplacians on the "
+        f"host [{card}]")
+    return counts
+
+
+def ce_protocol(card, tmp, dev):
+    """CEGCN, CEGAT and HyperGCN through the CLI on synthetic-walmart,
+    f32, --MLP_hidden 256, 20 runs x 2 epochs folded: launches per group
+    and epoch as predicted (CEGAT's routes by each group's folded width),
+    finite metrics, the peak device memory per folded run against the
+    trainer's estimate (which must not be lower); CEGAT's 2 runs folded
+    against 2 one by one; HyperGCN's reapprox path (--HyperGCN_fast false)
+    on synthetic, 2 runs x 2 epochs, each run on its own structures.
+    Returns the counts of the CEGAT run."""
+    from allset_tpu_torch.data import load_dataset
+
+    classes = load_dataset(WALMART, feature_noise=1.0, seed=0).num_classes
+    base = ["--dname", WALMART, "--dtype", "float32", "--device", "cuda", "--MLP_hidden", "256",
+            "--res_root", tmp]
+
+    def gat(R):
+        return ce_gat_launches(R, 1, 256, classes, 1, 4, epoch=True)
+
+    out = {}
+    for name in ("CEGCN", "CEGAT", "HyperGCN"):
+        per = gat if name == "CEGAT" else zoo_launches(name, epoch=True)
+        res, counts, peak, est = cli_peak(base + ["--epochs", "2", "--method", name], 2, per,
+                                          dev, preset=False, method=name, mlp_hidden=256)
+        out[name] = counts
+        log(f"  {name}: {res.metrics.shape[0]} runs in groups {res.groups}; launches {counts}; "
+            f"params {res.num_params}; final test {res.best_by_valid()['final_test'][0]:.2f}; "
+            f"{res.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included); peak "
+            f"{peak / 2**30:.3f} GiB per folded run, estimate {est / 2**30:.3f} GiB [{card}]")
+        require(est >= peak, f"{name}: the trainer's estimate is below the measured peak")
+    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2", "--method", "CEGAT"], 2, gat)
+    per_run = zoo_launches("HyperGCN", epoch=True)
+    res, counts = cli_run(["--dname", "synthetic", "--method", "HyperGCN", "--HyperGCN_fast",
+                           "false", "--runs", "2", "--epochs", "2", "--device", "cuda",
+                           "--res_root", tmp], 2,
+                          lambda R: {k: R * v for k, v in per_run.items()})
+    log(f"  HyperGCN --HyperGCN_fast false on synthetic: {res.metrics.shape[0]} runs in groups "
+        f"{res.groups}; launches {counts}; final test "
+        f"{res.best_by_valid()['final_test'][0]:.2f}; {res.wall_time / 2 * 1e3:.1f} ms per "
+        f"epoch [{card}]")
     return out
 
 
@@ -1937,10 +2276,12 @@ def main() -> int:
     check_routes(dev, gen)
 
     check_gather(dev, gen)
+    check_gather_sorted(dev, gen)
 
     log("phase 4: main path at bench size (bf16)")
     t0 = time.perf_counter()
-    hd = bench_hyperdata()
+    raw = bench_raw()
+    hd = bench_hyperdata(raw)
     batch = bench_batch(dev, hd)
     log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {batch.num_nodes}, "
         f"nnz {batch.inc.nnz}, real edges {batch.inc.real.num_edges}")
@@ -1963,18 +2304,23 @@ def main() -> int:
     ds_counts, _ = main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets)
     main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets, learn_mask=True)
     log("phase 4b: the conv zoo at bench size (bf16, 2 layers, hidden 256)")
-    batches = zoo_batches(batch, hd)
+    batches = zoo_batches(batch, hd, raw)
     timings.update(time_gather_step(batches, dev))
     log_tallies({"gather": timings["gather"]}, "UniGAT bench step")
     zoo_counts = {name: zoo_path(batches, dev, card, name, over)[0] for name, over in ZOO}
+    log("phase 4c: CEGCN, CEGAT, HyperGCN at bench size (bf16, 2 layers)")
+    timings.update(time_gather_sorted_step(batches, dev))
+    log_tallies({"gather_sorted": timings["gather_sorted"]}, "CEGAT bench step")
+    ce_counts = {name: zoo_path(batches, dev, card, name, over)[0] for name, over in CE}
     del batches
+    reapprox_steps(raw, dev, card)
     require("jax" not in sys.modules, "the port loaded jax")
 
     log("phase 5: small f32 graph, kernels against plain")
     for mode in ({}, dict(gpr=True), dict(learn_mask=True), deepsets,
                  dict(deepsets, learn_mask=True)):
         small_parity(dev, **mode)
-    for name, over in ZOO:
+    for name, over in ZOO + CE:
         zoo_small_parity(dev, name, over)
     for name, over in HUB_CONVS:
         zoo_small_parity(dev, f"{name}, no norm", over)
@@ -2007,6 +2353,7 @@ def main() -> int:
         log_tallies(ln_epoch, "AllDeepSets 20-run epoch")
         route_runs(card, tmp)
         zoo_cli_counts = zoo_protocol(card, tmp, dev)
+        ce_cli_counts = ce_protocol(card, tmp, dev)
         require("jax" not in sys.modules, "the port loaded jax")
         log("phase 7: the accuracy band (5 runs x 500 epochs)")
         band_replay(card, tmp)
@@ -2032,6 +2379,8 @@ def main() -> int:
                            "benchmarks/exp_ln.py:60", ds_counts),
         "gather": ("allset_tpu_torch/csrc/gather.cu", "benchmarks/exp_fused_gather.py:135",
                    zoo_counts["UniGAT"]),
+        "gather_sorted": ("allset_tpu_torch/csrc/gather_sorted.cu",
+                          "benchmarks/exp_fused_gather.py:76", ce_counts["CEGAT"]),
     }
     # the epilogue kernels at the other widths: the bench steps at hidden
     # 384, 512 and 1024 (the wide pair), the CLI runs at 512 and 1024
@@ -2045,7 +2394,7 @@ def main() -> int:
             sources[f"{k}_hc{HC}"] = (wide if HC > 512 else sources[k][0], sources[k][1], cnt)
     for k in ("layer_norm_fwd", "layer_norm_bwd"):  # per AllDeepSets 20-run epoch
         sources[f"{k}_epoch"] = (*sources[k][:2], ln_epoch_counts)
-    log(f"  zoo CLI launches: {zoo_cli_counts}")
+    log(f"  zoo CLI launches: {zoo_cli_counts}; CE and HyperGCN CLI launches: {ce_cli_counts}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"(the build included) [{card}]")
     kernels = []

@@ -7,7 +7,11 @@ pallas_call interprets; the file is not changed): B9 ``vmem_gather``
 ``jnp.take(mode="clip")`` with ids past both ends; its backward against
 ``jax.vjp`` of ``jnp.take``; and the wrapper's routing (the kernel for a
 CUDA tensor, the plain version for a CPU one, a launch count only where
-the kernel runs)."""
+the kernel runs). B9's plain version (``gather_sorted_fwd`` on the CPU)
+and ``gather_rows``' sorted route (an order whose ids are sorted and a
+narrow row) against ``vmem_gather`` in interpret mode, bit for bit, on
+sorted ids in runs, a hub run and clamped ids; the route's choice by the
+row's bytes and the ids' order."""
 
 import functools
 import importlib.util
@@ -21,6 +25,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from allset_tpu_torch.graph.incidence import SegOrder, chunk_plan
 from allset_tpu_torch.ops import _kernels, cuda_gather as cg
 from allset_tpu_torch.ops.segment import gather_rows
 
@@ -141,3 +146,107 @@ def test_gather_kernel_is_its_plain_version_bit_for_bit():
                 got = cg.gather_fwd_cuda(table, ids.to(idt))
                 assert _kernels.launches["gather"] == 1
                 assert torch.equal(got, cg.gather_fwd_plain(table, ids.to(idt)))
+
+
+def _sorted_ids(rows, n, seed, low=0, high=None):
+    """n sorted ids in runs (random run lengths, gaps between runs, one run
+    of a quarter of n: a hub) in [low, high)."""
+    rng = np.random.default_rng(seed)
+    high = rows if high is None else high
+    ids = np.sort(rng.integers(low, high, size=n - n // 4))
+    hub = np.full(n // 4, rng.integers(0, rows))
+    return np.sort(np.concatenate([ids, hub]))
+
+
+@pytest.mark.parametrize("dtype,F", [(np.float32, 8), (np.float32, 1), (jnp.bfloat16, 4),
+                                     (jnp.bfloat16, 128)])
+def test_plain_sorted_gather_is_vmem_gather_bit_for_bit(exp_gather, dtype, F):
+    """B9's plain version against the TPU kernel (the table held on chip),
+    bit for bit: 1,024 sorted ids in runs with a hub run of 256 and ids
+    past the last row, which the interpreted kernel's row slice clamps as
+    mode="clip" does (it wraps ids below 0, so those are held to
+    jnp.take(mode="clip") alone)."""
+    rows = 300
+    rng = np.random.default_rng(F)
+    table = np.asarray(jnp.asarray(rng.normal(size=(rows, F)).astype(np.float32), dtype))
+    ids = _sorted_ids(rows, 1024, F, high=rows + 5).astype(np.int32)
+    assert ids[-1] >= rows
+    want = np.asarray(exp_gather.vmem_gather(jnp.asarray(table), jnp.asarray(ids), chunk=128))
+    got = cg.gather_sorted_fwd(_torch(table), torch.from_numpy(ids))
+    np.testing.assert_array_equal(_np(got).view(np.uint8), want.view(np.uint8))
+    low = np.concatenate([[-7, -1], ids]).astype(np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(low), axis=0, mode="clip"))
+    got = cg.gather_sorted_fwd(_torch(table), torch.from_numpy(low))
+    np.testing.assert_array_equal(_np(got).view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype,F", [(np.float32, 8), (jnp.bfloat16, 4), (np.float32, 1)])
+def test_gather_rows_sorted_route_is_vmem_gather_bit_for_bit(exp_gather, dtype, F):
+    """gather_rows with an order whose ids are sorted (perm None: the
+    padding id ``rows`` last, as an Incidence's destinations) takes B9's
+    route for a narrow row and gives the TPU kernel's rows, bit for bit;
+    its backward is the order's K1 sum (f32 1e-6 of the vjp of take)."""
+    rows = 300
+    rng = np.random.default_rng(F + 1)
+    table = np.asarray(jnp.asarray(rng.normal(size=(rows, F)).astype(np.float32), dtype))
+    ids = np.concatenate([_sorted_ids(rows, 1000, F), np.full(24, rows)]).astype(np.int64)
+    indptr = np.searchsorted(ids[:1000], np.arange(rows + 1)).astype(np.int32)
+    order = SegOrder(None, torch.from_numpy(indptr), chunk_plan(indptr))
+    t = _torch(table)
+    nbytes = cg.row_bytes(t)
+    assert cg.gather_route(nbytes, True) == "sorted" and cg.gather_route(nbytes, False) == "rows"
+    want = np.asarray(exp_gather.vmem_gather(jnp.asarray(table), jnp.asarray(ids, jnp.int32),
+                                             chunk=128))
+    got = gather_rows(t, torch.from_numpy(ids), order)
+    np.testing.assert_array_equal(_np(got).view(np.uint8), want.view(np.uint8))
+    if dtype == np.float32:
+        g = rng.normal(size=(ids.shape[0], F)).astype(np.float32)
+        g[1000:] = 0.0  # padded entries carry no cotangent
+        tt = torch.from_numpy(table).requires_grad_()
+        gather_rows(tt, torch.from_numpy(ids), order).backward(torch.from_numpy(g))
+        _, vjp = jax.vjp(lambda x: jnp.take(x, jnp.asarray(ids), axis=0, mode="clip"),
+                         jnp.asarray(table))
+        np.testing.assert_allclose(tt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_gather_route_by_bytes_and_order():
+    """B9 for sorted ids and a row of at most NARROW_BYTES, in any dtype;
+    B10 for a wider row or ids not known to be sorted. The sorted wrapper
+    takes the plain version for a CPU table and counts no launch; its CUDA
+    wrapper refuses CPU tensors before any launch."""
+    narrow = cg.NARROW_BYTES
+    for dtype, item in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for W, ids_sorted, route in ((narrow // item, True, "sorted"),
+                                     (narrow // item + 1, True, "rows"), (1, False, "rows")):
+            nbytes = cg.row_bytes(torch.zeros(3, W, dtype=dtype))
+            assert cg.gather_route(nbytes, ids_sorted) == route
+    assert cg.row_bytes(torch.zeros(5, 2, 3)) == 24
+    _kernels.reset_launches()
+    table, ids = torch.randn(10, 3), torch.tensor([0, 0, 9, 12])
+    assert torch.equal(cg.gather_sorted_fwd(table, ids), table[[0, 0, 9, 9]])
+    assert _kernels.launches["gather_sorted"] == 0 and _kernels.launches["gather"] == 0
+    with pytest.raises(ValueError):
+        cg.gather_sorted_fwd_cuda(table, ids)
+    assert _kernels.launches["gather_sorted"] == 0
+
+
+@pytest.mark.cuda
+def test_sorted_gather_kernel_is_its_plain_version_bit_for_bit():
+    """On the card: B9 equals its plain version bit for bit (f32 and bf16,
+    rows of 4 B to 1 KiB, sorted ids with a hub run and clamps, unsorted
+    ids, int32 and int64) and counts one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for W in (1, 2, 8, 64, 512 // torch.tensor([], dtype=dtype).element_size()):
+            table = torch.randn(1000, W, generator=gen).to(dtype).cuda()
+            ids = torch.from_numpy(_sorted_ids(1000, 20_000, W, low=-3, high=1003))
+            for order in (ids, ids[torch.randperm(ids.shape[0], generator=gen)]):
+                for idt in (torch.int32, torch.int64):
+                    i = order.to(idt).cuda()
+                    _kernels.reset_launches()
+                    got = cg.gather_sorted_fwd_cuda(table, i)
+                    assert _kernels.launches["gather_sorted"] == 1
+                    assert torch.equal(got, cg.gather_sorted_fwd_plain(table, i))
