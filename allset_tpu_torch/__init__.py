@@ -16,19 +16,23 @@ and the statistical runs protocol with its CLI (``python -m
 allset_tpu_torch.cli``), through the sorted segment-sum (K1), PMA's
 score+pack (K4 global max, K5 packed table), the fused PMA epilogue
 forward and backward, for one run (K2, K3) and for R runs folded into the
-width (K2R, K3R), the LayerNorm pair (B12, B13), the row gather (B10) and
-the sorted gather through shared memory (B9).
+width (K2R, K3R), the LayerNorm pair (B12, B13), the row gather (B10),
+the sorted gather through shared memory (B9) and K1 with the gather
+inside (B11), which the exchange runs. The TPU round's other experiments
+(B1-B8) have their kernels too, run by ``experiments/``.
 
 Layout:
   graph/     Incidence (host build + sorted orders), Batch, transforms, splits
   data/      synthetic hypergraph generators and their registry
-  ops/       segment-sum, row gather, segment ops, exchange (dir_spmm),
-             PMA score+pack and epilogue, LayerNorm, kernel build
+  ops/       segment-sum (with the gather inside), row gather, segment ops,
+             exchange (dir_spmm), PMA score+pack and epilogue, LayerNorm,
+             the one-hot segment-sum and streaming experiments, kernel build
   nn/        TorchDense, NormLayer, MLP, PMA, HalfNLHconv, PReLU
   models/    SetGNN, HCHA, HNHN, UniGNN/UniGCNII, MLPModel/LegacyHGNN,
              CEGCN/CEGAT, HyperGCN
   train/     Trainer (runs protocol), presets, experiment factory
   utils/     parameter bridge from the JAX package
+  experiments/  the benchmarks/ scripts' kernels on the card, one module each
   cli.py     the experiment command line
 """
 

@@ -11,7 +11,14 @@ launches, and :func:`check` raises if it is not zero. A failed build
 raises too: there is no fallback.
 
 ``launches`` counts, per kernel, the calls that launched it. A wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else. The counters
+(``KERNELS``): K1 ``segment_sum`` and K1 with the gather inside
+``segment_sum_gather`` (``csrc/segment_sum.cu``); the PMA epilogue, its
+runs grids and the score+pack; the LayerNorm pair; the row gathers
+``gather`` and ``gather_sorted``; ``segsum_onehot``, one counter for the
+one-hot segment-sum experiments B1-B4 and B6 (``csrc/segsum_onehot.cu``);
+``stream_flat``, ``stream_dual`` and ``stream_fold``, the probes B5, B7
+and B8 (``csrc/stream.cu``).
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ _SO = osp.join(BUILD_DIR, "libkernels.so")
 
 KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
            "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack",
-           "layer_norm_fwd", "layer_norm_bwd", "gather", "gather_sorted")
+           "layer_norm_fwd", "layer_norm_bwd", "gather", "gather_sorted",
+           "segment_sum_gather", "segsum_onehot", "stream_flat", "stream_dual", "stream_fold")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -56,6 +64,9 @@ _SIGNATURES = {
     "allset_pma_wide_bwd": [P] * 17 + [I] * 9 + [P],
     "allset_gather": [P, P, I, P, LL, LL, LL, P],
     "allset_gather_sorted": [P, P, I, P, LL, LL, LL, P],
+    "allset_segment_sum_gather": [P, LL, P, I, P, I, I, I, P, P, I, P, I, P, P, I, I, P],
+    "allset_segsum_onehot": [P, P, P, LL] + [I] * 9 + [P, I, P],
+    "allset_stream": [P, P, P] + [I] * 5 + [P, P, I, P],
 }
 
 

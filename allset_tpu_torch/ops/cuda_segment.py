@@ -14,6 +14,15 @@ row width. See the source for details.
 ``segment_sum`` launches the kernel for a CUDA tensor and takes the plain
 version for a CPU tensor; any other device raises. ``segment_sum_planned``
 is a plain version that follows the kernel's order of additions.
+
+``gather_segment_sum`` is K1 with the gather inside (the counterpart of
+``benchmarks/exp_fused_gather.py::take_gather``, B11): the chunk kernel
+reads row r as ``w[clamp(ids[r])]``, scaled by a per-entry weight rounded
+to the rows' dtype, so it gives bit for bit what B10's gather, the scale
+and K1 give in three launches, without writing the [k, W] gathered table
+(counter ``segment_sum_gather``). Its plain version is
+``segment_sum_plain`` of the scaled gathered rows;
+``gather_segment_sum_planned`` follows the kernel's order of additions.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 
 from allset_tpu_torch.graph.incidence import SegPlan
 from allset_tpu_torch.ops import _kernels
+from allset_tpu_torch.ops.cuda_gather import gather_fwd_plain
 
 Tensor = torch.Tensor
 
@@ -123,3 +133,97 @@ def segment_sum(msgs: Tensor, indptr: Tensor, num_seg: int, plan: SegPlan) -> Te
     if msgs.device.type == "cpu":
         return segment_sum_plain(msgs, indptr, num_seg)
     raise ValueError(f"segment_sum: unsupported device {msgs.device}")
+
+
+def scale_rows(rows: Tensor, n: Tensor) -> Tensor:
+    """rows [k, W] (W = R*F with runs) times the per-entry weights n [k]
+    or [R, k], in rows' dtype."""
+    if n.dim() == 1:
+        return rows * n[:, None].to(rows.dtype)
+    k, R = rows.shape[0], n.shape[0]
+    return (rows.view(k, R, -1) * n.t()[:, :, None].to(rows.dtype)).view(k, -1)
+
+
+def _gathered(w: Tensor, ids: Tensor, norm) -> Tensor:
+    rows = gather_fwd_plain(w, ids)
+    return rows if norm is None else scale_rows(rows, norm)
+
+
+def gather_segment_sum_plain(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int,
+                             norm=None) -> Tensor:
+    """Plain version: K1's plain version over ``w[clamp(ids)]`` scaled by
+    ``norm`` ([k] or [R, k], in w's dtype)."""
+    return segment_sum_plain(_gathered(w, ids, norm), indptr, num_seg)
+
+
+def gather_segment_sum_planned(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int,
+                               plan: SegPlan, norm=None) -> Tensor:
+    """Plain version in the kernel's order of f32 additions."""
+    return segment_sum_planned(_gathered(w, ids, norm), indptr, num_seg, plan)
+
+
+def gather_segment_sum_cuda(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int,
+                            plan: SegPlan, norm=None, run_w=None) -> Tensor:
+    """Launch the gather inside K1 on the current stream: w [rows, W] (W %
+    8 == 0), ids [k] int32 or int64 (at least indptr[-1] of them are
+    read), norm None, [k] or [R, k]: run r's columns, ``run_w`` of them
+    (default W / R), take row r, and columns past the last run row R - 1;
+    indptr and its chunk plan as for segment_sum_cuda, all on w's device."""
+    if not (w.is_cuda and ids.is_cuda and indptr.is_cuda and w.device == ids.device == indptr.device):
+        raise ValueError("gather_segment_sum_cuda needs w, ids and indptr on one CUDA device")
+    if w.dim() != 2 or w.shape[1] % 8 != 0 or w.shape[0] == 0:
+        raise ValueError(f"w must be [rows > 0, W] with W % 8 == 0, got {tuple(w.shape)}")
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids must be 1-D int32 or int64, got {ids.dtype} {tuple(ids.shape)}")
+    if indptr.dtype != torch.int32 or indptr.shape != (num_seg + 1,):
+        raise ValueError("indptr must be int32 of length num_seg + 1")
+    if plan.chunks.device != w.device or plan.chunks.dtype != torch.int32:
+        raise ValueError("gather_segment_sum_cuda needs indptr's chunk plan, int32 on w's device")
+    W, k = w.shape[1], ids.shape[0]
+    if norm is None:
+        scale, run_w, nruns = None, W, 1
+    else:
+        nruns = 1 if norm.dim() == 1 else norm.shape[0]
+        run_w = W // nruns if run_w is None else run_w
+        if (norm.shape[-1] != k or norm.dim() > 2 or not 0 < run_w * nruns <= W
+                or norm.device != w.device):
+            raise ValueError(f"norm must be [k] or [R, k] on w's device with R runs of run_w "
+                             f"columns within W, got {tuple(norm.shape)} for k={k}, W={W}, "
+                             f"run_w={run_w}")
+        scale = norm.to(w.dtype).contiguous()
+    w, ids = w.contiguous(), ids.contiguous()
+    out = torch.empty(num_seg, W, dtype=w.dtype, device=w.device)
+    part = torch.empty(plan.num_partials, W, dtype=torch.float32, device=w.device)
+    rc = _kernels.lib().allset_segment_sum_gather(
+        w.data_ptr(), w.shape[0], ids.data_ptr(), int(ids.dtype == torch.int64),
+        None if scale is None else scale.data_ptr(), k, run_w, nruns,
+        indptr.contiguous().data_ptr(), plan.chunks.data_ptr(), plan.chunks.shape[0],
+        plan.cuts.data_ptr(), plan.cuts.shape[0], part.data_ptr(), out.data_ptr(), W,
+        _kernels.dtype_code(w), _kernels.stream_ptr(w),
+    )
+    _kernels.check(rc, "segment_sum_gather")
+    _kernels.launches["segment_sum_gather"] += 1
+    return out
+
+
+def gather_segment_sum(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int, plan: SegPlan,
+                       norm=None) -> Tensor:
+    """out[m] = sum over indptr[m] <= r < indptr[m+1] of w[clamp(ids[r])]
+    (times norm[..., r], rounded to w's dtype) -> [num_seg, W] in w's
+    dtype, f32 accumulation. On the card any W runs through the kernel: a
+    width that is not a multiple of 8 is padded with zero columns (a copy
+    of the table, not of the [k, W] rows) and sliced back, as
+    ``segment_sum`` pads, so each call is one launch; a column's sum does
+    not depend on the width, and a padded column past the last run takes
+    the last run's weight (its rows are zero)."""
+    if w.is_cuda:
+        W = w.shape[1]
+        if W % 8:
+            pad = w.new_zeros(w.shape[0], -W % 8)
+            run_w = None if norm is None else W // (1 if norm.dim() == 1 else norm.shape[0])
+            return gather_segment_sum_cuda(torch.cat([w, pad], dim=1), ids, indptr, num_seg,
+                                           plan, norm, run_w)[:, :W]
+        return gather_segment_sum_cuda(w, ids, indptr, num_seg, plan, norm)
+    if w.device.type == "cpu":
+        return gather_segment_sum_plain(w, ids, indptr, num_seg, norm)
+    raise ValueError(f"gather_segment_sum: unsupported device {w.device}")

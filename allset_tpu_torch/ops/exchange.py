@@ -10,11 +10,12 @@ with reduce 'add', 'mean' (the sum over max(count, 1)) or 'max' (0 for an
 empty segment), and ``norm`` absent (the unweighted PMA exchange) or a
 per-entry weight in execution order.
 
-'add' and 'mean': gather ``w[src]`` over the valid entries, scale by
-``norm``, then K1 by ``dst``. The backward permutes no [nnz, F] data: it
-gathers the cotangent rows ``g[dst_srcsort]`` (entries in src-sorted
-order), scales them by the norm in src-sorted order, then runs K1 over the
-src-sorted CSR ``src_indptr``:
+'add' and 'mean': one launch of K1 with the gather inside
+(``cuda_segment.gather_segment_sum``): row r of the sum by ``dst`` is
+``w[src_r]`` times ``norm_r``, read straight from the table. The backward
+permutes no [nnz, F] data: the same kernel sums the cotangent rows
+``g[dst_srcsort]`` (entries in src-sorted order), scaled by the norm in
+src-sorted order, over the src-sorted CSR ``src_indptr``:
 
     dw[s] = sum_{i: src_i = s} norm_i * g[dst_i]
 
@@ -34,11 +35,16 @@ permutes the cotangent into src-sorted order (one more B10 gather) and
 sums it with K1 over ``src_indptr``; the reduce by ``dst`` through K1
 ('add', 'mean') or a scatter max, whose backward is a row gather.
 
-``_Spmm``'s own two row gathers (forward ``w[src]``, backward
-``g[dst_srcsort]``) are B10 as well: in pairs on an H100 it took 0.480 ms
-against index_select's 1.101 per bench step (bf16) and 30.472 against
-32.136 per 20-run walmart epoch (f32) (PERF.md, PR 8;
-``chip_smoke.gather_guard``).
+Route: ``_Spmm`` runs the gather inside K1 in both directions, at every
+width and with a runs-axis norm too (one launch a pass, no B10 and no K1
+launch). It gives the bits of the pair it replaced (B10's gather, the
+scale, K1) and was chosen over that pair in alternating pairs on an
+NVIDIA H100 80GB HBM3 at 700 W: 0.4005 against 1.0210 ms over the bench
+step's four passes (bf16, width 264) and 16.019 against 50.642 ms over
+the walmart 20-run epoch's six (f32, 20 x 264), the pair writing and
+reading back the [nnz, W] gathered table that the fused kernel never
+forms (``python -m allset_tpu_torch.experiments.exp_fused_gather``;
+PERF.md §6, PR 10).
 
 Runs: every op here acts on whole rows, so a table with R runs folded into
 its width, [rows, R*W], gives each run's columns exactly what the run's
@@ -52,42 +58,28 @@ from __future__ import annotations
 import torch
 
 from allset_tpu_torch.graph.incidence import Direction, SegOrder
-from allset_tpu_torch.ops.cuda_gather import gather_fwd
-from allset_tpu_torch.ops.cuda_segment import segment_sum
+from allset_tpu_torch.ops.cuda_segment import gather_segment_sum, scale_rows
 from allset_tpu_torch.ops.segment import gather_rows, segment_reduce
 
 Tensor = torch.Tensor
-
-
-def _scale(rows: Tensor, n: Tensor) -> Tensor:
-    """rows [k, W] (W = R*F with runs) times the per-entry weights n [k]
-    or [R, k], in rows' dtype."""
-    if n.dim() == 1:
-        return rows * n[:, None].to(rows.dtype)
-    k, R = rows.shape[0], n.shape[0]
-    return (rows.view(k, R, -1) * n.t()[:, :, None].to(rows.dtype)).view(k, -1)
 
 
 class _Spmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, norm, d: Direction, norm_grad: bool):
         k = d.nnz
-        msgs = gather_fwd(w, d.src[:k])
-        if norm is not None:
-            msgs = _scale(msgs, norm[..., :k])
         ctx.d, ctx.norm_grad = d, norm_grad
         ctx.save_for_backward(w if norm_grad else None, norm)
-        return segment_sum(msgs, d.indptr, d.num_dst, d.plan)
+        return gather_segment_sum(w, d.src[:k], d.indptr, d.num_dst, d.plan,
+                                  None if norm is None else norm[..., :k])
 
     @staticmethod
     def backward(ctx, g):
         d, k = ctx.d, ctx.d.nnz
         w, norm = ctx.saved_tensors
         g = g.contiguous()
-        rows = gather_fwd(g, d.dst_srcsort[:k])
-        if norm is not None:
-            rows = _scale(rows, norm[..., d.perm_srcsort[:k]])
-        dw = segment_sum(rows, d.src_indptr, d.num_src, d.src_plan)
+        dw = gather_segment_sum(g, d.dst_srcsort[:k], d.src_indptr, d.num_src, d.src_plan,
+                                None if norm is None else norm[..., d.perm_srcsort[:k]])
         dnorm = None
         if ctx.norm_grad:
             # SDDMM in execution order, in f32 from the cotangent rounded to
@@ -107,7 +99,7 @@ def _max(w: Tensor, d: Direction, norm, norm_grad: bool) -> Tensor:
     empty segment gives 0."""
     msgs = w.index_select(0, d.src[: d.nnz])
     if norm is not None:
-        msgs = _scale(msgs, (norm if norm_grad else norm.detach())[..., : d.nnz])
+        msgs = scale_rows(msgs, (norm if norm_grad else norm.detach())[..., : d.nnz])
     idx = d.dst[: d.nnz, None].expand(-1, msgs.shape[1])
     # start from -inf, not 0: the backward splits a tie with the start
     # value too, include_self or not

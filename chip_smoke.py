@@ -33,22 +33,45 @@ Phases (any failure raises and exits non-zero):
      clamped ids, narrow rows on an unaligned view), B9 the sorted gather
      (bit for bit: f32 and bf16 rows of 2 B to 1 KiB, sorted ids with
      gaps, a hub run of 10,000 equal ids and ids past both ends, the same
-     ids unsorted, int32 and int64), and at the main
-     paths' shapes (K1 on the bench graph's real indptrs, bit for bit as
-     well; K3R at R=20 on the walmart rows, each run bit for bit against
-     K3; B12/B13 at the AllDeepSets step's [131072, 256] and [196608, 256]
-     bf16 launches and at an AllDeepSets 20-run epoch's; B10 at a UniGAT
-     step's gathers; B9 at a CEGAT step's, against B10 as well), with the
-     kernel, plain and library times and the kernel's bound;
+     ids unsorted, int32 and int64), the gather inside K1
+     (segment_sum_gather, B11's port: bit for bit against B10 + the scale
+     + K1 and against its plain version in its order; f32 and bf16, W 8,
+     264, 384 and 20 x 264, no norm, a per-entry norm and a [20, k] runs
+     norm, empty segments, a 50,000-entry hub, ids with gaps and clamped;
+     W 13 through the padding wrapper; the identity CSR against
+     index_select), the one-hot family (segsum_onehot: B1, B2 at nbuf 2,
+     3, 4, 6, B3 at nacc 1, 2, 4, B4's builds A, B, C, B6's seven modes;
+     f32 and bf16 within 1e-5 of the plain versions, rows not a multiple of
+     the chunk, segments padded to the block, msgs with and without the
+     spare chunk), the streaming probes (B5 stream_flat, B7 stream_dual,
+     B8 stream_fold with both bodies, within 1e-5), and at the main
+     paths' shapes (the gather inside K1 on _Spmm's passes of a bench step
+     and a 20-run epoch, bit for bit against B10 + K1; K1 and B10 at a
+     UniGAT step's sums and gathers, K1 bit for bit to its order; K3R at
+     R=20 on the walmart rows, each run bit for bit against K3; B12/B13 at
+     the AllDeepSets step's [131072, 256] and [196608, 256] bf16 launches
+     and at an AllDeepSets 20-run epoch's; B9 at a CEGAT step's, against
+     B10 as well), with the kernel, plain and library times and the
+     kernel's bound;
+  3b. each experiment of allset_tpu_torch.experiments (the TPU round's
+     B1-B8 and B11 scripts) through its main at its script's shapes, with
+     every launch count set to 0 just before: B1, B2, B3 and B6 on the
+     bench graph's node side, B4, B5, B7, B8 (both bodies), B11 with B10,
+     B9 and index_select on the identity CSR and _Spmm's passes, the gather
+     inside K1 against B10 + K1 in alternating pairs (the route's
+     measurement); each new kernel must launch, each held to its plain
+     version;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
      the bench step, with GPR and with LearnMask (the unsplit exchange
      over all 582,248 entries), and the AllDeepSets step on the same
      graph, also with LearnMask: the loss is finite and falls, each step
-     launches K1 4 times and K2, K3, K4, K5 twice (AllDeepSets: K1 4 and
-     B12, B13 8 times; GPR adds one B12 and one B13 for gpr_mlp), B10
-     once per K1 launch (_Spmm's gathers), and two runs from
+     launches the gather inside K1 4 times (_Spmm's passes; no B10 and no
+     K1) and K2, K3, K4, K5 twice (AllDeepSets: the gather inside K1 4 and
+     B12, B13 8 times; GPR adds one B12 and one B13 for gpr_mlp), the
+     bench step from the same state through the pair the gather inside K1
+     replaced (B10 + K1) gives bit-identical losses, and two runs from
      one state give identical losses; the bench step also at hidden 384,
      512 and 1024 (K2/K3 at those widths, timed at its shapes too); then
      the conv zoo on the same graph (2 layers, hidden 256, bf16): HCHA,
@@ -70,7 +93,8 @@ Phases (any failure raises and exits non-zero):
   6. the runs protocol through the CLI (allset_tpu_torch.cli) on
      synthetic-walmart with the tuned preset (hidden 256, 8 heads, f32):
      20 runs folded into each launch for a few
-     epochs; per group and epoch 6 K1, 4 K2R, 2 K3R, 4 K4 and 4 K5
+     epochs; per group and epoch 6 launches of the gather inside K1, 4
+     K2R, 2 K3R, 4 K4 and 4 K5
      launches whatever the number of runs (and B12/B13 where a LayerNorm
      runs outside the epilogue: GPR's gpr_mlp, a 2-layer classifier);
      finite metrics, a falling training loss; 2 runs folded against 2
@@ -82,7 +106,8 @@ Phases (any failure raises and exits non-zero):
      folded against 2 one by one); --MLP_hidden 1024 (2 runs x 1 epoch
      through the wide pair, timed at its shapes); --method AllDeepSets
      with the same preset, 20 runs x 3 epochs (6 K1, 16 B12 and 8 B13 per
-     group and epoch), then three warm runs of 4 epochs, 20 runs x 2
+     group and epoch: 6 of the gather inside K1), then three warm runs of
+     4 epochs, 20 runs x 2
      epochs with --LearnMask (the peak device memory per run of both
      against the trainer's estimate, which must not be lower) and 2
      folded against 2 one by one; one AllDeepSets epoch whose LayerNorm
@@ -100,19 +125,27 @@ Phases (any failure raises and exits non-zero):
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
 The line before the last is a JSON object of per-kernel results (K2R,
-K3R from phase 6's run, K1, K2, K3, K4, K5 from phase 4's bench step,
-B12, B13 from phase 4's AllDeepSets step and again, "_epoch", per
-AllDeepSets 20-run epoch; B10 from phase 4's UniGAT step, B9
-("gather_sorted") from its CEGAT step; K2 and K3
-again at HC 384, 512 and 1024, K2R and K3R at 512 and 1024, "_hc...",
-from the bench steps and CLI runs at those widths): launches, the
-kernel's time and its plain version's summed over a bench step or an
-epoch, the bound (the larger of the bytes over 3.35 TB/s and the
-products over the tensor cores: bf16 at 989 TFLOP/s, f32 products at
-3xTF32, 495 / 3 TFLOP/s; other arithmetic at 67 TFLOP/s) and one library
-call's time where one computes the same function (K1:
+K3R from phase 6's run, the gather inside K1 ("segment_sum_gather"), K2,
+K3, K4, K5 from phase 4's bench step and the gather inside K1 again,
+"_epoch", per 20-run epoch from phase 6's run; B12, B13 from phase 4's
+AllDeepSets step and again, "_epoch", per AllDeepSets 20-run epoch; K1
+and B10 from phase 4's UniGAT step, B9 ("gather_sorted") from its CEGAT
+step; K2 and K3 again at HC 384, 512 and 1024, K2R and K3R at 512 and
+1024, "_hc...", from the bench steps and CLI runs at those widths; the
+one-hot family ("segsum_onehot": B1; "_b2", "_b3", "_b4", "_b6": B2 at
+nbuf 2, B3 at nacc 1, B4's build A, B6's full mode) and the streaming
+probes (B5 "stream_flat", B7 "stream_dual", B8 "stream_fold", fold at
+chunk 512) from phase 3b, with its launches): launches, the kernel's
+time and its plain version's summed over a bench step or an epoch (phase
+3b: one call at the script's shapes), the bound (the larger of the bytes
+over 3.35 TB/s and the products over the tensor cores: bf16 at 989
+TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s, the one-hot family's
+f32 at two TF32 products, 495 / 2; other arithmetic at 67 TFLOP/s) and
+one library call's time where one computes the same function (K1 and the
+B1 family: torch.segment_reduce; the gather inside K1: index_select then
 torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
-B10, B9: index_select); the last line is {"ok": true, "device": {...}}.
+B10, B9: index_select; B5, B7, B8: a sum over a view); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -727,36 +760,51 @@ def time_pack(rows_list, R, dtype, dev, gen, per_launch):
     return tot
 
 
-def time_segment_sum(tally, inc, nnz, order, W, dtype, launches, dev, check_order):
-    """K1 on the real incidence's ``order`` ('edge' or 'node') indptr and
-    plan at width W: kernel, plain and library times, added to ``tally``
-    for ``launches`` launches; held to the plain version and, with
-    ``check_order``, bit for bit to the plain version in its order."""
-    from allset_tpu_torch.ops import cuda_segment as cs
+def spmm_cost(table_rows, k, nseg, W, dtype, id_item=8):
+    """(bytes, ops) of the gather inside K1: the [table_rows, W] table read
+    once and the k ids (gather_cost without output rows), every segment
+    row written once and indptr (seg_cost without message rows); one f32
+    add per gathered element."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    return (gather_cost(table_rows, 0, W, item)[0] + k * id_item
+            + seg_cost(0, nseg, W, dtype)[0]), [(k * W, "f32")]
 
-    indptr, plan = getattr(inc, f"{order}_indptr"), getattr(inc, f"{order}_plan")
-    nseg = indptr.shape[0] - 1
-    msgs = torch.randn(nnz, W, device=dev, dtype=dtype)
-    k = cuda_ms(lambda: cs.segment_sum_cuda(msgs, indptr, nseg, plan), iters=10)
-    p = cuda_ms(lambda: cs.segment_sum_plain(msgs, indptr, nseg), iters=3)
-    lib, lib_name = library_segment_sum(msgs, indptr, nseg)
-    lib_ms = cuda_ms(lib, iters=3)
-    got = cs.segment_sum_cuda(msgs, indptr, nseg, plan)
-    e, rel = scaled_err(got, cs.segment_sum_plain(msgs, indptr, nseg))
-    require(rel <= TOL[dtype][0], f"K1 disagrees at [{nnz}, {W}] by {order}: {rel}")
-    if check_order:
-        require(torch.equal(got, cs.segment_sum_planned(msgs, indptr, nseg, plan)),
-                f"K1 differs from its order of additions at [{nnz}, {W}] by {order}")
-    del got
-    tally.add(launches, k, p, e, *seg_cost(nnz, nseg, W, dtype), library_ms=lib_ms)
-    counts = (indptr[1:] - indptr[:-1]).float()
-    log(f"  K1 at [{nnz}, {W}] by {order} -> {nseg} segments: kernel {k:.3f} ms, plain "
-        f"{p:.3f} ms, {lib_name} {lib_ms:.3f} ms; max_abs_err {e:.3e} (scaled {rel:.2e})"
-        f"{', bit-equal to its order' if check_order else ''}; segment length mean "
-        f"{counts.mean().item():.2f}, max {int(counts.max().item())}; "
-        f"{plan.chunks.shape[0]} chunks, {plan.cuts.shape[0]} cut segments, "
-        f"{plan.num_partials} partial rows")
-    del msgs
+
+def time_spmm_passes(batch, W, dtype, fwd_times):
+    """The gather inside K1 on _Spmm's passes over one V->E and one E->V
+    exchange of the self-loop split at width W (forward counted
+    ``fwd_times``, backward once), on random tables: kernel, plain and
+    library times (index_select, then torch.segment_reduce, on the ids
+    clamped beforehand) and the bound, summed; each pass held bit for bit
+    to B10 + K1 and to the plain version in the kernel's order. Returns a
+    Tally."""
+    from allset_tpu_torch.experiments.exp_fused_gather import spmm_passes
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg, cuda_segment as cs
+
+    t = Tally()
+    for table, ids, ip, nseg, plan, n in spmm_passes(batch, W, dtype, fwd_times):
+        k = cuda_ms(lambda: cs.gather_segment_sum_cuda(table, ids, ip, nseg, plan), iters=10)
+        p = cuda_ms(lambda: cs.gather_segment_sum_plain(table, ids, ip, nseg), iters=3)
+        clamped = ids.clamp(0, table.shape[0] - 1)
+        lib = cuda_ms(lambda: torch.segment_reduce(table.index_select(0, clamped), "sum",
+                                                   offsets=ip, axis=0), iters=3)
+        got = cs.gather_segment_sum_cuda(table, ids, ip, nseg, plan)
+        require(torch.equal(got, cs.segment_sum_cuda(cg.gather_fwd_cuda(table, ids), ip, nseg,
+                                                     plan)),
+                f"segment_sum_gather differs from B10 + K1 at [{ids.shape[0]}, {W}]")
+        require(torch.equal(got, cs.gather_segment_sum_planned(table, ids, ip, nseg, plan)),
+                f"segment_sum_gather differs from its order of additions at [{ids.shape[0]}, {W}]")
+        e, rel = scaled_err(got, cs.gather_segment_sum_plain(table, ids, ip, nseg))
+        require(rel <= TOL[dtype][0], f"segment_sum_gather disagrees at [{ids.shape[0]}, {W}]")
+        t.add(n, k, p, e, *spmm_cost(table.shape[0], ids.shape[0], nseg, W, dtype),
+              library_ms=lib)
+        log(f"  segment_sum_gather at [{ids.shape[0]}, {W}] {str(dtype)[6:]} from {table.shape[0]} "
+            f"rows -> {nseg} segments (x{n}): kernel {k:.4f} ms, plain {p:.3f} ms, index_select + "
+            f"segment_reduce {lib:.4f} ms; bit-equal to B10 + K1 and to its order; max_abs_err "
+            f"{e:.3e} (scaled {rel:.2e})")
+        del got
+    _kernels.reset_launches()
+    return t
 
 
 def ln_cost(rows, F, xdt, ydt, bwd, need_dx=True, R=1):
@@ -828,20 +876,18 @@ def time_layer_norm(shapes, F, dev, gen):
 
 def time_main_shapes(batch, dev, gen):
     """Kernel, plain and library times and the bound at the main path's
-    shapes (bf16): K1 on the two reduce orders of the real incidence at
-    the packed width, K2/K3 at the two half-layers' row counts, K4/K5.
-    Times are summed over one training step's launches (K1: 4, K2: 2, K3:
-    2, K4: 2, K5: 2). Each kernel is held to its plain version with phase
-    3's tolerances; the reported max_abs_err is K1's and K2's output and
-    K3's dagg. No row sits at the 1e-16 floor here, as none does on the
+    shapes (bf16): the gather inside K1 on _Spmm's four passes at the
+    packed width (time_spmm_passes), K2/K3 at the two half-layers' row
+    counts, K4/K5. Times are summed over one training step's launches
+    (the gather inside K1: 4, K2: 2, K3: 2, K4: 2, K5: 2). Each kernel is
+    held to its plain version with phase 3's tolerances (the gather inside
+    K1 bit for bit to B10 + K1); the reported max_abs_err is that of the
+    gather inside K1's and K2's output and K3's dagg. No row sits at the 1e-16 floor here, as none does on the
     main path. Returns {name: Tally}."""
     from allset_tpu_torch.ops import _kernels
 
     inc = batch.inc.real
-    out = {"segment_sum": Tally()}
-    for order in ("edge", "node"):  # forward and backward of each half-layer
-        time_segment_sum(out["segment_sum"], inc, inc.nnz, order, 264, torch.bfloat16, 2, dev,
-                         True)
+    out = {"segment_sum_gather": time_spmm_passes(batch, 264, torch.bfloat16, 1)}
     out.update(time_epilogue_step(batch, dev, gen))
     # K4/K5: V->E packs the N node rows, E->V the real edges + N-slot rows
     out.update(time_pack((batch.inc.num_nodes, inc.num_edges + batch.inc.num_nodes), None,
@@ -883,6 +929,51 @@ def time_epilogue_step(batch, dev, gen, HC=256, suffix=""):
         del agg, gy, p, args, got, want
     _kernels.reset_launches()
     return out
+
+
+class Measured:
+    """A kernels-line row measured by an experiment's main (its keys as
+    Tally.row() gives them)."""
+
+    KEYS = ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "library_ms")
+
+    def __init__(self, rec):
+        self.rec = {k: rec.get(k) for k in self.KEYS}
+
+    def row(self):
+        return dict(self.rec)
+
+
+def run_experiments(bench, walmart):
+    """Phase 3b: each experiment's main (allset_tpu_torch.experiments) at
+    its script's shapes on the card, every launch count set to 0 just
+    before and read just after (each of the new kernels must have
+    launched); returns ({kernels-line name: Measured}, counts)."""
+    from allset_tpu_torch.experiments import (exp_acc2, exp_autopipe, exp_fused_gather,
+                                              exp_nbuf, exp_onehot, exp_segsum_ablate,
+                                              pallas_segsum_proto)
+    from allset_tpu_torch.ops import _kernels
+
+    a = ["--iters", "5"]
+    _kernels.reset_launches()
+    rec = {"B1": pallas_segsum_proto.main(a), "B2": exp_nbuf.main(a),
+           "B3": exp_acc2.main(a, batch=bench), "B4": exp_onehot.main(a),
+           "B6": exp_segsum_ablate.main(a, batch=bench), "B8": exp_autopipe.main(a),
+           "B8 first16": exp_autopipe.main(a + ["--body", "first16"]),
+           "B11": exp_fused_gather.main(a, bench=bench, walmart=walmart)}
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launches)
+    for k in ("segsum_onehot", "stream_flat", "stream_dual", "stream_fold", "segment_sum_gather"):
+        require(counts[k] > 0, f"phase 3b launched no {k}")
+    log(f"  _Spmm's route by the pairs: {rec['B11']['route']} (the code runs the gather inside K1)")
+    first = {v: r["variants"][0] for v, r in rec.items()}
+    b6 = {r["label"].split()[0]: r for r in rec["B6"]["variants"]}
+    out = {"segsum_onehot": first["B1"], "segsum_onehot_b2": first["B2"],
+           "segsum_onehot_b3": first["B3"], "segsum_onehot_b4": first["B4"],
+           "segsum_onehot_b6": b6["full"], "stream_flat": b6["flat"],
+           "stream_dual": b6["dual"], "stream_fold": first["B8"]}
+    _kernels.reset_launches()
+    return {k: Measured(v) for k, v in out.items()}, counts
 
 
 def log_tallies(out, per):
@@ -947,25 +1038,54 @@ def run_steps(model, batch, mask, steps):
     return torch.cat(losses), times
 
 
-PER_STEP = {"segment_sum": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2,
+# _Spmm's passes (V->E, E->V, forward and backward) each launch the gather
+# inside K1 (ops/exchange.py's route) and neither B10 nor K1
+PER_STEP = {"segment_sum_gather": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2,
             "pma_gmax": 2, "pma_pack": 2}
 # GPR: gpr_mlp's hidden LayerNorm (MLP_num_layers 2)
 PER_STEP_GPR = {**PER_STEP, "layer_norm_fwd": 1, "layer_norm_bwd": 1}
 # AllDeepSets: V->E and E->V each run f_enc and f_dec, 2-layer MLPs with an
 # input norm: 4 LayerNorms per half-layer
-PER_STEP_DEEPSETS = {"segment_sum": 4, "layer_norm_fwd": 8, "layer_norm_bwd": 8}
+PER_STEP_DEEPSETS = {"segment_sum_gather": 4, "layer_norm_fwd": 8, "layer_norm_bwd": 8}
 
 
-def main_path(batch, dev, card, per_step=None, hidden=256, **mode):
+def pair_route():
+    """A context in which ops/exchange.py's _Spmm runs the pair that the
+    gather inside K1 replaced (B10's gather, the scale, K1): main_path's
+    comparison of losses only."""
+    import contextlib
+
+    from allset_tpu_torch.ops import cuda_gather as cg, cuda_segment as cs, exchange
+
+    def pair(w, ids, indptr, nseg, plan, norm=None):
+        rows = cg.gather_fwd(w, ids)
+        return cs.segment_sum(rows if norm is None else cs.scale_rows(rows, norm), indptr, nseg,
+                              plan)
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = exchange.gather_segment_sum
+        exchange.gather_segment_sum = pair
+        try:
+            yield
+        finally:
+            exchange.gather_segment_sum = orig
+    return ctx()
+
+
+def main_path(batch, dev, card, per_step=None, hidden=256, against_pair=False, **mode):
     """8 bench steps at ``hidden`` (``mode``: the bench step,
     gpr=True, learn_mask=True, pma=False for AllDeepSets) with every launch
     count set to 0 just before, checked against ``per_step`` (default: the
     bench step's PER_STEP, as ``scripts/pair_timing.py`` calls it in any
-    tree); returns the counts and the median step time."""
+    tree); with ``against_pair`` the same steps from the same state through
+    the pair the gather inside K1 replaced (pair_route: one B10 and one K1
+    launch per pass) give bit-identical losses; returns the counts and the
+    median step time."""
     from allset_tpu_torch.ops import _kernels
 
     steps = 8
-    per_step = with_spmm_gathers(PER_STEP if per_step is None else per_step)
+    per_step = PER_STEP if per_step is None else per_step
     label = ", ".join(f"{k}={v}" for k, v in mode.items()) or "bench step"
     if hidden != 256:
         label += f", hidden {hidden}"
@@ -991,6 +1111,19 @@ def main_path(batch, dev, card, per_step=None, hidden=256, **mode):
     model2.load_state_dict(state)
     losses2, _ = run_steps(model2, batch, mask, steps)
     require(torch.equal(losses, losses2), f"{label}: two runs from one state differ")
+    if against_pair:
+        model3 = bench_model(2, batch.inc.nnz_padded, hidden, **mode).to(dev)
+        model3.load_state_dict(state)
+        _kernels.reset_launches()
+        with pair_route():
+            losses3, _ = run_steps(model3, batch, mask, steps)
+        pc = dict(_kernels.launches)
+        n = per_step["segment_sum_gather"] * steps
+        require(pc["gather"] == pc["segment_sum"] == n and pc["segment_sum_gather"] == 0,
+                f"{label}: the pair route launched {pc}")
+        require(torch.equal(losses, losses3), f"{label}: the pair route's losses differ")
+        log(f"  [{label}] the pair route (B10 + K1, {n} launches of each) from the same state: "
+            f"bit-identical losses")
     ms = statistics.median(times) * 1e3
     nnz = batch.inc.nnz
     log(f"  [{label}] two runs from one state: bit-identical losses; nnz {nnz}; median step "
@@ -1009,19 +1142,17 @@ def walmart_batch(dev):
 
 def time_runs_shapes(batch, dev, gen, R=20):
     """Kernel, plain and library times and the bound at the runs path's
-    shapes (walmart preset, f32, R runs folded): K1 on the two reduce
-    orders at width R*264 (an epoch launches it 3 times on each: train
-    forward and backward, eval forward), K2R/K3R (time_epilogue_epoch),
+    shapes (walmart preset, f32, R runs folded): the gather inside K1 on
+    _Spmm's passes at width R*264 (time_spmm_passes; an epoch runs each
+    forward twice, train and eval, and each backward once), K2R/K3R
+    (time_epilogue_epoch),
     K4/K5. Summed per epoch; each kernel held to its plain version with
     phase 3's tolerances. Returns {name: Tally}."""
     from allset_tpu_torch.ops import _kernels
 
     inc = batch.inc.real
     dt = torch.float32
-    out = {"segment_sum_runs": Tally()}
-    for order in ("edge", "node"):
-        time_segment_sum(out["segment_sum_runs"], inc, inc.nnz, order, R * 264, dt, 3, dev,
-                         False)
+    out = {"segment_sum_gather_epoch": time_spmm_passes(batch, R * 264, dt, 2)}
     out.update(time_epilogue_epoch(batch, dev, gen, R))
     pack = time_pack((batch.num_nodes, inc.num_edges + batch.num_nodes), R, dt, dev, gen,
                      per_launch=2)  # train and eval forward
@@ -1075,15 +1206,15 @@ def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix=""):
     return out
 
 
-PER_GROUP_EPOCH = {"segment_sum": 6, "pma_epilogue_fwd_runs": 4, "pma_epilogue_bwd_runs": 2,
+PER_GROUP_EPOCH = {"segment_sum_gather": 6, "pma_epilogue_fwd_runs": 4, "pma_epilogue_bwd_runs": 2,
                    "pma_epilogue_fwd": 0, "pma_epilogue_bwd": 0, "pma_gmax": 4, "pma_pack": 4}
-# AllDeepSets (walmart preset): K1 twice per half-layer forward (train and
-# eval) and once backward; 4 LayerNorms per half-layer, forward in train
-# and eval, backward once
-DEEPSETS_GROUP_EPOCH = {"segment_sum": 6, "layer_norm_fwd": 16, "layer_norm_bwd": 8}
-# the epilogue on its plain route (an rFF of 3 layers): K1, K4, K5 and no
-# K2R/K3R
-PLAIN_ROUTE_GROUP_EPOCH = {"segment_sum": 6, "pma_gmax": 4, "pma_pack": 4}
+# AllDeepSets (walmart preset): the gather inside K1 twice per half-layer
+# forward (train and eval) and once backward; 4 LayerNorms per half-layer,
+# forward in train and eval, backward once
+DEEPSETS_GROUP_EPOCH = {"segment_sum_gather": 6, "layer_norm_fwd": 16, "layer_norm_bwd": 8}
+# the epilogue on its plain route (an rFF of 3 layers): the gather inside
+# K1, K4, K5 and no K2R/K3R
+PLAIN_ROUTE_GROUP_EPOCH = {"segment_sum_gather": 6, "pma_gmax": 4, "pma_pack": 4}
 
 
 def pma_group_epoch(layers=1, ln_fwd=0, ln_bwd=0):
@@ -1114,7 +1245,7 @@ def cli_run(argv, epochs, per=None):
         require(total == counts, f"launches {counts}, expected {total} (groups {res.groups})")
         require(bool(math.isfinite(res.metrics.sum())), "non-finite metrics")
         return res, counts
-    per = with_spmm_gathers(pma_group_epoch() if per is None else per)
+    per = pma_group_epoch() if per is None else per
     got = {k: counts[k] / n for k in _kernels.KERNELS}
     want = {k: float(per.get(k, 0)) for k in _kernels.KERNELS}
     require(got == want, f"launches per group and epoch {got}, expected {want} "
@@ -1554,6 +1685,158 @@ def check_gather_sorted(dev, gen):
     _kernels.reset_launches()
 
 
+def check_segment_sum_gather(dev, gen):
+    """The gather inside K1 bit for bit against the pair it replaces (B10's
+    gather, the scale in the rows' dtype, K1) and against its plain
+    version in the kernel's order of additions: f32 and bf16; W 8, 264,
+    384 and 20 x 264 (with a runs-axis norm [20, k] too); no norm and a
+    per-entry norm; empty segments, a hub segment of 50,000 entries (cut
+    over 782 chunks), ids with gaps (a third of the table's rows never
+    read) and clamped ids at -1 and past the last row; W 13 through the
+    padding wrapper against the pair's route; the identity CSR
+    (indptr = arange(n + 1)) against index_select, as B11's take."""
+    from allset_tpu_torch.graph.incidence import chunk_plan
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg, cuda_segment as cs
+
+    rows, nseg = 3000, 3000
+    counts = torch.randint(0, 7, (nseg,), generator=gen)
+    counts[torch.rand(nseg, generator=gen) < 0.3] = 0
+    counts[1234] = 50_000
+    indptr = torch.zeros(nseg + 1, dtype=torch.int32)
+    indptr[1:] = torch.cumsum(counts, 0)
+    k = int(indptr[-1])
+    plan = chunk_plan(indptr.numpy()).to(dev)
+    used = torch.randperm(rows, generator=gen)[: 2 * rows // 3]
+    ids = used[torch.randint(0, used.shape[0], (k,), generator=gen)]
+    ids[::97], ids[1::101] = -1, rows + 5
+    ids, ip = ids.to(dev), indptr.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for W in (8, 264, 384, 20 * 264):
+            w = torch.randn(rows, W, generator=gen).to(dtype).to(dev)
+            norms = [None, torch.rand(k, generator=gen).to(dev)]
+            if W == 20 * 264:
+                norms.append(torch.rand(20, k, generator=gen).to(dev))
+            for n in norms:
+                got = cs.gather_segment_sum_cuda(w, ids, ip, nseg, plan, n)
+                rows_g = cg.gather_fwd_cuda(w, ids)
+                pair = cs.segment_sum_cuda(rows_g if n is None else cs.scale_rows(rows_g, n),
+                                           ip, nseg, plan)
+                ordered = cs.gather_segment_sum_planned(w, ids, ip, nseg, plan, n)
+                torch.cuda.synchronize()
+                what = f"{dtype}, W={W}, norm {None if n is None else tuple(n.shape)}"
+                require(torch.equal(got, pair), f"segment_sum_gather differs from B10 + K1 ({what})")
+                require(torch.equal(got, ordered),
+                        f"segment_sum_gather differs from its order of additions ({what})")
+                del got, rows_g, pair, ordered
+            log(f"  segment_sum_gather {str(dtype)[6:]:8s} W={W:4d}: bit-equal to B10 + scale + "
+                f"K1 and to the planned order (no norm, per entry{', [20, k]' if W > 384 else ''};"
+                f" {k} ids, a 50,000-entry hub, empty segments, clamped ids)")
+        w = torch.randn(rows, 13, generator=gen).to(dtype).to(dev)
+        n = torch.rand(k, generator=gen).to(dev)
+        got = cs.gather_segment_sum(w, ids, ip, nseg, plan, n)
+        pair = cs.segment_sum(cs.scale_rows(cg.gather_fwd(w, ids), n), ip, nseg, plan)
+        require(torch.equal(got, pair), f"segment_sum_gather differs at W=13 ({dtype})")
+        table = torch.randn(rows, 264, generator=gen).to(dtype).to(dev)
+        n_id = 20_011
+        idn = torch.randint(-3, rows + 3, (n_id,), generator=gen).to(dev)
+        eye = torch.arange(n_id + 1, dtype=torch.int32)
+        got = cs.gather_segment_sum_cuda(table, idn, eye.to(dev), n_id,
+                                         chunk_plan(eye.numpy()).to(dev))
+        require(torch.equal(got, table.index_select(0, idn.clamp(0, rows - 1))),
+                f"segment_sum_gather on the identity CSR differs from index_select ({dtype})")
+        log(f"  segment_sum_gather {str(dtype)[6:]:8s}: W=13 (padded) bit-equal to the pair; the "
+            f"identity CSR ({n_id} ids, clamped) bit-equal to index_select")
+    _kernels.reset_launches()
+
+
+def onehot_case(nnz, nseg, s_blk, chunk, F, dtype, dev, gen, padded=True):
+    """Sorted random ids over nseg segments padded to a multiple of s_blk
+    (padding id past the last block), msgs with the spare chunk
+    (``padded``) or ending at the last entry (the kernel's zero rows)."""
+    from allset_tpu_torch.ops import cuda_onehot as co
+
+    ids = torch.randint(0, nseg, (nnz,), generator=gen).sort().values.to(torch.int32)
+    m_pad = -(-nseg // s_blk) * s_blk
+    rows = co.pad_for_kernel(nnz, chunk) if padded else nnz
+    dst = torch.full((rows,), m_pad + 7, dtype=torch.int32)
+    dst[:nnz] = ids
+    msgs = torch.randn(rows, F, generator=gen).to(dtype)
+    return (msgs.to(dev), dst.to(dev), co.block_indptr(ids, m_pad, s_blk).to(dev), m_pad)
+
+
+def onehot_variants():
+    """(label, s_blk, keywords) of every B1-family variant: B1, B2's
+    buffers, B3's accumulator sets, B4's builds, B6's modes."""
+    from allset_tpu_torch.ops import cuda_onehot as co
+
+    return ([("B1", 64, {})] + [(f"B2 nbuf={n}", 256, {"nbuf": n}) for n in co.NBUFS]
+            + [(f"B3 nacc={n}", 256, {"nacc": n}) for n in co.NACCS]
+            + [(f"B4 build {b}", 256, {"build": b}) for b in co.BUILDS]
+            + [(f"B6 {m}", 256, {"mode": m}) for m in co.MODES])
+
+
+def check_segsum_onehot(dev, gen):
+    """Every B1-family variant against its plain version (ONEHOT_TOL):
+    f32 and bf16, 30,011 entries over 1,000 segments (padded to the
+    block), chunks of 512 rows; msgs with the spare chunk and, for the
+    first variant of each block size, ending at the last entry (rows past
+    it read as zeros with no id)."""
+    from allset_tpu_torch.experiments.common import ONEHOT_TOL
+    from allset_tpu_torch.ops import _kernels, cuda_onehot as co
+
+    for dtype, F in ((torch.float32, 192), (torch.bfloat16, 384)):
+        cases = {}
+        worst = 0.0
+        for label, s_blk, kw in onehot_variants():
+            for padded in (True, False) if (s_blk, True) not in cases else (True,):
+                key = (s_blk, padded)
+                if key not in cases:
+                    cases[key] = onehot_case(30_011, 1000, s_blk, 512, F, dtype, dev, gen, padded)
+                msgs, dst, bip, m_pad = cases[key]
+                got = co.segsum_onehot_cuda(msgs, dst, bip, m_pad, s_blk, 512, **kw)
+                want = co.segsum_onehot_plain(msgs, dst, bip, m_pad, s_blk, 512, **kw)
+                torch.cuda.synchronize()
+                _, rel = scaled_err(got, want)
+                require(rel <= ONEHOT_TOL, f"segsum_onehot {label} disagrees ({dtype}, "
+                        f"{'padded' if padded else 'unpadded'}): {rel}")
+                worst = max(worst, rel)
+        log(f"  segsum_onehot {str(dtype)[6:]:8s} F={F}: {len(onehot_variants())} variants (B1, "
+            f"B2 nbuf {co.NBUFS}, B3 nacc {co.NACCS}, B4 builds {co.BUILDS}, B6 {co.MODES}) "
+            f"within {worst:.2e} of the plain versions (tol {ONEHOT_TOL:g})")
+    _kernels.reset_launches()
+
+
+def check_stream(dev, gen):
+    """B5, B7 and B8 (fold and first 16 rows) against their plain
+    versions within 1e-5 scaled: f32 and bf16, [70 x 512 + 3, 384] rows
+    (a ragged tail past the whole blocks), chunks of 512 and 1,024."""
+    from allset_tpu_torch.ops import _kernels, cuda_stream as cst
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(70 * 512 + 3, 384, generator=gen).to(dtype).to(dev)
+        y = torch.randn(70 * 512 + 3, 384, generator=gen).to(dtype).to(dev)
+        seed = torch.randn(16, 384, generator=gen).to(dev)
+        worst = 0.0
+        for c in (512, 1024):
+            for name, fn, plain in (
+                    ("B5", lambda: cst.stream_flat(x, seed, c),
+                     lambda: cst.stream_flat_plain(x, seed, c)),
+                    ("B7", lambda: cst.stream_dual(x, y, seed, c),
+                     lambda: cst.stream_dual_plain(x, y, seed, c)),
+                    ("B8 fold", lambda: cst.stream_fold(x, seed, c),
+                     lambda: cst.stream_fold_plain(x, seed, c)),
+                    ("B8 first16", lambda: cst.stream_fold(x, seed, c, "first16"),
+                     lambda: cst.stream_fold_plain(x, seed, c, "first16"))):
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                _, rel = scaled_err(got, want)
+                require(rel <= 1e-5, f"{name} disagrees ({dtype}, chunk {c}): {rel}")
+                worst = max(worst, rel)
+        log(f"  stream {str(dtype)[6:]:8s}: B5, B7, B8 fold and first16 at chunks 512 and 1024 "
+            f"within {worst:.2e} of the plain versions (tol 1e-5)")
+    _kernels.reset_launches()
+
+
 def gather_cost(rows, n, W, item, id_item=8):
     """(bytes, ops) of B10: the [rows, W] table read once, the [n, W]
     output written once, and the ids."""
@@ -1580,26 +1863,36 @@ def time_gather(tally, table, ids, launches):
 
 
 def time_gather_step(batches, dev):
-    """B10 per UniGAT bench step: the gathers of one training step are
-    recorded (table shape and dtype, the ids), as many as zoo_launches
-    predicts, then each is timed at its shape on a random table, summed
-    per step."""
-    from allset_tpu_torch.ops import _kernels, cuda_gather as cg
+    """B10 and K1 per UniGAT bench step: the row gathers and sorted sums of
+    one training step are recorded (shapes and dtype, the ids or the
+    indptr and plan), as many as zoo_launches predicts, then each is timed
+    at its shape on random inputs, summed per step (K1 also held bit for
+    bit to its plain version in its order, with torch.segment_reduce as
+    its library call). Returns {"gather": Tally, "segment_sum": Tally}."""
+    from allset_tpu_torch.ops import _kernels, cuda_gather as cg, cuda_segment as cs
 
     model, batch, mask = zoo_model(batches, dev, "UniGAT", dict(ZOO)["UniGAT"])
-    calls, orig = [], cg.gather_fwd_cuda
+    calls, sums = [], []
+    orig, orig_sum = cg.gather_fwd_cuda, cs.segment_sum_cuda
 
     def record(table, ids):
         calls.append((tuple(table.shape), table.dtype, ids))
         return orig(table, ids)
 
-    cg.gather_fwd_cuda = record
+    def record_sum(msgs, indptr, nseg, plan):
+        sums.append((tuple(msgs.shape), msgs.dtype, indptr, nseg, plan))
+        return orig_sum(msgs, indptr, nseg, plan)
+
+    cg.gather_fwd_cuda, cs.segment_sum_cuda = record, record_sum
     try:
         run_steps(model, batch, mask, 1)
     finally:
-        cg.gather_fwd_cuda = orig
-    want = zoo_launches("UniGAT")["gather"]
-    require(len(calls) == want, f"a UniGAT step gathered {len(calls)} times, expected {want}")
+        cg.gather_fwd_cuda, cs.segment_sum_cuda = orig, orig_sum
+    want = zoo_launches("UniGAT")
+    require(len(calls) == want["gather"],
+            f"a UniGAT step gathered {len(calls)} times, expected {want['gather']}")
+    require(len(sums) == want["segment_sum"],
+            f"a UniGAT step summed {len(sums)} times, expected {want['segment_sum']}")
     del model
     t = Tally()
     groups = {}
@@ -1611,8 +1904,28 @@ def time_gather_step(batches, dev):
         k, lib = time_gather(t, table, ids, n)
         log(f"  B10 at [{ids.shape[0]}, {list(shape[1:])}] {str(dtype)[6:]} from {shape[0]} rows "
             f"(x{n} per step): kernel {k:.4f} ms, index_select {lib:.4f} ms")
+    k1 = Tally()
+    groups = {}
+    for shape, dtype, indptr, nseg, plan in sums:
+        key = (shape, dtype, indptr.data_ptr(), nseg)
+        groups.setdefault(key, [shape, dtype, indptr, nseg, plan, 0])[5] += 1
+    for shape, dtype, indptr, nseg, plan, n in groups.values():
+        msgs = torch.randn(shape, device=dev).to(dtype)
+        k = cuda_ms(lambda: cs.segment_sum_cuda(msgs, indptr, nseg, plan), iters=10)
+        p = cuda_ms(lambda: cs.segment_sum_plain(msgs, indptr, nseg), iters=3)
+        lib_fn, lib_name = library_segment_sum(msgs, indptr, nseg)
+        lib = cuda_ms(lib_fn, iters=3)
+        got = cs.segment_sum_cuda(msgs, indptr, nseg, plan)
+        require(torch.equal(got, cs.segment_sum_planned(msgs, indptr, nseg, plan)),
+                f"K1 differs from its order of additions at {list(shape)}")
+        e, rel = scaled_err(got, cs.segment_sum_plain(msgs, indptr, nseg))
+        require(rel <= TOL[dtype][0], f"K1 disagrees at {list(shape)}: {rel}")
+        k1.add(n, k, p, e, *seg_cost(int(indptr[-1]), nseg, shape[1], dtype), library_ms=lib)
+        log(f"  K1 at {list(shape)} {str(dtype)[6:]} -> {nseg} segments (x{n} per step): kernel "
+            f"{k:.4f} ms, plain {p:.3f} ms, {lib_name} {lib:.4f} ms; bit-equal to its order")
+        del msgs, got
     _kernels.reset_launches()
-    return {"gather": t}
+    return {"gather": t, "segment_sum": k1}
 
 
 def time_gather_sorted_step(batches, dev):
@@ -1702,12 +2015,13 @@ CE = (("CEGCN", dict(method="CEGCN")),
 def zoo_launches(name, epoch=False):
     """The launches the code predicts per training step (forward, backward)
     or, with ``epoch``, per group and epoch (forward twice, train and
-    eval, backward once) of a 2-conv zoo model. A dir_spmm launches K1
-    forward and K1 backward, the backward only where its input needs a
-    gradient (not UniGCN2's first conv, on the features), and B10 twice
-    more (with_spmm_gathers); the MLP one LayerNorm per step; CEGCN and
-    HyperGCN one dir_spmm per conv; UniGAT and CEGAT at the bench width as
-    unigat_launches and ce_gat_launches count them."""
+    eval, backward once) of a 2-conv zoo model. A dir_spmm pass is one
+    launch of the gather inside K1 (``segment_sum_gather``), forward and
+    backward, the backward only where its input needs a gradient (not
+    UniGCN2's first conv, on the features); the MLP one LayerNorm per
+    step; CEGCN and HyperGCN one dir_spmm per conv; UniGAT and CEGAT at
+    the bench width as unigat_launches and ce_gat_launches count them (no
+    dir_spmm: their sums and gathers are the segment ops' K1, B10, B9)."""
     nf = 2 if epoch else 1
     if name == "MLP":
         return {"layer_norm_fwd": nf, "layer_norm_bwd": 1}
@@ -1715,12 +2029,12 @@ def zoo_launches(name, epoch=False):
         over = dict(ZOO)["UniGAT"]
         return unigat_launches(1, over["heads"], over["mlp_hidden"], 8, 2, epoch)
     if name in ("CEGCN", "HyperGCN"):
-        return with_spmm_gathers({"segment_sum": 2 * nf + 2})
+        return {"segment_sum_gather": 2 * nf + 2}
     if name == "CEGAT":
         over = dict(CE)["CEGAT"]
         return ce_gat_launches(1, over["heads"], over["mlp_hidden"], 8, 1, 2, epoch)
     fwd, bwd = 4, 2 if name == "UniGCN2" else 4
-    return with_spmm_gathers({"segment_sum": nf * fwd + bwd})
+    return {"segment_sum_gather": nf * fwd + bwd}
 
 
 def sorted_route(nbytes):
@@ -1775,15 +2089,6 @@ def ce_gat_launches(R, heads, hidden, classes, out_heads, item, epoch=False):
         out[sorted_route(R * H * 4)] += 3 * nf + 1
         out[sorted_route(R * H * C * item)] += 1
     return out
-
-
-def with_spmm_gathers(per):
-    """``per`` with _Spmm's B10 launches: one per K1 launch of a dir_spmm
-    (each follows one gather, forward and backward). A ``per`` that names
-    "gather" already is kept."""
-    if "gather" in per:
-        return per
-    return {**per, "gather": per.get("segment_sum", 0)}
 
 
 def zoo_batches(batch, hd, raw=None):
@@ -2277,19 +2582,31 @@ def main() -> int:
 
     check_gather(dev, gen)
     check_gather_sorted(dev, gen)
+    check_segment_sum_gather(dev, gen)
+    check_segsum_onehot(dev, gen)
+    check_stream(dev, gen)
 
-    log("phase 4: main path at bench size (bf16)")
+    log("phase 3b: the TPU round's experiments at their scripts' shapes")
     t0 = time.perf_counter()
     raw = bench_raw()
     hd = bench_hyperdata(raw)
     batch = bench_batch(dev, hd)
-    log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {batch.num_nodes}, "
-        f"nnz {batch.inc.nnz}, real edges {batch.inc.real.num_edges}")
+    wb = walmart_batch(dev)
+    log(f"  graphs built in {time.perf_counter() - t0:.1f} s: bench nodes {batch.num_nodes}, "
+        f"nnz {batch.inc.nnz}, real edges {batch.inc.real.num_edges}; walmart nodes "
+        f"{wb.num_nodes}, nnz {wb.inc.real.nnz}")
+    t0 = time.perf_counter()
+    exp_rows, exp_counts = run_experiments(batch, wb)
+    log(f"  experiments ran in {time.perf_counter() - t0:.1f} s; launches {exp_counts}")
+    require("jax" not in sys.modules, "the port loaded jax")
+
+    log("phase 4: main path at bench size (bf16)")
     timings = time_main_shapes(batch, dev, gen)
+    timings.update(exp_rows)
     timings.update(time_layer_norm(ln_step_shapes(batch), 256, dev, gen))
     log_tallies({k: timings[k] for k in ("layer_norm_fwd", "layer_norm_bwd")},
                 "AllDeepSets bench step")
-    counts, _ = main_path(batch, dev, card, PER_STEP)
+    counts, _ = main_path(batch, dev, card, PER_STEP, against_pair=True)
     wide_counts = {}
     for HC in (384, 512, 1024):  # the 32-row tiles and the wide pair
         suffix = f"_hc{HC}"
@@ -2306,7 +2623,7 @@ def main() -> int:
     log("phase 4b: the conv zoo at bench size (bf16, 2 layers, hidden 256)")
     batches = zoo_batches(batch, hd, raw)
     timings.update(time_gather_step(batches, dev))
-    log_tallies({"gather": timings["gather"]}, "UniGAT bench step")
+    log_tallies({k: timings[k] for k in ("gather", "segment_sum")}, "UniGAT bench step")
     zoo_counts = {name: zoo_path(batches, dev, card, name, over)[0] for name, over in ZOO}
     log("phase 4c: CEGCN, CEGAT, HyperGCN at bench size (bf16, 2 layers)")
     timings.update(time_gather_sorted_step(batches, dev))
@@ -2327,10 +2644,8 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     log("phase 6: the runs protocol through the CLI (synthetic-walmart preset, f32)")
-    t0 = time.perf_counter()
-    wb = walmart_batch(dev)
-    log(f"  graph built in {time.perf_counter() - t0:.1f} s: nodes {wb.num_nodes}, "
-        f"nnz {wb.inc.real.nnz}, real edges {wb.inc.real.num_edges}")
+    log(f"  walmart graph (built in phase 3b): nodes {wb.num_nodes}, nnz {wb.inc.real.nnz}, "
+        f"real edges {wb.inc.real.num_edges}")
     del batch
     timings.update(time_runs_shapes(wb, dev, gen))
     timings.update(time_epilogue_epoch(wb, dev, gen, 20, 512, "_hc512"))
@@ -2358,9 +2673,26 @@ def main() -> int:
         log("phase 7: the accuracy band (5 runs x 500 epochs)")
         band_replay(card, tmp)
 
+    onehot = "allset_tpu_torch/csrc/segsum_onehot.cu"
+    stream = "allset_tpu_torch/csrc/stream.cu"
     sources = {  # name -> (source, TPU kernel replaced, launches of its path)
         "segment_sum": ("allset_tpu_torch/csrc/segment_sum.cu",
-                        "allset_tpu/ops/pallas_segment.py:39", counts),
+                        "allset_tpu/ops/pallas_segment.py:39", zoo_counts["UniGAT"]),
+        "segment_sum_gather": ("allset_tpu_torch/csrc/segment_sum.cu",
+                               "benchmarks/exp_fused_gather.py:213", counts),
+        "segment_sum_gather_epoch": ("allset_tpu_torch/csrc/segment_sum.cu",
+                                     "benchmarks/exp_fused_gather.py:213", runs_counts),
+        # the one-hot family per experiment (B1, B2 nbuf 2, B3 nacc 1, B4 build
+        # A, B6 full) and the streaming probes (B5, B7, B8 fold at chunk 512),
+        # with the launches of phase 3b's run of every experiment
+        "segsum_onehot": (onehot, "benchmarks/pallas_segsum_proto.py:19", exp_counts),
+        "segsum_onehot_b2": (onehot, "benchmarks/exp_nbuf.py:19", exp_counts),
+        "segsum_onehot_b3": (onehot, "benchmarks/exp_acc2.py:20", exp_counts),
+        "segsum_onehot_b4": (onehot, "benchmarks/exp_onehot.py:28", exp_counts),
+        "segsum_onehot_b6": (onehot, "benchmarks/exp_segsum_ablate.py:104", exp_counts),
+        "stream_flat": (stream, "benchmarks/exp_segsum_ablate.py:35", exp_counts),
+        "stream_dual": (stream, "benchmarks/exp_segsum_ablate.py:326", exp_counts),
+        "stream_fold": (stream, "benchmarks/exp_autopipe.py:28", exp_counts),
         "pma_epilogue_fwd": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
                              "allset_tpu/ops/pallas_pma.py:170", counts),
         "pma_epilogue_bwd": ("allset_tpu_torch/csrc/pma_epilogue.cu",
@@ -2399,7 +2731,7 @@ def main() -> int:
         f"(the build included) [{card}]")
     kernels = []
     for name, (src, rep, cnt) in sources.items():
-        base = re.sub(r"_(hc\d+|epoch)$", "", name)
+        base = re.sub(r"_(hc\d+|epoch|b\d+)$", "", name)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": cnt[base], **timings[name].row()})
     print(json.dumps({"kernels": kernels}))
