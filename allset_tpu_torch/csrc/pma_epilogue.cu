@@ -1,5 +1,6 @@
 // K3 / K3R: the fused PMA epilogue's backward (pallas_pma.py::_bwd_kernel,
-// its R = 1 and R > 1 grids). The design note is in pma_epilogue.cuh.
+// its R = 1 and R > 1 grids) at HC 64, 128, 192, 384 and 512. The design
+// note is in pma_epilogue.cuh; HC 256 runs on pma_epilogue_wg.cu.
 
 #include "pma_epilogue.cuh"
 
@@ -381,17 +382,6 @@ dw_partial_kernel(const T* __restrict__ hin, const float* __restrict__ dp, int M
       }
 }
 
-// K3c: out[run][j] = sum_p part[run][p][j], in order of p (run = blockIdx.y).
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int P,
-                                       int N, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= N) return;
-  part += (size_t)blockIdx.y * P * N;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += part[(size_t)p * N + j];
-  out[(size_t)blockIdx.y * N + j] = s;
-}
-
 template <typename T, int HC, bool DG>
 int launch_bwd_rows(const Args<T>& A, int R, int grid_rows, cudaStream_t s) {
   const size_t bytes = smem_bytes<T>(HC, agg_width<HC, DG>(A.H));
@@ -402,26 +392,34 @@ int launch_bwd_rows(const Args<T>& A, int R, int grid_rows, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// parts: which of K3a (1), K3b (2) and K3c (4) to launch (7 = all; the
+// others time one part on scratch a full launch has filled)
 template <typename T, int HC>
 int launch_bwd(const Args<T>& A, int R, float* dW, float* dsmall, float* part_w,
-               int grid_rows, int nch, int chunk_rows, cudaStream_t s) {
-  int rc;
-  if constexpr (den_may_overflow<T, HC>())
-    rc = smem_bytes<T>(HC, agg_width<HC, false>(A.H)) > SMEM_MAX
-             ? launch_bwd_rows<T, HC, true>(A, R, grid_rows, s)
-             : launch_bwd_rows<T, HC, false>(A, R, grid_rows, s);
-  else
-    rc = launch_bwd_rows<T, HC, false>(A, R, grid_rows, s);
+               int grid_rows, int nch, int chunk_rows, int parts, cudaStream_t s) {
+  int rc = (int)cudaSuccess;
+  if (parts & 1) {
+    if constexpr (den_may_overflow<T, HC>())
+      rc = smem_bytes<T>(HC, agg_width<HC, false>(A.H)) > SMEM_MAX
+               ? launch_bwd_rows<T, HC, true>(A, R, grid_rows, s)
+               : launch_bwd_rows<T, HC, false>(A, R, grid_rows, s);
+    else
+      rc = launch_bwd_rows<T, HC, false>(A, R, grid_rows, s);
+  }
   if (rc != (int)cudaSuccess) return rc;
-  constexpr int BT = HC % 128 == 0 ? 128 : 64;
-  constexpr size_t dw_bytes = dw_smem_bytes<T, BT>();
-  cudaError_t e = cudaFuncSetAttribute(dw_partial_kernel<T, BT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_bytes);
-  if (e != cudaSuccess) return (int)e;
-  const int nt = HC / BT;
-  dw_partial_kernel<T, BT><<<(unsigned)R * nch * A.L * nt * nt, DW_THREADS, dw_bytes, s>>>(
-      A.hin, A.dpbuf, A.M, HC, A.L, nch, chunk_rows, part_w);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (parts & 2) {
+    constexpr int BT = HC % 128 == 0 ? 128 : 64;
+    constexpr size_t dw_bytes = dw_smem_bytes<T, BT>();
+    e = cudaFuncSetAttribute(dw_partial_kernel<T, BT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dw_bytes);
+    if (e != cudaSuccess) return (int)e;
+    const int nt = HC / BT;
+    dw_partial_kernel<T, BT><<<(unsigned)R * nch * A.L * nt * nt, DW_THREADS, dw_bytes, s>>>(
+        A.hin, A.dpbuf, A.M, HC, A.L, nch, chunk_rows, part_w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (!(parts & 4)) return (int)cudaSuccess;
   const int nw = A.L * HC * HC, ns = 8 * HC;
   reduce_partials_kernel<<<dim3((nw + 255) / 256, R), 256, 0, s>>>(part_w, nch, nw, dW);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -444,7 +442,7 @@ int allset_pma_epilogue_bwd(const void* agg, const void* gy, const void* seed,
                             void* hin, void* dpbuf, void* part_small,
                             void* part_w, int M, int WP, int HC, int H, int L,
                             int R, int relu, int dtype, int grid_rows, int nch,
-                            int chunk_rows, void* stream) {
+                            int chunk_rows, int parts, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (M <= 0 || R <= 0) return (int)cudaGetLastError();
 #define BWD(T, HCV)                                                                         \
@@ -453,13 +451,13 @@ int allset_pma_epilogue_bwd(const void* agg, const void* gy, const void* seed,
                                            dagg, hin, dpbuf, part_small, M, WP, HC, H, L, \
                                            R, relu),                                       \
                               R, static_cast<float*>(dW), static_cast<float*>(dsmall),     \
-                              static_cast<float*>(part_w), grid_rows, nch, chunk_rows, s);
+                              static_cast<float*>(part_w), grid_rows, nch, chunk_rows, parts, s);
+  // HC 256 runs on the warpgroup kernels (pma_epilogue_wg.cu)
   if (dtype == 0) {
-    BWD(float, 64) BWD(float, 128) BWD(float, 192) BWD(float, 256) BWD(float, 384)
-    BWD(float, 512)
+    BWD(float, 64) BWD(float, 128) BWD(float, 192) BWD(float, 384) BWD(float, 512)
   } else {
     BWD(__nv_bfloat16, 64) BWD(__nv_bfloat16, 128) BWD(__nv_bfloat16, 192)
-    BWD(__nv_bfloat16, 256) BWD(__nv_bfloat16, 384) BWD(__nv_bfloat16, 512)
+    BWD(__nv_bfloat16, 384) BWD(__nv_bfloat16, 512)
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;

@@ -82,7 +82,9 @@
 // back, PERF.md.) Every item is computed alike whatever block takes it.
 //
 // K3, the backward, recomputes the forward per tile (K2 stores nothing),
-// then writes dagg = [dvals | dden | 0] in the activation dtype. The
+// then writes dagg = [dvals | dden | 0] in the activation dtype (at HC 256
+// it runs on warpgroup products, pma_epilogue_wg.cu; the K3 described
+// here serves HC 64, 128, 192, 384 and 512). The
 // parameter gradients are reduced without atomics, so they repeat bit for
 // bit:
 //   * K3a (persistent blocks over the row tiles): the row-local
@@ -653,6 +655,17 @@ __device__ __forceinline__ void fwd_chain(const Args<T>& A, int row0, const T* s
         for (int q = 0; q < 2; ++q)
           X[m][j][2 * h + q] = __fmul_rn(__fsub_rn(X[m][j][2 * h + q], mu), rstd);
     }
+}
+
+// K3c: out[run][j] = sum_p part[run][p][j], in order of p (run = blockIdx.y).
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int P,
+                                       int N, float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= N) return;
+  part += (size_t)blockIdx.y * P * N;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[(size_t)p * N + j];
+  out[(size_t)blockIdx.y * N + j] = s;
 }
 
 // run `run`'s parameters and rows

@@ -18,7 +18,10 @@ runs grids and the score+pack; the LayerNorm pair; the row gathers
 ``gather`` and ``gather_sorted``; ``segsum_onehot``, one counter for the
 one-hot segment-sum experiments B1-B4 and B6 (``csrc/segsum_onehot.cu``);
 ``stream_flat``, ``stream_dual`` and ``stream_fold``, the probes B5, B7
-and B8 (``csrc/stream.cu``).
+and B8 (``csrc/stream.cu``); ``pma_bwd_rows``, ``pma_bwd_dw`` and
+``pma_bwd_reduce``, the three parts (K3a, K3b, K3c) of K3 and K3R on the
+warpgroup route (``csrc/pma_epilogue_wg.cu``, at HC 256), counted
+besides ``pma_epilogue_bwd``/``pma_epilogue_bwd_runs``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ _SO = osp.join(BUILD_DIR, "libkernels.so")
 KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
            "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack",
            "layer_norm_fwd", "layer_norm_bwd", "gather", "gather_sorted",
-           "segment_sum_gather", "segsum_onehot", "stream_flat", "stream_dual", "stream_fold")
+           "segment_sum_gather", "segsum_onehot", "stream_flat", "stream_dual", "stream_fold",
+           "pma_bwd_rows", "pma_bwd_dw", "pma_bwd_reduce")
 launches = collections.Counter({k: 0 for k in KERNELS})
 
 _lib = None
@@ -55,7 +59,8 @@ LL = ctypes.c_longlong
 _SIGNATURES = {
     "allset_segment_sum": [P, P, P, I, P, I, P, P, I, I, P],
     "allset_pma_epilogue_fwd": [P] * 10 + [I] * 8 + [P],
-    "allset_pma_epilogue_bwd": [P] * 17 + [I] * 11 + [P],
+    "allset_pma_epilogue_bwd": [P] * 17 + [I] * 12 + [P],
+    "allset_pma_epilogue_bwd_wg": [P] * 17 + [I] * 13 + [P],
     "allset_pma_gmax": [P] * 3 + [I] * 6 + [P],
     "allset_pma_pack": [P] * 5 + [I] * 6 + [P],
     "allset_layer_norm_fwd": [P] * 4 + [LL, I, I, LL, LL, I, I, P],

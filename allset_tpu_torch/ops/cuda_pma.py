@@ -1,9 +1,11 @@
 """Fused PMA epilogue (K2 forward, K3 backward; K2R/K3R with runs).
 
 Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
-``csrc/pma_epilogue_fwd.cu`` and ``csrc/pma_epilogue.cu`` (their shared
-code and design note in ``csrc/pma_epilogue.cuh``) replace its
-``_fwd_kernel`` and ``_bwd_kernel``,
+``csrc/pma_epilogue_fwd.cu`` (K2), ``csrc/pma_epilogue_wg.cu`` (K3 at HC
+256, WG_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3 at the other widths up
+to 512; the code and design note K2 and it share in
+``csrc/pma_epilogue.cuh``)
+replace its ``_fwd_kernel`` and ``_bwd_kernel``,
 both the single-run grids (K2, K3) and the runs grids R > 1 that the
 vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
 ``agg [M, WP] = [vals HC | den H | pad]``:
@@ -14,22 +16,25 @@ vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
     y    = relu(y)                       when ``relu`` (SetGNN's folded
                                          inter-stage activation)
 
-On the H100 the rFF products bound it. At HC in {64, 128, 192, 256, 384,
-512} the kernels keep each row tile's intermediates in registers (16
-warps: two row halves, each warp an eighth of the columns), stage the
-tile's rows and the weights in shared memory, and run every product on
-the tensor cores: bf16 operands as bf16 MMA with f32 accumulation, the
-products the JAX package takes in f32 as 3xTF32 (operands split into two
-TF32 parts, three products; f32 accuracy, see the source note). A tile is
-64 rows up to HC 256 and 32 rows at HC 384 and 512 (:func:`tile_rows`),
-where 64 rows would overflow the registers and shared memory. The forward
-(K2) is a persistent kernel that fetches the next tile's rows while it
-multiplies the current one. The backward (K3) recomputes the forward per
-tile and sums the parameter gradients through per-block f32 partials and
-second reduce kernels, so they repeat bit for bit. Above 512, at any HC
-that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``), a simpler pair
-takes HC at run time: f32 FMA products on the CUDA cores, intermediates in
-global scratch, the same per-block partials.
+On the H100 the rFF products bound it. Every product runs on the tensor
+cores: bf16 operands as bf16 products with f32 accumulation, the products
+the JAX package takes in f32 as 3xTF32 (operands split into two TF32
+parts, three products; f32 accuracy, see the source notes). The backward
+(K3) recomputes the forward per tile and sums the parameter gradients
+through per-block f32 partials and second reduce kernels, so they repeat
+bit for bit. At HC 256 (WG_WIDTHS) K3 runs on Hopper's warpgroup
+products: 64-row tiles over four warpgroups of 64 columns, the weights
+streamed by bulk copies into a ring of shared memory as slabs laid out
+here (:func:`wg_weights`), the rFF inputs and output gradients written
+transposed for the dW pass (:func:`wg_chunk_plan`). K2, and K3 at the
+other widths up to 512, keep each row tile's intermediates in registers
+(16 warps: two row halves, each warp an eighth of the columns; 64-row
+tiles up to HC 256, 32-row tiles above, :func:`tile_rows`) with
+``mma.sync`` products; K2 is a persistent kernel that fetches the next
+tile's rows while it multiplies the current one.
+Above 512, at any HC that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``),
+a simpler pair takes HC at run time: f32 FMA products on the CUDA cores,
+intermediates in global scratch, the same per-block partials.
 
 With R runs folded into the width, ``agg`` is ``[M, R*WP]`` (run r in
 columns ``[r*WP, (r+1)*WP)``), ``y`` is ``[M, R*HC]``, every parameter
@@ -43,13 +48,11 @@ The plain versions below follow the kernel's math (``_fwd_recompute`` and
 versions apply them run by run. The plain versions take any HC, head
 count and rFF depth L. For CUDA tensors :func:`epilogue_route` picks the
 route by shape: the kernels where :func:`epilogue_supported` holds (HC
-in {64, 128, 192, 256, 384, 512}, or a multiple of 128 above 512 within
-the JAX kernel's own VMEM budget), the plain versions where the JAX
-package's gate composes the epilogue too (an rFF of L outside (1, 2), HC
-not a multiple of 128), and a raise for the rest: widths whose JAX kernel
-exceeds its scoped-VMEM cap (:func:`jax_vmem_need`), so that the JAX
-package cannot run them either. CPU tensors take the plain versions; any
-other device raises.
+in {64, 128, 192, 256, 384, 512}, or any multiple of 128 above 512), the
+plain versions where the JAX package's gate composes the epilogue too (an
+rFF of L outside (1, 2), HC not a multiple of 128), and a raise for the
+rest (heads not dividing HC, a packed width the kernels' rows refuse).
+CPU tensors take the plain versions; any other device raises.
 """
 
 from __future__ import annotations
@@ -67,12 +70,15 @@ KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)  # the HC the tiled kernels take
 WIDE_G = 264  # blocks of the wide kernels' row grid: 2 waves of 132
 WIDE_TR = 16  # rows per tile of the wide kernels
 WIDE_NBUF = 10  # [WIDE_TR, HC] f32 tile buffers per wide block
-# the JAX kernel's scoped-VMEM cap (allset_tpu/ops/pallas_pma.py::
-# _compiler_params) and the row block its callers pass
-JAX_VMEM_CAP = 110 * 2**20
-JAX_BLK = 1024
 _BWD_MAX_BLOCKS = 264  # row-kernel blocks (= small-grad partials) of K3: 2 waves of 132
 DW_PARTIALS = 64  # row chunks of K3, each a dW partial (part_w below)
+# K3/K3R on the warpgroup kernels (csrc/pma_epilogue_wg.cu) at these widths:
+# in alternating pairs on the card (scripts/k3_parts.py) they beat the
+# 16-warp K3 at HC 256 and lost to it at 64, 128 and 192
+WG_WIDTHS = (256,)
+WG_BLOCKS = 132  # K3a's persistent blocks per run: one per SM of an H100
+WG_TILE = 64  # rows per K3a tile
+WG_KSF, WG_KSB = 16, 64  # k rows per weight slab: f32 (TF32 hi and lo), bf16
 
 
 def _ln(x, g, b):
@@ -138,6 +144,16 @@ def epilogue_bwd_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
     """Plain PyTorch version of K3 -> (dagg [M, WP] in agg.dtype,
     dW [L, HC, HC] f32, dsmall [8, HC] f32 = dseed, dg0, db0, dg1, db1,
     dbrff[0..L), zero rows)."""
+    dagg, hins, dps, dsmall = bwd_rows_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H,
+                                             relu)
+    dW = [_mm(h.float().T, dp) for h, dp in zip(hins, dps)]
+    return dagg, torch.stack(dW), dsmall
+
+
+def bwd_rows_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
+    """Plain PyTorch version of K3's row pass (K3a) -> (dagg, the rFF
+    inputs h_l and output gradients dp_l, one [M, HC] each per layer,
+    dsmall); dW_l = h_l^T dp_l is K3b's and K3c's."""
     cdt = agg.dtype
     M, WP = agg.shape
     HC = seed.shape[0]
@@ -149,11 +165,11 @@ def epilogue_bwd_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
     dout2, dg1, db1 = _ln_bwd(gy, r["xhat1"], r["rstd1"], g1)
     dz = dout2
     dp = dout2 * (r["pres"][-1] > 0)
-    dbr, dW = [None] * L, [None] * L
+    dbr, hins, dps = [None] * L, [None] * L, [None] * L
     for l in range(L - 1, -1, -1):
         dbr[l] = dp.sum(dim=0)
-        hin = r["zb"] if l == 0 else r["pres"][l - 1].clamp_min(0.0).to(cdt)
-        dW[l] = _mm(hin.float().T, dp)
+        hins[l] = r["zb"] if l == 0 else r["pres"][l - 1].clamp_min(0.0).to(cdt)
+        dps[l] = dp
         dh = _mm(dp, Wrff[l].float().T)
         if l > 0:
             dp = dh * (r["pres"][l - 1] > 0)
@@ -170,7 +186,7 @@ def epilogue_bwd_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
     dagg = torch.cat([dv, dden, pad], dim=1).to(cdt)
     zeros = [torch.zeros(HC, device=agg.device)] * (3 - L)
     dsmall = torch.stack([dseed, dg0, db0, dg1, db1, *dbr, *zeros])
-    return dagg, torch.stack(dW), dsmall
+    return dagg, hins, dps, dsmall
 
 
 def epilogue_fwd_runs_plain(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
@@ -206,51 +222,35 @@ def tile_rows(HC: int) -> int:
     return 64 if HC <= 256 else 32 if HC <= 512 else WIDE_TR
 
 
-def jax_vmem_need(HC: int, WP: int, L: int, itemsize: int) -> int:
-    """Bytes of scoped VMEM the JAX kernel asks for at a row block of
-    JAX_BLK (``_compiler_params``): six f32 [blk, HC] intermediates, three
-    [blk, WP] blocks, three f32 [L, HC, HC] weight and accumulator
-    blocks. Above JAX_VMEM_CAP the JAX kernel cannot run."""
-    return 6 * JAX_BLK * HC * 4 + 3 * JAX_BLK * WP * itemsize + 3 * L * HC * HC * 4
-
-
 def wide(HC: int) -> bool:
     """HC is served by the wide pair (csrc/pma_epilogue_wide.cu)."""
     return HC > KERNEL_WIDTHS[-1]
 
 
-def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1,
-                       itemsize: int = 4) -> bool:
+def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1) -> bool:
     """The shapes K2/K3 (R = 1) and K2R/K3R (R runs) take: HC in
-    KERNEL_WIDTHS, or a multiple of 128 above them whose JAX kernel fits
-    its VMEM cap (:func:`jax_vmem_need` at the activation's ``itemsize``);
-    H dividing HC, a packed width WP >= HC + H of whole 16-byte rows (WP %
-    8 == 0), an rFF of L in (1, 2) layers and at most 65535 runs."""
-    width_ok = HC in KERNEL_WIDTHS or (
-        wide(HC) and HC % 128 == 0 and jax_vmem_need(HC, WP, L, itemsize) <= JAX_VMEM_CAP)
+    KERNEL_WIDTHS or any multiple of 128 above them (the wide pair, whose
+    intermediates live in global scratch: no width limit of its own), H
+    dividing HC, a packed width WP >= HC + H of whole 16-byte rows (WP % 8
+    == 0), an rFF of L in (1, 2) layers and at most 65535 runs."""
+    width_ok = HC in KERNEL_WIDTHS or (wide(HC) and HC % 128 == 0)
     return (width_ok and H >= 1 and HC % H == 0
             and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and 1 <= R <= 65535)
 
 
-def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1, itemsize: int = 4) -> str:
+def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1) -> str:
     """The epilogue's route on the card: 'kernel' where
     :func:`epilogue_supported` holds; 'plain' where the JAX package's gate
     (``allset_tpu/ops/pallas_pma.py::epilogue_active``) composes the
     epilogue as well, an rFF of L outside (1, 2) or HC not a multiple of
-    128; a raise for any other shape: a width whose JAX kernel needs more
-    than its scoped-VMEM cap, where the JAX package cannot run either
-    (ROADMAP Queue 3)."""
-    if epilogue_supported(HC, H, L, WP, R, itemsize):
+    128; a raise for any other shape, which the kernels' layout refuses."""
+    if epilogue_supported(HC, H, L, WP, R):
         return "kernel"
     if L not in (1, 2) or HC % 128 != 0:
         return "plain"
-    need = jax_vmem_need(HC, WP, L, itemsize)
     raise ValueError(
-        f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}, itemsize "
-        f"{itemsize}: the JAX kernel needs 6*{JAX_BLK}*{HC}*4 + 3*{JAX_BLK}*{WP}*{itemsize} + "
-        f"3*{L}*{HC}*{HC}*4 = {need} bytes ({need / 2**20:.1f} MiB) of scoped VMEM, above its "
-        f"cap of {JAX_VMEM_CAP // 2**20} MiB, so it cannot run this shape either; the kernels "
-        "also need H dividing HC, WP >= HC + H, WP % 8 == 0 and runs <= 65535 (ROADMAP Queue 3)"
+        f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}: the kernels need "
+        "H dividing HC, WP >= HC + H, WP % 8 == 0 and runs <= 65535"
     )
 
 
@@ -267,11 +267,11 @@ def _check_cuda_args(agg, seed, Wrff, H, R):
     WP = W // runs
     if not (seed.shape == lead + (HC,) and Wrff.shape == lead + (L, HC, HC)
             and W == runs * WP
-            and epilogue_supported(HC, H, L, WP, runs, agg.element_size())):
+            and epilogue_supported(HC, H, L, WP, runs)):
         raise ValueError(
             f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
             f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC in "
-            f"{KERNEL_WIDTHS} or a multiple of 128 above within the JAX kernel's VMEM cap, "
+            f"{KERNEL_WIDTHS} or a multiple of 128 above, "
             "H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte rows), L in (1, 2), "
             "runs <= 65535)"
         )
@@ -289,6 +289,86 @@ def _weights(Wrff, cdt):
     if cdt == torch.float32:
         return Wf, None
     return Wf, Wrff.to(cdt).transpose(-1, -2).contiguous()
+
+
+def tf32_round(x: Tensor) -> Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10 explicit
+    mantissa bits, ties away from zero, the low 13 bits of the f32 zero
+    (finite inputs)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: Tensor):
+    """(hi, lo): x = hi + lo up to |x - hi - lo| <= 2^-22 |x|, both TF32
+    (the 3xTF32 products' split; the kernels split A the same way with
+    cvt.rna)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def wg_slabs(B: Tensor, ks: int, split: bool) -> Tensor:
+    """A K-major operand B [..., N, K] (row n holds B's column n) as the
+    warpgroup kernels' slabs: [..., K / ks, parts, ks / V, N / 8, 8, V]
+    with V = 16 bytes of elements, the 8 x 16-byte core matrices that
+    wgmma reads without swizzle, one slab of ks k-rows after another; with
+    ``split`` the f32 values' TF32 hi and lo parts (two parts), else B
+    itself."""
+    *lead, N, K = B.shape
+    V = 16 // B.element_size()
+    parts = tf32_split(B) if split else (B,)
+    nd = len(lead)
+    perm = (*range(nd), nd + 2, nd + 3, nd, nd + 1, nd + 4)
+    blocks = [p.reshape(*lead, N // 8, 8, K // ks, ks // V, V).permute(perm) for p in parts]
+    return torch.stack(blocks, dim=nd + 1).contiguous()
+
+
+def wg_weights(Wrff: Tensor, cdt):
+    """The rFF weights [..., L, HC, HC] ([in][out]) as K3a's slabs: the
+    forward products' B = W^T (bf16 on the bf16 path, else TF32 hi | lo;
+    WG_KSB or WG_KSF k-rows a slab) and the backward's dp @ W^T, B = W
+    (TF32 hi | lo, WG_KSF a slab)."""
+    Wt = Wrff.transpose(-1, -2)
+    if cdt == torch.float32:
+        wf = wg_slabs(Wt.float(), WG_KSF, True)
+    else:
+        wf = wg_slabs(Wt.to(cdt), WG_KSB, False)
+    return wf, wg_slabs(Wrff.float(), WG_KSF, True)
+
+
+def dw_chunk_plan(rows: int):
+    """(chunk_rows, nch): K3b's row chunks, each a dW partial: at most
+    DW_PARTIALS chunks of chunk_rows, a multiple of 32, the last one
+    short."""
+    chunk_rows = -(-(-(-max(rows, 1) // DW_PARTIALS)) // 32) * 32
+    return chunk_rows, max(1, -(-rows // chunk_rows))
+
+
+def wg_chunk_plan(M: int):
+    """(Mp, chunk_rows, nch) of K3b on the warpgroup route: the transposed
+    scratch holds Mp = M rounded up to 8 rows (16-byte rows of both
+    dtypes; rows past M are zeros), cut by :func:`dw_chunk_plan`."""
+    Mp = -(-max(M, 1) // 8) * 8
+    return (Mp, *dw_chunk_plan(Mp))
+
+
+def bwd_scratch_bytes(M: int, HC: int, L: int, itemsize: int) -> int:
+    """Bytes of K3's scratch per run at M rows: the stored rFF inputs and
+    output gradients (transposed on the warpgroup route; f32 in the wide
+    pair), the small vectors' and dW's partials (the wide pair: its tile
+    buffers)."""
+    if HC in WG_WIDTHS:
+        Mp, _, nch = wg_chunk_plan(M)
+        tables = L * HC * Mp * (itemsize + 4)
+        blocks = min(-(-M // WG_TILE), WG_BLOCKS)
+    elif wide(HC):
+        G = _wide_grid(M)
+        return L * HC * M * 8 + G * (WIDE_NBUF * WIDE_TR + 8) * HC * 4
+    else:
+        tables = L * HC * M * (itemsize + 4)
+        nch = dw_chunk_plan(M)[1]
+        blocks = min(-(-M // tile_rows(HC)), _BWD_MAX_BLOCKS)
+    return tables + 4 * (blocks * 8 * HC + nch * L * HC * HC)
 
 
 def _ptr(t):
@@ -319,6 +399,21 @@ def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
 def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     """K3 (R=None) or K3R (R runs): the row pass, dW partials and the two
     final reduces, on the current stream."""
+    call, outs = _bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R)
+    call()
+    return outs
+
+
+ALL_PARTS = 7  # K3a (1), K3b (2), K3c (4)
+
+
+def _bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
+    """K3's (R=None) or K3R's outputs and scratch, and ``call(parts)``,
+    which launches K3a (parts & 1), K3b (2) and K3c (4) on them, in that
+    order; returns (call, (dagg, dW, dsmall)). ``call()`` is one whole
+    launch. Other masks serve timing only (chip_smoke.py,
+    scripts/k3_parts.py): a single part, after a whole launch, times that
+    part alone. The wide pair takes the whole launch only."""
     M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
     runs = 1 if R is None else R
     lead = () if R is None else (R,)
@@ -326,14 +421,15 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     agg = agg.contiguous()
     gy = gy.to(cdt).contiguous()
     if wide(HC):
-        return _launch_wide_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
-                                lead, M, WP, HC, L)
+        return _wide_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
+                               lead, M, WP, HC, L)
+    if HC in WG_WIDTHS:
+        return _wg_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
+                             lead, M, WP, HC, L)
     Wf, Wbt = _weights(Wrff, cdt)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     grid_rows = max(1, min(-(-M // tile_rows(HC)), _BWD_MAX_BLOCKS))
-    chunk_rows = -(-max(M, 1) // DW_PARTIALS)
-    chunk_rows = -(-chunk_rows // 32) * 32
-    nch = max(1, -(-M // chunk_rows))
+    chunk_rows, nch = dw_chunk_plan(M)
     f32 = torch.float32
     dagg = torch.empty(M, runs * WP, dtype=cdt, device=dev)
     dW = torch.empty(lead + (L, HC, HC), dtype=f32, device=dev)
@@ -344,17 +440,52 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     dpbuf = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
     part_small = torch.empty(runs, grid_rows, 8, HC, dtype=f32, device=dev)
     part_w = torch.empty(runs, nch, L, HC, HC, dtype=f32, device=dev)
-    rc = _kernels.lib().allset_pma_epilogue_bwd(
-        agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(),
-        b0.data_ptr(), Wf.data_ptr(), _ptr(Wbt), brff.data_ptr(),
-        g1.data_ptr(), b1.data_ptr(), dagg.data_ptr(), dW.data_ptr(),
-        dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
-        part_small.data_ptr(), part_w.data_ptr(), M, WP, HC, H, L, runs,
-        int(relu), _kernels.dtype_code(agg), grid_rows, nch, chunk_rows,
-        _kernels.stream_ptr(agg),
-    )
-    _kernels.check(rc, "pma_epilogue_bwd")
-    return dagg, dW, dsmall
+
+    def call(parts=ALL_PARTS):
+        rc = _kernels.lib().allset_pma_epilogue_bwd(
+            agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(),
+            b0.data_ptr(), Wf.data_ptr(), _ptr(Wbt), brff.data_ptr(),
+            g1.data_ptr(), b1.data_ptr(), dagg.data_ptr(), dW.data_ptr(),
+            dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
+            part_small.data_ptr(), part_w.data_ptr(), M, WP, HC, H, L, runs,
+            int(relu), _kernels.dtype_code(agg), grid_rows, nch, chunk_rows, parts,
+            _kernels.stream_ptr(agg),
+        )
+        _kernels.check(rc, "pma_epilogue_bwd")
+    return call, (dagg, dW, dsmall)
+
+
+def _wg_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead, M, WP,
+                  HC, L):
+    """K3/K3R at WG_WIDTHS (_bwd_setup's contract): K3a on the warpgroup
+    products, K3b over the transposed scratch (wg_chunk_plan), K3c."""
+    dev, cdt, f32 = agg.device, agg.dtype, torch.float32
+    wf, wb = wg_weights(Wrff, cdt)
+    seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
+    Mp, chunk_rows, nch = wg_chunk_plan(M)
+    grid_rows = max(1, min(-(-M // WG_TILE), WG_BLOCKS))
+    dagg = torch.empty(M, runs * WP, dtype=cdt, device=dev)
+    dW = torch.empty(lead + (L, HC, HC), dtype=f32, device=dev)
+    dsmall = torch.empty(lead + (8, HC), dtype=f32, device=dev)
+    hT = torch.empty(runs, L, HC, Mp, dtype=cdt, device=dev)
+    dpT = torch.empty(runs, L, HC, Mp, dtype=f32, device=dev)
+    part_small = torch.empty(runs, grid_rows, 8, HC, dtype=f32, device=dev)
+    part_w = torch.empty(runs, nch, L, HC, HC, dtype=f32, device=dev)
+
+    def call(parts=ALL_PARTS):
+        rc = _kernels.lib().allset_pma_epilogue_bwd_wg(
+            agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
+            wf.data_ptr(), wb.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+            dagg.data_ptr(), dW.data_ptr(), dsmall.data_ptr(), hT.data_ptr(), dpT.data_ptr(),
+            part_small.data_ptr(), part_w.data_ptr(), M, Mp, WP, HC, H, L, runs, int(relu),
+            _kernels.dtype_code(agg), grid_rows, nch, chunk_rows, parts,
+            _kernels.stream_ptr(agg),
+        )
+        _kernels.check(rc, "pma_epilogue_bwd (warpgroup)")
+        for bit, name in ((1, "pma_bwd_rows"), (2, "pma_bwd_dw"), (4, "pma_bwd_reduce")):
+            if parts & bit:
+                _kernels.launches[name] += 1
+    return call, (dagg, dW, dsmall)
 
 
 def _wide_grid(M: int) -> int:
@@ -380,10 +511,11 @@ def _launch_wide_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, M, WP
     return out
 
 
-def _launch_wide_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead, M, WP,
-                     HC, L):
-    """K3/K3R above HC 512: the row pass, dW = hin^T dp and the small
-    vectors' reduce. The products through W^T take the f32 weights."""
+def _wide_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead, M, WP,
+                    HC, L):
+    """K3/K3R above HC 512 (_bwd_setup's contract): the row pass, dW =
+    hin^T dp and the small vectors' reduce. The products through W^T take
+    the f32 weights."""
     dev, cdt, f32 = agg.device, agg.dtype, torch.float32
     Wf = Wrff.to(cdt).float().contiguous()
     WT = Wrff.float().transpose(-1, -2).contiguous()
@@ -396,15 +528,19 @@ def _launch_wide_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, l
     dpbuf = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
     tile = torch.empty(runs, G, WIDE_NBUF, WIDE_TR, HC, dtype=f32, device=dev)
     part = torch.empty(runs, G, 8, HC, dtype=f32, device=dev)
-    rc = _kernels.lib().allset_pma_wide_bwd(
-        agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
-        Wf.data_ptr(), WT.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-        dagg.data_ptr(), dW.data_ptr(), dsmall.data_ptr(), hin.data_ptr(), dpbuf.data_ptr(),
-        tile.data_ptr(), part.data_ptr(), M, WP, HC, H, L, runs, int(relu),
-        _kernels.dtype_code(agg), G, _kernels.stream_ptr(agg),
-    )
-    _kernels.check(rc, "pma_epilogue_bwd (wide)")
-    return dagg, dW, dsmall
+
+    def call(parts=ALL_PARTS):
+        if parts != ALL_PARTS:
+            raise ValueError(f"the wide pair launches whole, not parts {parts}")
+        rc = _kernels.lib().allset_pma_wide_bwd(
+            agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
+            Wf.data_ptr(), WT.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+            dagg.data_ptr(), dW.data_ptr(), dsmall.data_ptr(), hin.data_ptr(),
+            dpbuf.data_ptr(), tile.data_ptr(), part.data_ptr(), M, WP, HC, H, L, runs,
+            int(relu), _kernels.dtype_code(agg), G, _kernels.stream_ptr(agg),
+        )
+        _kernels.check(rc, "pma_epilogue_bwd (wide)")
+    return call, (dagg, dW, dsmall)
 
 
 def epilogue_fwd_cuda(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
@@ -443,7 +579,7 @@ def _use_kernel(agg, seed, Wrff, H) -> bool:
     if agg.is_cuda:
         R = seed.shape[0] if seed.dim() == 2 else 1
         return epilogue_route(seed.shape[-1], H, Wrff.shape[-3], agg.shape[1] // R,
-                              R, agg.element_size()) == "kernel"
+                              R) == "kernel"
     if agg.device.type == "cpu":
         return False
     raise ValueError(f"pma epilogue: unsupported device {agg.device}")

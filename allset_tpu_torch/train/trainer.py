@@ -40,21 +40,26 @@ from allset_tpu_torch.models import (CEConfig, HCHAConfig, HNHNConfig, HyperGCNC
                                      UniGNNConfig, build_model)
 from allset_tpu_torch.models.hypergcn import laplacian_nnz_bound
 from allset_tpu_torch.nn.modules import packed_width
-from allset_tpu_torch.ops.cuda_pma import DW_PARTIALS
+from allset_tpu_torch.ops import cuda_pma
 from allset_tpu_torch.train.factory import make_optimizer
 
 
+# [rows, WP] tables an AllSetTransformer half-layer keeps per run at its
+# peak, and [N, WP] node tables besides (Trainer._bytes_per_run)
+SETGNN_TABLES = 4
+SETGNN_NODE_TABLES = 1
 # [rows, hid] tables an AllDeepSets layer keeps per run at its peak
 # (Trainer._bytes_per_run)
 DEEPSETS_TABLES = 14
 # the conv zoo's tables per run at its peak, two layers: (gathered
 # [nnz_pad, width] tables, f32 [rows, width] tables), rows the nodes plus the
-# exchange's hyperedge rows (Trainer._zoo_bytes_per_run). A weighted
-# dir_spmm (CEGCN, HyperGCN) holds the gathered rows and their scaled copy;
-# CEGAT's backward holds the gathered rows and the expanded attention, the
+# exchange's hyperedge rows (Trainer._zoo_bytes_per_run). dir_spmm gathers
+# inside K1 and forms no [nnz, width] table, so the models built on it
+# count row tables only, fitted to their measured peaks; CEGAT's and
+# UniGAT's backward hold the gathered rows and the expanded attention, the
 # cotangent gathered by destination, masked, and the two products
-ZOO_TABLES = {"HCHA": (1, 2), "HNHN": (1, 4), "UniGNN": (1, 3), "UniGAT": (6, 3),
-              "UniGCNII": (1, 5), "CEGCN": (2, 2), "CEGAT": (6, 3), "HyperGCN": (2, 8)}
+ZOO_TABLES = {"HCHA": (0, 3), "HNHN": (0, 5), "UniGNN": (0, 3), "UniGAT": (6, 3),
+              "UniGCNII": (0, 6), "CEGCN": (0, 3), "CEGAT": (6, 3), "HyperGCN": (0, 8)}
 # CEGAT's f32 [nnz_pad, heads] score tables per conv at its peak (the two
 # gathered scores, their sum, leaky_relu, the expanded max and denominator,
 # exp, the softmax, its dropout mask and the masked softmax, and their
@@ -203,25 +208,27 @@ class Trainer:
         """Device bytes one folded run adds at its peak: the classifier's
         hidden and output tables; under GPR the f32 [N, hid, L+1] stack and
         about four [N, hid] f32 tables of gpr_mlp; LearnMask's importance
-        and its two Adam moments. Per half-layer of AllSetTransformer: one
-        gathered [nnz, WP] message table, about three [rows, WP]-wide
-        tables kept for the backward (the pack's GEMM output, the
-        aggregate, the output) and K3R's per-run scratch (the rFF inputs
-        and output gradients) with, once, its DW_PARTIALS f32 [L, HC, HC]
-        dW partials (134 MB at HC 512). Of AllDeepSets: one gathered [nnz,
-        hid] table and DEEPSETS_TABLES [rows, hid] tables per layer (f_enc's and
-        f_dec's activations, the LayerNorm inputs and dropout masks kept
-        for the backward, the reduce's output), and under LearnMask the
-        SDDMM's gathered rows and product, three f32 [nnz, hid] tables.
-        The exchange is unsplit under LearnMask or without the self-loop
-        split: then the V->E output has one row per hyperedge instead of
-        the N-slot layout's real edges + N. On an H100 at the walmart
-        preset in f32 this gives 1.81, 2.32, 1.91 and 1.21 GiB for
-        AllSetTransformer (the preset, GPR, LearnMask, no self-loops)
-        against measured peaks of 1.69, 2.18, 1.78 and 1.09 GiB per run,
-        3.610 GiB at --MLP_hidden 512 against a measured 3.345, and 3.740
-        GiB for AllDeepSets against a measured 3.634 (PERF.md has the
-        LearnMask figure). The conv zoo: :meth:`_zoo_bytes_per_run`."""
+        and its two Adam moments. Per half-layer of AllSetTransformer:
+        SETGNN_TABLES [rows, WP]-wide tables kept for the backward (the
+        pack's GEMM output, the aggregate, the output, their gradients'
+        share), SETGNN_NODE_TABLES [N, WP] tables, and K3R's scratch
+        (``cuda_pma.bwd_scratch_bytes`` at the half-layer with more rows:
+        the rFF inputs and output gradients, the small vectors' and dW's
+        partials); dir_spmm gathers inside K1, so no [nnz, WP] message
+        table. The node tables are fitted to the measured peaks: without
+        the self-loops the V->E half-layer has fewer rows than the nodes,
+        and the peak falls less than the rows. Of AllDeepSets: one [nnz, hid] table and DEEPSETS_TABLES
+        [rows, hid] tables per layer (f_enc's and f_dec's activations, the
+        LayerNorm inputs and dropout masks kept for the backward, the
+        reduce's output), and under LearnMask the SDDMM's gathered rows
+        and product, three f32 [nnz, hid] tables. The exchange is unsplit
+        under LearnMask or without the self-loop split: then the V->E
+        output has one row per hyperedge instead of the N-slot layout's
+        real edges + N. On an H100 at the walmart preset in f32 this gives
+        1.745, 2.254, 1.751 and 1.129 GiB for AllSetTransformer (the preset,
+        GPR, LearnMask, no self-loops) against measured peaks of 1.473,
+        1.904, 1.388 and 1.034, 3.477 at --MLP_hidden 512 against 2.889,
+        and 3.740 for AllDeepSets against 3.405 (PERF.md §5). The conv zoo: :meth:`_zoo_bytes_per_run`."""
         mc, inc = self.model_cfg, self.batch.inc
         if not isinstance(mc, SetGNNConfig):
             return self._zoo_bytes_per_run()
@@ -236,9 +243,9 @@ class Trainer:
         rows = rows_v2e + N
         total = 4 * N * (mc.classifier_hidden + mc.num_classes)
         if L > 0 and mc.pma:
-            total += item * WP * (nnz + 3 * rows * L)  # tables
-            total += mc.mlp_num_layers * rows_v2e * HC * (item + 4)  # K3R scratch
-            total += DW_PARTIALS * mc.mlp_num_layers * HC * HC * 4  # K3R's dW partials
+            total += item * WP * (SETGNN_TABLES * rows + SETGNN_NODE_TABLES * N) * L  # tables
+            total += cuda_pma.bwd_scratch_bytes(max(rows_v2e, N), HC, mc.mlp_num_layers,
+                                                item)  # K3R
         elif L > 0:
             total += item * HC * (nnz + DEEPSETS_TABLES * rows * L)
             if mc.learn_mask:  # the SDDMM's three f32 [nnz, hid] tables, one exchange at a time
@@ -256,18 +263,17 @@ class Trainer:
         UniGCNII), rows the nodes plus the exchange's hyperedge rows (the
         N-slot layout's real edges + N on the split), for two layers and
         in proportion to more; MLP and the legacy HGNN seven [N, hidden]
-        f32 tables for two layers. On an H100 at synthetic-walmart, f32,
-        hidden 256 (20 runs in groups of 10; 6 for UniGAT) the measured
-        peaks per run were 0.724 GiB (HCHA, HGNN), 1.199 (HNHN), 1.268
-        (UniGCNII), 0.875 (UniGCN), 2.943 (UniGAT) and 0.447 (MLP); the
-        tables give 0.96, 1.43, 1.67, 1.19, 3.56 and 0.60 GiB. CEGCN and
-        CEGAT count the V2V graph's entries and its N destination rows (CEGAT
-        also its f32 score tables, CEGAT_SCORE_TABLES per conv), HyperGCN the
-        Laplacian's entries at its widest layer; on the reapprox path, where
-        no Laplacian is built ahead, laplacian_nnz_bound's entries, with
-        the structures' own index arrays. At the same setting the measured
-        peaks were 1.153 (CEGCN), 2.852 (CEGAT, groups of 16) and 0.080 GiB
-        (HyperGCN); the tables give 1.416, 3.744 and 0.165 GiB."""
+        f32 tables for two layers. CEGCN and CEGAT count the V2V graph's
+        entries and its N destination rows (CEGAT also its f32 score
+        tables, CEGAT_SCORE_TABLES per conv), HyperGCN the Laplacian's
+        entries at its widest layer; on the reapprox path, where no
+        Laplacian is built ahead, laplacian_nnz_bound's entries, with the
+        structures' own index arrays. On an H100 at synthetic-walmart, f32,
+        hidden 256, the measured peaks per run (GiB) against the tables:
+        HCHA and HGNN 0.496 / 0.719, HNHN 1.054 / 1.192, UniGCNII 1.208 /
+        1.428, UniGCN and UniSAGE 0.477, UniGIN 0.647, UniGCN2 0.621 /
+        0.719, UniGAT 2.932 / 3.561, MLP 0.447 / 0.604, CEGCN 0.449 / 0.519,
+        CEGAT 2.852 / 3.744, HyperGCN 0.039 / 0.096."""
         mc, inc, N = self.model_cfg, self.batch.inc, self.batch.num_nodes
         item = 2 if getattr(mc, "dtype", "float32") == "bfloat16" else 4
         total = 3 * 4 * N * mc.num_classes

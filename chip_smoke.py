@@ -13,7 +13,7 @@ Phases (any failure raises and exits non-zero):
      on each run's slice), K2/K3 the PMA epilogue (HC in {64, 128, 192,
      256, 384, 512} and, through the wide pair, 640, 768 and 1024; heads
      1 to HC, rows below one tile (64 rows, 32 above HC 256, 16 above 512)
-     and not a multiple of it; the widest the wide pair takes, 1536 with 2
+     and not a multiple of it; the widest the JAX kernel takes, 1536 with 2
      layers in f32 and 2048 with 1 layer in bf16) and K2R/K3R its runs
      grids (HC 256, 512, 640, 768 and 1024, R in {2, 5}; L in {1, 2},
      relu on/off; the widest two at R=2; each run of K2R/K3R also bit for
@@ -26,9 +26,10 @@ Phases (any failure raises and exits non-zero):
      block; R in {2, 5} and an input shared by the runs, each run bit for
      bit against a launch on it alone), the epilogue's route by shape (an
      rFF of 3 layers and HC 96, which the JAX package composes too, on the
-     plain version with no launch; HC 256, 512, 640 and 1024 on K2/K3 and
-     K2R/K3R; HC 2048 in f32, whose JAX kernel exceeds its VMEM cap,
-     raises before any launch), B10 the row gather (bit for bit: f32 and
+     plain version with no launch; HC 256, 512, 640, 1024 and 2048 (2
+     layers, f32: above the JAX kernel's VMEM cap, which binds no kernel of
+     the card) on K2/K3 and K2R/K3R, held to the plain version), B10 the
+     row gather (bit for bit: f32 and
      bf16, widths 1, 8, 256, 264, 5,280 and 20 x 264, int32 and int64 ids,
      clamped ids, narrow rows on an unaligned view), B9 the sorted gather
      (bit for bit: f32 and bf16 rows of 2 B to 1 KiB, sorted ids with
@@ -99,7 +100,8 @@ Phases (any failure raises and exits non-zero):
      runs outside the epilogue: GPR's gpr_mlp, a 2-layer classifier);
      finite metrics, a falling training loss; 2 runs folded against 2
      runs one by one: equal accuracies, losses within rtol 2e-3; 20 runs
-     x 2 epochs with --GPR, --LearnMask and --add_self_loop false, and one
+     x 2 epochs with --GPR, --LearnMask and --add_self_loop false (each
+     mode's peak per run against the trainer's estimate), and one
      run of --exclude_self on synthetic; --MLP_hidden 512 (20 runs x 2
      epochs: 4 K2R and 2 K3R at HC 512 per group and epoch, timed at its
      shapes too; the peak per run against the trainer's estimate; 2
@@ -139,7 +141,9 @@ chunk 512) from phase 3b, with its launches): launches, the kernel's
 time and its plain version's summed over a bench step or an epoch (phase
 3b: one call at the script's shapes), the bound (the larger of the bytes
 over 3.35 TB/s and the products over the tensor cores: bf16 at 989
-TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s, the one-hot family's
+TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s, except K3's h^T dp
+with h in bf16 at three bf16 products (dp splits into three exact bf16
+parts), the one-hot family's
 f32 at two TF32 products, 495 / 2; other arithmetic at 67 TFLOP/s) and
 one library call's time where one computes the same function (K1 and the
 B1 family: torch.segment_reduce; the gather inside K1: index_select then
@@ -247,15 +251,23 @@ class Tally:
 def epi_cost(M, HC, WP, L, dtype, bwd, R=1):
     """(bytes, ops) of K2 (bwd=False) or K3 on M rows and R runs: agg in,
     y out (K2) or agg and gy in, dagg out (K3), the parameters; the rFF
-    products (K3: the forward's, dp @ W^T and h^T dp)."""
+    products (K3: the forward's, dp @ W^T and h^T dp, the last priced by
+    dw_ops)."""
     item = 2 if dtype == torch.bfloat16 else 4
     rows = M * ((2 * WP + HC) if bwd else (WP + HC)) * item
     params = L * HC * HC * (4 + (2 if item == 2 else 0)) + (6 + L) * HC * 4
     fwd = 2 * L * HC * HC * M * R
     ops = [(fwd, "bf16" if item == 2 else "f32x3")]
     if bwd:
-        ops.append((2 * fwd, "f32x3"))
+        ops += [(fwd, "f32x3"), dw_ops(fwd, item)]
     return R * (rows + params), ops
+
+
+def dw_ops(prod, item):
+    """The product h^T dp of prod flops as (flops, PEAK key): with h in
+    bf16, f32 dp splits exactly into three bf16 parts, so three bf16
+    products; with h in f32, 3xTF32."""
+    return (3 * prod, "bf16") if item == 2 else (prod, "f32x3")
 
 
 def seg_cost(nnz, nseg, W, dtype):
@@ -428,8 +440,8 @@ EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (19
               # the wide pair (csrc/pma_epilogue_wide.cu): HC above 512
               (640, 8, 648), (768, 1, 776), (768, 768, 1536), (1024, 8, 1032),
               (1024, 64, 1088))
-# (HC, H, WP, dtype, L): the widest shapes the wide pair takes, where the
-# JAX kernel's scoped VMEM (cuda_pma.jax_vmem_need) is just under its cap
+# (HC, H, WP, dtype, L): wide shapes at which the JAX kernel's scoped VMEM
+# is just under its 110 MiB cap (the widest the TPU kernel takes)
 WIDEST = ((1536, 8, 1544, torch.float32, 2), (2048, 8, 2056, torch.bfloat16, 1))
 
 
@@ -442,8 +454,7 @@ def check_epilogue(dev, gen):
              for dtype in (torch.float32, torch.bfloat16) for L in (1, 2)]
     cases += [((HC, H, WP), dtype, L) for HC, H, WP, dtype, L in WIDEST]
     for (HC, H, WP), dtype, L in cases:
-        item = torch.empty((), dtype=dtype).element_size()
-        require(cp.epilogue_route(HC, H, L, WP, 1, item) == "kernel",
+        require(cp.epilogue_route(HC, H, L, WP) == "kernel",
                 f"HC={HC}, L={L}, {dtype} is not routed to the kernels")
         small = cp.tile_rows(HC) * 5 // 8  # below one tile (64, 32 or 16 rows)
         for M in (1000, small):  # not a multiple of the tile; below one tile
@@ -665,51 +676,41 @@ def check_routes(dev, gen):
     """The epilogue's route on the card is chosen by shape: an rFF of 3
     layers and HC 96 (shapes the JAX package composes too) take the plain
     version and launch no kernel; HC 256 and 512 with 2 layers launch K2/K3
-    (K2R/K3R with runs), and so do HC 640 and 1024 (the wide pair); HC
-    2048 with 2 layers in f32, where the JAX kernel's scoped VMEM exceeds
-    its cap, raises before any launch."""
+    (K2R/K3R with runs), and so do HC 640, 1024 and 2048 with 2 layers in
+    f32 (the wide pair; no TPU VMEM budget binds it), each held to its
+    plain version with phase 3's tolerances."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    for R in (None, 2):
-        agg, gy, p = (epi_inputs(300, 2048, 8, 2056, 2, torch.float32, dev, gen) if R is None
-                      else runs_inputs(300, 2048, 8, 2056, 2, R, torch.float32, dev, gen))
-        _kernels.reset_launches()
-        for fn, args in (((cp.epilogue_fwd, (agg,)), (cp.epilogue_bwd, (agg, gy))) if R is None
-                         else ((cp.epilogue_fwd_runs, (agg,)), (cp.epilogue_bwd_runs, (agg, gy)))):
-            try:
-                fn(*args, *p, 8, True)
-            except ValueError as e:
-                msg = str(e)
-                continue
-            require(False, f"HC 2048 (R={R or 1}) did not raise")
-        require(not any(_kernels.launches.values()), "HC 2048: a launch before the raise")
-        log(f"  route HC=2048, H=8, L=2, R={R or 1}, f32: raises, no launch ({msg[:150]}...)")
-        del agg, gy, p
+    f32 = torch.float32
     for HC, H, WP, L, want in ((256, 8, 264, 3, "plain"), (96, 4, 104, 2, "plain"),
                                (256, 8, 264, 2, "kernel"), (512, 8, 520, 2, "kernel"),
-                               (640, 8, 648, 2, "kernel"), (1024, 16, 1040, 1, "kernel")):
+                               (640, 8, 648, 2, "kernel"), (1024, 16, 1040, 1, "kernel"),
+                               (2048, 8, 2056, 2, "kernel")):
         for R in (None, 2):
             _kernels.reset_launches()
             if R is None:
-                agg, gy, p = epi_inputs(300, HC, H, WP, L, torch.float32, dev, gen)
+                agg, gy, p = epi_inputs(300, HC, H, WP, L, f32, dev, gen)
                 y = cp.epilogue_fwd(agg, *p, H, True)
                 d = cp.epilogue_bwd(agg, gy, *p, H, True)
                 y_ref = cp.epilogue_fwd_plain(agg, *p, H, True)
+                d_ref = cp.epilogue_bwd_plain(agg, gy, *p, H, True)
                 names = ("pma_epilogue_fwd", "pma_epilogue_bwd")
             else:
-                agg, gy, p = runs_inputs(300, HC, H, WP, L, R, torch.float32, dev, gen)
+                agg, gy, p = runs_inputs(300, HC, H, WP, L, R, f32, dev, gen)
                 y = cp.epilogue_fwd_runs(agg, *p, H, True)
                 d = cp.epilogue_bwd_runs(agg, gy, *p, H, True)
                 y_ref = cp.epilogue_fwd_runs_plain(agg, *p, H, True)
+                d_ref = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True)
                 names = ("pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs")
             torch.cuda.synchronize()
             launched = sum(_kernels.launches[k] for k in names)
             what = f"HC={HC}, H={H}, L={L}, R={R or 1}"
             require(cp.epilogue_route(HC, H, L, WP, R or 1) == want, f"route for {what}")
             require(launched == (2 if want == "kernel" else 0), f"{launched} launches for {what}")
-            require(scaled_err(y, y_ref)[1] <= EPI_FWD_TOL[torch.float32] and
-                    bool(torch.isfinite(d[0]).all()), f"epilogue on the {want} route ({what})")
-            log(f"  route {what}: {want} ({launched} kernel launches)")
+            require(scaled_err(y, y_ref)[1] <= EPI_FWD_TOL[f32], f"K2 on the {want} route ({what})")
+            msg = check_bwd(d, d_ref, TOL[f32][1], f"{want} route, {what}")
+            log(f"  route {what}: {want} ({launched} kernel launches); bwd scaled max {msg}")
+            del agg, gy, p, y, d, y_ref, d_ref
     _kernels.reset_launches()
 
 
@@ -897,6 +898,86 @@ def time_main_shapes(batch, dev, gen):
     return out
 
 
+def k3_part_costs(M, HC, WP, L, dtype, R=1):
+    """(bytes, ops) of K3a, K3b and K3c on the warpgroup route at M rows
+    and R runs: K3a reads agg, gy and the parameters once, writes dagg,
+    the transposed h and dp tables and the small vectors' partials, and
+    takes the forward's and dp @ W^T's products; K3b reads the tables,
+    writes the dW partials and takes h^T dp; K3c reads both partials and
+    writes dW and dsmall, one f32 add per partial element."""
+    from allset_tpu_torch.ops import cuda_pma as cp
+
+    item = 2 if dtype == torch.bfloat16 else 4
+    Mp, _, nch = cp.wg_chunk_plan(M)
+    G = min(-(-M // cp.WG_TILE), cp.WG_BLOCKS)
+    tables = L * HC * Mp * (item + 4)
+    small = G * 8 * HC * 4
+    partials = nch * L * HC * HC * 4
+    params = L * HC * HC * (4 + (2 if item == 2 else 0)) + (6 + L) * HC * 4
+    prod = 2 * L * HC * HC * M * R
+    rows = ((M * (2 * WP + HC) * item + params + tables + small) * R,
+            [(prod, "bf16" if item == 2 else "f32x3"), (prod, "f32x3")])
+    dw = ((tables + partials) * R, [dw_ops(prod, item)])
+    red = ((partials + small + L * HC * HC * 4 + 8 * HC * 4) * R,
+           [((nch * L * HC * HC + G * 8 * HC) * R, "f32")])
+    return rows, dw, red
+
+
+def time_k3_parts(out, suffix, agg, gy, p, H, R, M, HC, WP, L, dt, got, want):
+    """K3a, K3b and K3c of the warpgroup route apart (cuda_pma._bwd_setup's
+    parts, each launched alone on the scratch of a whole launch), each
+    against its plain version (bwd_rows_plain; one product per chunk and
+    layer; the partials added in order) and, for K3b and K3c, one PyTorch
+    call of the same function (torch.bmm over the chunks; a sum over
+    them); into out's Tallies pma_bwd_rows, pma_bwd_dw and pma_bwd_reduce
+    + suffix. R=None: a K3 launch, else K3R's R runs."""
+    from allset_tpu_torch.ops import cuda_pma as cp
+
+    call, _ = cp._bwd_setup(agg, gy, *p, H, True, R)
+    call()
+    iters = 10 if R is None else 2
+    ms = [cuda_ms(lambda: call(bit), iters) for bit in (1, 2, 4)]
+    del call
+    runs = [(agg, gy, p)] if R is None else [
+        (agg[:, r * WP:(r + 1) * WP], gy[:, r * HC:(r + 1) * HC], [t[r] for t in p])
+        for r in range(R)]
+    plain_rows = cuda_ms(lambda: [cp.bwd_rows_plain(a, g, *q, H, True) for a, g, q in runs], 1)
+    Mp, chunk, nch = cp.wg_chunk_plan(M)
+    tabs = [cp.bwd_rows_plain(a, g, *q, H, True)[1:3] for a, g, q in runs]
+    hs, ds = [], []
+    for hins, dps in tabs:
+        for h, d in zip(hins, dps):
+            hs.append(torch.nn.functional.pad(h.float(), (0, 0, 0, nch * chunk - M)))
+            ds.append(torch.nn.functional.pad(d, (0, 0, 0, nch * chunk - M)))
+    del tabs
+    hs = torch.stack(hs).reshape(-1, chunk, HC)
+    ds = torch.stack(ds).reshape(-1, chunk, HC)
+    plain_dw = cuda_ms(lambda: [cp._mm(hs[i].T, ds[i]) for i in range(hs.shape[0])], 1)
+    lib_dw = cuda_ms(lambda: torch.bmm(hs.transpose(1, 2), ds), 1 if R else 5)
+    parts = torch.bmm(hs.transpose(1, 2), ds).reshape(-1, nch, HC * HC)
+    del hs, ds
+
+    def add_in_order():
+        acc = parts[:, 0].clone()
+        for c in range(1, nch):
+            acc += parts[:, c]
+        return acc
+    plain_red = cuda_ms(add_in_order, 1 if R else 5)
+    lib_red = cuda_ms(lambda: parts.sum(dim=1), 1 if R else 5)
+    del parts
+    err_a = scaled_err(got[0], want[0])[0]
+    err_w = scaled_err(got[1], want[1])[0]
+    costs = k3_part_costs(M, HC, WP, L, dt, R or 1)
+    for name, k, pl, lib, err, (nbytes, ops) in (
+            ("pma_bwd_rows", ms[0], plain_rows, None, err_a, costs[0]),
+            ("pma_bwd_dw", ms[1], plain_dw, lib_dw, err_w, costs[1]),
+            ("pma_bwd_reduce", ms[2], plain_red, lib_red, err_w, costs[2])):
+        out.setdefault(name + suffix, Tally()).add(1, k, pl, err, nbytes, ops, lib)
+    log(f"  K3 parts at M={M}, HC={HC}, R={R or 1}: K3a {ms[0]:.3f} ms (plain {plain_rows:.3f}), "
+        f"K3b {ms[1]:.3f} (plain {plain_dw:.3f}, torch.bmm {lib_dw:.3f}), K3c {ms[2]:.3f} "
+        f"(plain {plain_red:.3f}, sum {lib_red:.3f})")
+
+
 def time_epilogue_step(batch, dev, gen, HC=256, suffix=""):
     """K2 and K3 at a bench step's two half-layers' row counts, hidden HC
     with 8 heads (bf16): kernel and plain times summed over the step's
@@ -921,6 +1002,8 @@ def time_epilogue_step(batch, dev, gen, HC=256, suffix=""):
         want = cp.epilogue_bwd_plain(agg, gy, *p, H, True)
         bmsg = check_bwd(got, want, TOL[dt][1], f"M={M}, HC={HC}")
         eb, _ = scaled_err(got[0], want[0])
+        if HC in cp.WG_WIDTHS:
+            time_k3_parts(out, suffix, agg, gy, p, H, None, M, HC, WP, L, dt, got, want)
         out["pma_epilogue_fwd" + suffix].add(1, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False))
         out["pma_epilogue_bwd" + suffix].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True))
         log(f"  K2 at M={M}, HC={HC}: kernel {kf:.3f} ms, plain {pf:.3f} ms, max_abs_err "
@@ -1041,7 +1124,18 @@ def run_steps(model, batch, mask, steps):
 # _Spmm's passes (V->E, E->V, forward and backward) each launch the gather
 # inside K1 (ops/exchange.py's route) and neither B10 nor K1
 PER_STEP = {"segment_sum_gather": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2,
-            "pma_gmax": 2, "pma_pack": 2}
+            "pma_gmax": 2, "pma_pack": 2, "pma_bwd_rows": 2, "pma_bwd_dw": 2, "pma_bwd_reduce": 2}
+# K3's parts on the warpgroup route (HC 256; cuda_pma.WG_WIDTHS), one
+# launch each per K3 or K3R launch
+WG_PARTS = ("pma_bwd_rows", "pma_bwd_dw", "pma_bwd_reduce")
+
+
+def off_wg(per):
+    """``per`` at a width off the warpgroup route (HC other than 256): K3
+    launches without its parts' counters."""
+    return {k: v for k, v in per.items() if k not in WG_PARTS}
+
+
 # GPR: gpr_mlp's hidden LayerNorm (MLP_num_layers 2)
 PER_STEP_GPR = {**PER_STEP, "layer_norm_fwd": 1, "layer_norm_bwd": 1}
 # AllDeepSets: V->E and E->V each run f_enc and f_dec, 2-layer MLPs with an
@@ -1187,6 +1281,8 @@ def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix=""):
         want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True)
         bmsg = check_bwd(got, want, TOL[dt][1], f"runs M={M}, HC={HC}")
         eb, _ = scaled_err(got[0], want[0])
+        if HC in cp.WG_WIDTHS:
+            time_k3_parts(out, suffix + "_epoch", agg, gy, p, H, R, M, HC, WP, L, dt, got, want)
         del want
         for r in range(R):
             one = cp.epilogue_bwd_cuda(agg[:, r * WP:(r + 1) * WP].contiguous(),
@@ -1207,7 +1303,8 @@ def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix=""):
 
 
 PER_GROUP_EPOCH = {"segment_sum_gather": 6, "pma_epilogue_fwd_runs": 4, "pma_epilogue_bwd_runs": 2,
-                   "pma_epilogue_fwd": 0, "pma_epilogue_bwd": 0, "pma_gmax": 4, "pma_pack": 4}
+                   "pma_epilogue_fwd": 0, "pma_epilogue_bwd": 0, "pma_gmax": 4, "pma_pack": 4,
+                   "pma_bwd_rows": 2, "pma_bwd_dw": 2, "pma_bwd_reduce": 2}
 # AllDeepSets (walmart preset): the gather inside K1 twice per half-layer
 # forward (train and eval) and once backward; 4 LayerNorms per half-layer,
 # forward in train and eval, backward once
@@ -1254,11 +1351,19 @@ def cli_run(argv, epochs, per=None):
     return res, counts
 
 
-def runs_protocol(card, tmp):
+def runs_protocol(card, tmp, dev):
+    """The walmart preset through the CLI (20 runs folded, f32): launches
+    per group and epoch, a falling loss, the CSV line, the peak device
+    memory per folded run against the trainer's estimate (which must not be
+    lower), ms per epoch; 2 runs folded against 2 one by one; the modes;
+    --exclude_self on synthetic. Returns the counts and ms per epoch."""
     base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
             "--res_root", tmp]
     epochs = 4
-    res, counts = cli_run(base + ["--epochs", str(epochs)], epochs)
+    res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs, None, dev)
+    log(f"  the preset: peak device memory per folded run {peak / 2**30:.3f} GiB; the "
+        f"trainer's estimate {est / 2**30:.3f} GiB [{card}]")
+    require(est >= peak, "the preset: the trainer's estimate is below the measured peak")
     loss = res.metrics[:, :, 3].mean(axis=0)
     log(f"  {res.metrics.shape[0]} runs in groups {res.groups}; launches {counts} "
         f"(per group and epoch {PER_GROUP_EPOCH})")
@@ -1271,18 +1376,23 @@ def runs_protocol(card, tmp):
         f"(first epoch included) [{card}]")
     short = base + ["--runs", "2", "--epochs", "3"]
     folded_vs_one_by_one(short, 3)
-    for flags, per in ((["--GPR"], pma_group_epoch(ln_fwd=2, ln_bwd=1)), (["--LearnMask"], None),
-                       (["--add_self_loop", "false"], None)):
-        res_m, counts_m = cli_run(base + ["--epochs", "2", *flags], 2, per)
-        log(f"  {' '.join(flags)}: {res_m.metrics.shape[0]} runs in groups {res_m.groups}, "
+    for flags, per, cfg in ((["--GPR"], pma_group_epoch(ln_fwd=2, ln_bwd=1), {"gpr": True}),
+                            (["--LearnMask"], None, {"learn_mask": True}),
+                            (["--add_self_loop", "false"], None, {"add_self_loop": False})):
+        res_m, counts_m, peak_m, est_m = cli_peak(base + ["--epochs", "2", *flags], 2, per, dev,
+                                                  **cfg)
+        mode = " ".join(flags)
+        log(f"  {mode}: {res_m.metrics.shape[0]} runs in groups {res_m.groups}, "
             f"launches {counts_m}; params {res_m.num_params}; "
-            f"{res_m.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included) "
-            f"[{card}]")
+            f"{res_m.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included); "
+            f"peak device memory per folded run {peak_m / 2**30:.3f} GiB; the trainer's "
+            f"estimate {est_m / 2**30:.3f} GiB [{card}]")
+        require(est_m >= peak_m, f"{mode}: the trainer's estimate is below the measured peak")
     # the CLI's defaults: 2 layers, hidden 64, 1 head (HC + H = 65, WP = 72)
     # (its 2-layer classifier has one LayerNorm)
     res_x, counts_x = cli_run(["--dname", "synthetic", "--exclude_self", "--runs", "1",
                                "--epochs", "2", "--device", "cuda", "--res_root", tmp], 2,
-                              pma_group_epoch(layers=2, ln_fwd=2, ln_bwd=1))
+                              off_wg(pma_group_epoch(layers=2, ln_fwd=2, ln_bwd=1)))
     log(f"  --exclude_self on synthetic: 1 run x 2 epochs, launches {counts_x}, final test "
         f"{res_x.best_by_valid()['final_test'][0]:.2f}")
     return counts, per_epoch
@@ -1298,8 +1408,8 @@ def hidden512_protocol(card, tmp, dev):
     base = ["--dname", WALMART, "--preset", "--MLP_hidden", "512", "--dtype", "float32",
             "--device", "cuda", "--res_root", tmp]
     epochs = 2
-    res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs, None, dev,
-                                      mlp_hidden=512)
+    res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs,
+                                      off_wg(pma_group_epoch()), dev, mlp_hidden=512)
     loss = res.metrics[:, :, 3].mean(axis=0)
     log(f"  --MLP_hidden 512: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
         f"{counts}; params {res.num_params}; mean training loss per epoch "
@@ -1309,7 +1419,7 @@ def hidden512_protocol(card, tmp, dev):
     log(f"  --MLP_hidden 512: peak device memory per folded run {peak / 2**30:.3f} GiB; the "
         f"trainer's estimate {est / 2**30:.3f} GiB [{card}]")
     require(est >= peak, "--MLP_hidden 512: the trainer's estimate is below the measured peak")
-    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2"], 2)
+    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2"], 2, off_wg(pma_group_epoch()))
     return counts
 
 
@@ -1319,7 +1429,7 @@ def wide_protocol(card, tmp):
     and epoch as at 256), finite metrics. Returns the counts."""
     res, counts = cli_run(["--dname", WALMART, "--preset", "--MLP_hidden", "1024", "--dtype",
                            "float32", "--device", "cuda", "--runs", "2", "--epochs", "1",
-                           "--res_root", tmp], 1)
+                           "--res_root", tmp], 1, off_wg(pma_group_epoch()))
     log(f"  --MLP_hidden 1024: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
         f"{counts}; params {res.num_params}; {res.wall_time * 1e3:.1f} ms for the epoch "
         f"[{card}]")
@@ -2614,7 +2724,7 @@ def main() -> int:
         log_tallies({k: timings[k] for k in ("pma_epilogue_fwd" + suffix,
                                              "pma_epilogue_bwd" + suffix)},
                     f"bench step at hidden {HC}")
-        wide_counts[HC], _ = main_path(batch, dev, card, PER_STEP, hidden=HC)
+        wide_counts[HC], _ = main_path(batch, dev, card, off_wg(PER_STEP), hidden=HC)
     main_path(batch, dev, card, PER_STEP_GPR, gpr=True)
     main_path(batch, dev, card, PER_STEP, learn_mask=True)
     deepsets = dict(pma=False, aggregate="add")
@@ -2659,7 +2769,7 @@ def main() -> int:
     del wb
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        runs_counts, _ = runs_protocol(card, tmp)
+        runs_counts, _ = runs_protocol(card, tmp, dev)
         runs512_counts = hidden512_protocol(card, tmp, dev)
         runs1024_counts = wide_protocol(card, tmp)
         deepsets_protocol(card, tmp, dev)
@@ -2675,6 +2785,9 @@ def main() -> int:
 
     onehot = "allset_tpu_torch/csrc/segsum_onehot.cu"
     stream = "allset_tpu_torch/csrc/stream.cu"
+    wg = "allset_tpu_torch/csrc/pma_epilogue_wg.cu"
+    cuh = "allset_tpu_torch/csrc/pma_epilogue.cuh"
+    k3_384_512 = "allset_tpu_torch/csrc/pma_epilogue.cu"
     sources = {  # name -> (source, TPU kernel replaced, launches of its path)
         "segment_sum": ("allset_tpu_torch/csrc/segment_sum.cu",
                         "allset_tpu/ops/pallas_segment.py:39", zoo_counts["UniGAT"]),
@@ -2695,12 +2808,19 @@ def main() -> int:
         "stream_fold": (stream, "benchmarks/exp_autopipe.py:28", exp_counts),
         "pma_epilogue_fwd": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
                              "allset_tpu/ops/pallas_pma.py:170", counts),
-        "pma_epilogue_bwd": ("allset_tpu_torch/csrc/pma_epilogue.cu",
+        "pma_epilogue_bwd": ("allset_tpu_torch/csrc/pma_epilogue_wg.cu",
                              "allset_tpu/ops/pallas_pma.py:185", counts),
+        # K3's parts on the warpgroup route at the bench step and the 20-run
+        # epoch (HC 256)
+        "pma_bwd_rows": (wg, "allset_tpu/ops/pallas_pma.py:185", counts),
+        "pma_bwd_dw": (wg, "allset_tpu/ops/pallas_pma.py:185", counts),
+        "pma_bwd_reduce": (cuh, "allset_tpu/ops/pallas_pma.py:185", counts),
+        "pma_bwd_rows_epoch": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
+        "pma_bwd_dw_epoch": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
+        "pma_bwd_reduce_epoch": (cuh, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_epilogue_fwd_runs": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
                                   "allset_tpu/ops/pallas_pma.py:365", runs_counts),
-        "pma_epilogue_bwd_runs": ("allset_tpu_torch/csrc/pma_epilogue.cu",
-                                  "allset_tpu/ops/pallas_pma.py:424", runs_counts),
+        "pma_epilogue_bwd_runs": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_gmax": ("allset_tpu_torch/csrc/pma_pack.cu",
                      "allset_tpu/ops/pallas_pack.py:94", counts),
         "pma_pack": ("allset_tpu_torch/csrc/pma_pack.cu",
@@ -2717,13 +2837,17 @@ def main() -> int:
     # the epilogue kernels at the other widths: the bench steps at hidden
     # 384, 512 and 1024 (the wide pair), the CLI runs at 512 and 1024
     wide = "allset_tpu_torch/csrc/pma_epilogue_wide.cu"
+    narrow = {"pma_epilogue_fwd": sources["pma_epilogue_fwd"][0],
+              "pma_epilogue_bwd": k3_384_512,
+              "pma_epilogue_fwd_runs": sources["pma_epilogue_fwd_runs"][0],
+              "pma_epilogue_bwd_runs": k3_384_512}
     for HC in (384, 512, 1024):
         for k in ("pma_epilogue_fwd", "pma_epilogue_bwd"):
-            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else sources[k][0], sources[k][1],
+            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1],
                                       wide_counts[HC])
     for HC, cnt in ((512, runs512_counts), (1024, runs1024_counts)):
         for k in ("pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs"):
-            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else sources[k][0], sources[k][1], cnt)
+            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1], cnt)
     for k in ("layer_norm_fwd", "layer_norm_bwd"):  # per AllDeepSets 20-run epoch
         sources[f"{k}_epoch"] = (*sources[k][:2], ln_epoch_counts)
     log(f"  zoo CLI launches: {zoo_cli_counts}; CE and HyperGCN CLI launches: {ce_cli_counts}")
