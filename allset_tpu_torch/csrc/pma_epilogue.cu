@@ -420,12 +420,8 @@ int launch_bwd(const Args<T>& A, int R, float* dW, float* dsmall, float* part_w,
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (!(parts & 4)) return (int)cudaSuccess;
-  const int nw = A.L * HC * HC, ns = 8 * HC;
-  reduce_partials_kernel<<<dim3((nw + 255) / 256, R), 256, 0, s>>>(part_w, nch, nw, dW);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  reduce_partials_kernel<<<dim3((ns + 255) / 256, R), 256, 0, s>>>(A.part_small, grid_rows,
-                                                                   ns, dsmall);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(part_w, nch, A.L * HC * HC, dW, A.part_small, grid_rows, 8 * HC,
+                            dsmall, R, s);
 }
 
 }  // namespace

@@ -31,9 +31,10 @@
 //     out0, and y (K2) or dagg (K3) leave through the same buffer in
 //     16-byte rows. Where the H denominators would overflow shared memory
 //     (f32 only: K3 from 32 heads at HC 256, 384 at HC 384, 256 at HC
-//     512; K2 from 192 heads at HC 192, 64 at HC 256, 128 at HC 384 and
-//     512), a second instantiation (DG) stages only the values and reads
-//     den from global memory, writing dden straight out; the A operand of
+//     512; K2 from 192 heads at HC 192 and 128 at HC 384 and 512; f32
+//     K2 at HC 256 runs beside K3a), a second instantiation (DG) stages
+//     only the values and reads den from global memory, writing dden
+//     straight out; the A operand of
 //     the next product ([TM, HC], 66.5 KB at HC = 256 f32) lives in shared
 //     memory;
 //   * every rFF product runs on the tensor cores with mma.sync. Operands
@@ -80,6 +81,9 @@
 // the current tile's LN0, off the critical path. (One bulk copy per row
 // issued by one warp was tried first: the issuing warp held the block
 // back, PERF.md.) Every item is computed alike whatever block takes it.
+// In f32 at HC 256 K2 runs instead beside K3a (pma_epilogue_wg.cu), on
+// its layout and warpgroup products: faster there in alternating pairs,
+// slower in bf16 (PERF.md).
 //
 // K3, the backward, recomputes the forward per tile (K2 stores nothing),
 // then writes dagg = [dvals | dden | 0] in the activation dtype (at HC 256
@@ -98,8 +102,8 @@
 //     chunks, 128x128 output tiles (64x64 at HC 64 and 192) per block of 8
 //     warps on the tensor cores (3xTF32, or 2xTF32 where h is bf16), the
 //     rows staged 32 at a time with cp.async, two stages;
-//   * K3c: a second kernel sums each partial table over its first axis
-//     in a fixed order.
+//   * K3c: one more launch sums both partial tables over their first
+//     axis in a fixed order (launch_reduce below).
 // Runs (K2R/K3R): R statistical runs folded into the width. agg is
 // [M, R*WP] with run r in columns [r*WP, (r+1)*WP), y [M, R*HC], the
 // parameters carry a leading [R] axis, dW is [R, L, HC, HC] and dsmall
@@ -657,15 +661,73 @@ __device__ __forceinline__ void fwd_chain(const Args<T>& A, int row0, const T* s
     }
 }
 
-// K3c: out[run][j] = sum_p part[run][p][j], in order of p (run = blockIdx.y).
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int P,
-                                       int N, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= N) return;
-  part += (size_t)blockIdx.y * P * N;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += part[(size_t)p * N + j];
-  out[(size_t)blockIdx.y * N + j] = s;
+// K3c: both partial tables of K3 reduced in one launch (run = blockIdx.y):
+//   dW[run][j] = sum_p part_w[run][p][j], added in the order of p: one
+//                float4 column a thread, RED_PB partials' loads in flight
+//                before they are added;
+//   ds[run][j] = sum_p part_s[run][p][j] over the row blocks' partials:
+//                RED_SL fixed slices of p (p = sl, sl + RED_SL, ...) added
+//                in order by RED_SL threads, then the slices in order.
+// Blocks [0, wblocks) take dW's float4 columns, the rest RED_SC float4
+// columns of ds each. Reading both tables once bounds it (bytes); the
+// order of every sum is fixed, so K3R's run r is K3's bit for bit.
+constexpr int RED_THREADS = 128;
+constexpr int RED_PB = 16;                       // dW partials in flight a thread
+constexpr int RED_SL = 8;                        // ds: slices of p
+constexpr int RED_SC = RED_THREADS / RED_SL;     // ds: float4 columns a block
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+}
+
+__global__ void __launch_bounds__(RED_THREADS) reduce_partials_kernel(
+    const float* __restrict__ part_w, int nch, int nw, float* __restrict__ dW,
+    const float* __restrict__ part_s, int nsp, int ns, float* __restrict__ ds, int wblocks) {
+  const int run = blockIdx.y;
+  if ((int)blockIdx.x < wblocks) {
+    const int nw4 = nw / 4, j = blockIdx.x * RED_THREADS + threadIdx.x;
+    if (j >= nw4) return;
+    const float4* src = reinterpret_cast<const float4*>(part_w) + (size_t)run * nch * nw4 + j;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    int p = 0;
+    for (; p + RED_PB <= nch; p += RED_PB) {
+      float4 x[RED_PB];
+#pragma unroll
+      for (int u = 0; u < RED_PB; ++u) x[u] = __ldg(src + (size_t)(p + u) * nw4);
+#pragma unroll
+      for (int u = 0; u < RED_PB; ++u) add4(acc, x[u]);
+    }
+    for (; p < nch; ++p) add4(acc, __ldg(src + (size_t)p * nw4));
+    reinterpret_cast<float4*>(dW)[(size_t)run * nw4 + j] = acc;
+    return;
+  }
+  __shared__ float4 sl_sum[RED_SL][RED_SC];
+  const int ns4 = ns / 4, c = threadIdx.x % RED_SC, sl = threadIdx.x / RED_SC;
+  const int j = (blockIdx.x - wblocks) * RED_SC + c;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j < ns4) {
+    const float4* src = reinterpret_cast<const float4*>(part_s) + (size_t)run * nsp * ns4 + j;
+#pragma unroll 4
+    for (int p = sl; p < nsp; p += RED_SL) add4(acc, __ldg(src + (size_t)p * ns4));
+  }
+  sl_sum[sl][c] = acc;
+  __syncthreads();
+  if (sl != 0 || j >= ns4) return;
+#pragma unroll
+  for (int k = 1; k < RED_SL; ++k) add4(acc, sl_sum[k][c]);
+  reinterpret_cast<float4*>(ds)[(size_t)run * ns4 + j] = acc;
+}
+
+// K3c's launch: dW [R][nw] from part_w [R][nch][nw], ds [R][ns] from
+// part_s [R][nsp][ns] (nw, ns multiples of 4)
+inline cudaError_t launch_reduce(const float* part_w, int nch, int nw, float* dW,
+                                 const float* part_s, int nsp, int ns, float* ds, int R,
+                                 cudaStream_t s) {
+  const int wblocks = (nw / 4 + RED_THREADS - 1) / RED_THREADS;
+  const int sblocks = (ns / 4 + RED_SC - 1) / RED_SC;
+  reduce_partials_kernel<<<dim3(wblocks + sblocks, R), RED_THREADS, 0, s>>>(
+      part_w, nch, nw, dW, part_s, nsp, ns, ds, wblocks);
+  return cudaGetLastError();
 }
 
 // run `run`'s parameters and rows

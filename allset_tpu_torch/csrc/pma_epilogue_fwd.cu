@@ -185,9 +185,9 @@ int allset_pma_epilogue_fwd(const void* agg, const void* seed, const void* g0,
                                            b1, out, nullptr, nullptr, nullptr, M, WP, HC, \
                                            H, L, R, relu),                                \
                               R, s);
+  // f32 at HC 256 runs on the warpgroup K2 (pma_epilogue_wg.cu)
   if (dtype == 0) {
-    FWD(float, 64) FWD(float, 128) FWD(float, 192) FWD(float, 256) FWD(float, 384)
-    FWD(float, 512)
+    FWD(float, 64) FWD(float, 128) FWD(float, 192) FWD(float, 384) FWD(float, 512)
   } else {
     FWD(__nv_bfloat16, 64) FWD(__nv_bfloat16, 128) FWD(__nv_bfloat16, 192)
     FWD(__nv_bfloat16, 256) FWD(__nv_bfloat16, 384) FWD(__nv_bfloat16, 512)

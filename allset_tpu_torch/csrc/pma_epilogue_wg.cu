@@ -1,7 +1,9 @@
 // K3 / K3R at HC 256 on Hopper's warpgroup products: the fused PMA
 // epilogue's backward (pallas_pma.py::_bwd_kernel, its R = 1 and R > 1
 // grids); the contract and the forward chain are those of
-// pma_epilogue.cuh, whose K3 serves the other widths up to 512. (K3a's
+// pma_epilogue.cuh, whose K3 serves the other widths up to 512. K2 / K2R
+// in f32 at HC 256 (pallas_pma.py::_fwd_kernel) runs K3a's forward on the
+// same layout, below K3a. (K3a's
 // tile plan takes any multiple of 64 up to 256, but at 64, 128 and 192
 // the 16-warp K3 was faster in alternating pairs, scripts/k3_parts.py; at
 // 384 and 512 a warpgroup of 64 columns would need more registers than
@@ -56,11 +58,11 @@
 //     (exact: 8 + 8 + 8 significant bits), three bf16 products, each
 //     exact in the f32 accumulator's inputs; f32 h: 3xTF32, h split into
 //     its TF32 hi and lo parts in shared memory once per stage;
-//   * K3c (pma_epilogue.cuh): the fixed-order reduces of both partial
-//     tables. No floating-point atomics (the one atomic counts the warps
-//     done with a ring slot), so two calls give the same bits, and run r
-//     of K3R equals a K3 launch on run r's slice bit for bit (same tiles,
-//     blocks and partials; the runs are the second grid axis).
+//   * K3c (pma_epilogue.cuh): one launch, the fixed-order reduce of both
+//     partial tables. No floating-point atomics (the one atomic counts the
+//     warps done with a ring slot), so two calls give the same bits, and
+//     run r of K3R equals a K3 launch on run r's slice bit for bit (same
+//     tiles, blocks and partials; the runs are the second grid axis).
 
 #include "pma_epilogue.cuh"
 
@@ -802,6 +804,192 @@ __global__ void __launch_bounds__(128 * NWG, 1) pma_bwd_wg_kernel(WgArgs<T> A0) 
   }
 }
 
+// --- K2 / K2R ------------------------------------------------------------------
+//
+// The forward on K3a's layout: a persistent block per SM walks the (run,
+// tile) items (item w: run w / ntiles, tile w % ntiles), HC / 64
+// warpgroups of 64 columns each over a 64-row tile, the forward slabs
+// through the same ring (thread 0 fills the first NST, then the last warp
+// done with a slot), the tile's agg rows staged by bulk copies into the A
+// operand's buffer, zb kept in registers for the residual. Once the last
+// product is done with the buffer the next item's rows come into it, while
+// LN1 runs and y leaves from registers. Every item is computed alike
+// whatever block takes it, so run r of K2R equals a K2 launch on run r's
+// slice bit for bit.
+template <typename T, int HC, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1) pma_fwd_wg_kernel(WgArgs<T> A, int R) {
+  constexpr int WN = HC / NWG, NT = WN / 8;
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int NSF = HC / wg_ksf<T>();
+  constexpr uint32_t SLOT = wg_slot(HC);
+  extern __shared__ __align__(128) char smem[];
+  const WgLayout S = wg_layout(HC, A.WP, sizeof(T));
+  const uint32_t NST = S.nst;
+  char* ring = smem;
+  char* sA = smem + S.a;
+  T* st = reinterpret_cast<T*>(sA);  // staged agg rows
+  float* red = reinterpret_cast<float*>(smem + S.red);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S.bar);
+  uint64_t* staged = full + NST;
+  uint32_t* done = reinterpret_cast<uint32_t*>(staged + 1);
+  const int ntiles = (A.M + WG_TM - 1) / WG_TM, nwork = R * ntiles;
+  const int my_items =
+      (int)blockIdx.x < nwork ? (nwork - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const uint32_t nseq = A.L * NSF, total = my_items * nseq;
+  auto fill = [&](uint32_t n) {  // slab n of the block's sequence into slot n % NST
+    if (n >= total) return;
+    const uint32_t slot = n % NST;
+    const int run = ((int)blockIdx.x + (int)(n / nseq) * (int)gridDim.x) / ntiles;
+    const char* src = A.wf + ((size_t)run * nseq + n % nseq) * SLOT;
+    mbar_expect_tx(&full[slot], SLOT);
+    bulk_load(ring + slot * SLOT, src, SLOT / 2, &full[slot]);
+    bulk_load(ring + slot * SLOT + SLOT / 2, src + SLOT / 2, SLOT / 2, &full[slot]);
+  };
+  // item k's agg rows into the stage, by warp 0
+  auto stage = [&](int k) {
+    const int w = blockIdx.x + k * gridDim.x;
+    wg_stage_rows(st, A.agg + (size_t)(w / ntiles) * A.WP, A.lda, A.WP, (w % ntiles) * WG_TM,
+                  A.M, staged);
+  };
+  if (threadIdx.x == 0) {
+    for (uint32_t i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      done[i] = 0;
+    }
+    mbar_init(staged, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (uint32_t n = 0; n < NST; ++n) fill(n);
+  if (threadIdx.x < 32 && my_items > 0) stage(0);
+  const WgLane ln;
+  const int n0 = ln.q * WN;
+  const float invC = (float)A.H / HC;
+  int buf = 0;
+  uint32_t it = 0;
+  float X[NT][4], P[NT][4];
+  for (int k = 0; k < my_items; ++k) {
+    const int w = blockIdx.x + k * gridDim.x, run = w / ntiles, row0 = (w % ntiles) * WG_TM;
+    const float* seed = A.seed + (size_t)run * HC;
+    const float* brff = A.brff + (size_t)run * A.L * HC;
+    if (threadIdx.x < 32 && k + 1 < my_items) {  // warp 0: the next item's rows into L2
+      const int nx = w + gridDim.x, nrow0 = (nx % ntiles) * WG_TM;
+      for (int r = threadIdx.x; r < WG_TM && nrow0 + r < A.M; r += 32)
+        prefetch_l2(A.agg + (size_t)(nx / ntiles) * A.WP + (size_t)(nrow0 + r) * A.lda,
+                    A.WP * sizeof(T));
+    }
+    const bool ok0 = row0 + ln.row(0) < A.M, ok1 = row0 + ln.row(2) < A.M;
+    float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
+    // 1. out0 (the staged rows) and LN0 -> zb (in X)
+    mbar_wait(staged, k & 1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v, dinv;
+        const float x = wg_out0<T, HC>(st, A.WP, ln.row(e), e < 2 ? ok0 : ok1,
+                                       n0 + 8 * j + 2 * ln.t + (e & 1), invC, seed, v, dinv);
+        X[j][e] = x;
+        pa[e >> 1] += x;
+        pb[e >> 1] += x * x;
+      }
+    wg_row_sum<NWG>(pa, pb, red, buf, ln);
+    {
+      const float* g0 = A.g0 + (size_t)run * HC;
+      const float* b0 = A.b0 + (size_t)run * HC;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mu = pa[h] / HC;
+        const float rstd = rsqrtf(pb[h] / HC - mu * mu + EPS);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int c = n0 + 8 * j + 2 * ln.t + q;
+            const float xh = __fmul_rn(__fsub_rn(X[j][2 * h + q], mu), rstd);
+            X[j][2 * h + q] = round_to<T>(__fadd_rn(__fmul_rn(xh, __ldg(g0 + c)), __ldg(b0 + c)));
+          }
+      }
+    }
+    __syncthreads();  // every warp is done with the staged rows
+    wg_put_a<T, HC, NT>(X, sA, ln);
+    __syncthreads();
+    // 2. rFF with TorchDense rounding; p_l in P
+    for (int l = 0; l < A.L; ++l) {
+      wg_product<HC, NT, BF>(P, sA, ring, full, done, 4 * NWG, it, NST, ln, fill);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n0 + 8 * j + 2 * ln.t + (e & 1);
+          P[j][e] = round_to<T>(__fadd_rn(round_to<T>(P[j][e]), __ldg(brff + l * HC + c)));
+        }
+      if (l + 1 < A.L) {  // h_1 = relu(p_0), exact in T
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) P[j][e] = fmaxf(P[j][e], 0.f);
+        __syncthreads();  // every warp is done reading zb
+        wg_put_a<T, HC, NT>(P, sA, ln);
+        __syncthreads();
+      }
+    }
+    __syncthreads();  // every warp is done with the last A operand: the next item's rows
+    if (threadIdx.x < 32 && k + 1 < my_items) stage(k + 1);
+    // 3. out2 = zb + relu(p_L-1), LN1, y straight out (rows past M are not)
+    pa[0] = pa[1] = pb[0] = pb[1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float o = __fadd_rn(X[j][e], fmaxf(P[j][e], 0.f));
+        X[j][e] = o;
+        pa[e >> 1] += o;
+        pb[e >> 1] += o * o;
+      }
+    wg_row_sum<NWG>(pa, pb, red, buf, ln);
+    {
+      const float* g1 = A.g1 + (size_t)run * HC;
+      const float* b1 = A.b1 + (size_t)run * HC;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mu = pa[h] / HC;
+        const float rstd = rsqrtf(pb[h] / HC - mu * mu + EPS);
+        T* yr = A.dagg + (size_t)run * HC + (size_t)(row0 + ln.row(2 * h)) * A.ldg;  // y
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = n0 + 8 * j + 2 * ln.t;
+          float y[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float xh = __fmul_rn(__fsub_rn(X[j][2 * h + q], mu), rstd);
+            y[q] = round_to<T>(__fadd_rn(__fmul_rn(xh, __ldg(g1 + c + q)), __ldg(b1 + c + q)));
+            if (A.relu && !(y[q] > 0.f)) y[q] = 0.f;
+          }
+          if (h ? ok1 : ok0) store2(yr + c, y[0], y[1]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int HC>
+int launch_fwd_wg(const WgArgs<T>& A, int R, cudaStream_t s) {
+  const WgLayout S = wg_layout(HC, A.WP, sizeof(T));
+  if (S.nst < 2) return (int)cudaErrorInvalidValue;  // a ring of 2 slots at least
+  cudaError_t e = cudaFuncSetAttribute(pma_fwd_wg_kernel<T, HC, HC / WG_N>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S.bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long nwork = (long long)R * ((A.M + WG_TM - 1) / WG_TM);
+  const int grid = (int)(nwork < sms ? nwork : sms);
+  pma_fwd_wg_kernel<T, HC, HC / WG_N><<<grid, 2 * HC, S.bytes, s>>>(A, R);
+  return (int)cudaGetLastError();
+}
+
 // --- K3b --------------------------------------------------------------------------
 
 // part[run][ch][l] = h_l^T dp_l over the rows of chunk ch, from the
@@ -996,11 +1184,9 @@ int launch_bwd_wg(const WgArgs<T>& A, int R, float* dW, float* dsmall, float* pa
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (parts & 4) {
-    const int nw = A.L * HC * HC, ns = 8 * HC;
-    reduce_partials_kernel<<<dim3((nw + 255) / 256, R), 256, 0, s>>>(part_w, nch, nw, dW);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    reduce_partials_kernel<<<dim3((ns + 255) / 256, R), 256, 0, s>>>(A.part_small, grid_rows,
-                                                                     ns, dsmall);
+    e = launch_reduce(part_w, nch, A.L * HC * HC, dW, A.part_small, grid_rows, 8 * HC, dsmall,
+                      R, s);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }
@@ -1053,6 +1239,40 @@ int allset_pma_epilogue_bwd_wg(const void* agg, const void* gy, const void* seed
     BWD_WG(__nv_bfloat16, 256)
   }
 #undef BWD_WG
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2/K2R in f32 at HC 256 (bf16 keeps the tiled K2, faster there):
+// inputs as allset_pma_epilogue_fwd's, with the weights as the forward
+// slabs of ops/cuda_pma.py::wg_fwd_weights in place of Wf and Wbt.
+// Returns 1 (cudaErrorInvalidValue) for another HC or dtype.
+int allset_pma_epilogue_fwd_wg(const void* agg, const void* seed, const void* g0,
+                               const void* b0, const void* wf, const void* brff,
+                               const void* g1, const void* b1, void* out, int M, int WP, int HC,
+                               int H, int L, int R, int relu, int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (M <= 0 || R <= 0) return (int)cudaGetLastError();
+#define FWD_WG(T, HCV)                                                                     \
+  if (HC == HCV) {                                                                         \
+    WgArgs<T> A = {};                                                                      \
+    A.agg = static_cast<const T*>(agg);                                                    \
+    A.seed = static_cast<const float*>(seed);                                              \
+    A.g0 = static_cast<const float*>(g0);                                                  \
+    A.b0 = static_cast<const float*>(b0);                                                  \
+    A.brff = static_cast<const float*>(brff);                                              \
+    A.g1 = static_cast<const float*>(g1);                                                  \
+    A.b1 = static_cast<const float*>(b1);                                                  \
+    A.wf = static_cast<const char*>(wf);                                                   \
+    A.dagg = static_cast<T*>(out);                                                         \
+    A.M = M, A.H = H, A.L = L, A.WP = WP, A.relu = relu;                                   \
+    A.lda = (size_t)R * WP;                                                                \
+    A.ldg = (size_t)R * HC;                                                                \
+    return launch_fwd_wg<T, HCV>(A, R, s);                                                 \
+  }
+  if (dtype == 0) {
+    FWD_WG(float, 256)
+  }
+#undef FWD_WG
   return (int)cudaErrorInvalidValue;
 }
 

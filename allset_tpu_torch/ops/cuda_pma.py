@@ -1,9 +1,10 @@
 """Fused PMA epilogue (K2 forward, K3 backward; K2R/K3R with runs).
 
 Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
-``csrc/pma_epilogue_fwd.cu`` (K2), ``csrc/pma_epilogue_wg.cu`` (K3 at HC
-256, WG_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3 at the other widths up
-to 512; the code and design note K2 and it share in
+``csrc/pma_epilogue_fwd.cu`` (K2 up to 512, but f32 at HC 256),
+``csrc/pma_epilogue_wg.cu`` (K3 at HC 256, WG_WIDTHS, and K2 in f32 at
+HC 256, WG_FWD_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3 at the other
+widths up to 512; the code and design note these share in
 ``csrc/pma_epilogue.cuh``)
 replace its ``_fwd_kernel`` and ``_bwd_kernel``,
 both the single-run grids (K2, K3) and the runs grids R > 1 that the
@@ -26,12 +27,15 @@ bit for bit. At HC 256 (WG_WIDTHS) K3 runs on Hopper's warpgroup
 products: 64-row tiles over four warpgroups of 64 columns, the weights
 streamed by bulk copies into a ring of shared memory as slabs laid out
 here (:func:`wg_weights`), the rFF inputs and output gradients written
-transposed for the dW pass (:func:`wg_chunk_plan`). K2, and K3 at the
-other widths up to 512, keep each row tile's intermediates in registers
-(16 warps: two row halves, each warp an eighth of the columns; 64-row
-tiles up to HC 256, 32-row tiles above, :func:`tile_rows`) with
-``mma.sync`` products; K2 is a persistent kernel that fetches the next
-tile's rows while it multiplies the current one.
+transposed for the dW pass (:func:`wg_chunk_plan`). K2 in f32 at HC 256
+(WG_FWD_WIDTHS, :func:`fwd_kernel`) runs K3a's forward on the same
+layout, a persistent block over the (run, tile) items reading the forward
+slabs (:func:`wg_fwd_weights`). K2 in bf16, and K2 and K3 at the other
+widths up to 512, keep each row tile's intermediates in registers (16
+warps: two row halves, each warp an eighth of the columns; 64-row tiles
+up to HC 256, 32-row tiles above, :func:`tile_rows`) with ``mma.sync``
+products; that K2 is a persistent kernel that fetches the next tile's
+rows while it multiplies the current one.
 Above 512, at any HC that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``),
 a simpler pair takes HC at run time: f32 FMA products on the CUDA cores,
 intermediates in global scratch, the same per-block partials.
@@ -76,6 +80,11 @@ DW_PARTIALS = 64  # row chunks of K3, each a dW partial (part_w below)
 # in alternating pairs on the card (scripts/k3_parts.py) they beat the
 # 16-warp K3 at HC 256 and lost to it at 64, 128 and 192
 WG_WIDTHS = (256,)
+# K2/K2R on the warpgroup kernel (beside K3a, csrc/pma_epilogue_wg.cu) at
+# these widths in f32: in alternating pairs on the card (PERF.md,
+# scripts/pair_timing.py) it beats the tiled K2 there (the 20-run epoch's
+# K2R) and loses to it in bf16 (the bench step), which keeps the tiled K2
+WG_FWD_WIDTHS = (256,)
 WG_BLOCKS = 132  # K3a's persistent blocks per run: one per SM of an H100
 WG_TILE = 64  # rows per K3a tile
 WG_KSF, WG_KSB = 16, 64  # k rows per weight slab: f32 (TF32 hi and lo), bf16
@@ -323,17 +332,30 @@ def wg_slabs(B: Tensor, ks: int, split: bool) -> Tensor:
     return torch.stack(blocks, dim=nd + 1).contiguous()
 
 
-def wg_weights(Wrff: Tensor, cdt):
-    """The rFF weights [..., L, HC, HC] ([in][out]) as K3a's slabs: the
-    forward products' B = W^T (bf16 on the bf16 path, else TF32 hi | lo;
-    WG_KSB or WG_KSF k-rows a slab) and the backward's dp @ W^T, B = W
-    (TF32 hi | lo, WG_KSF a slab)."""
+def wg_fwd_weights(Wrff: Tensor, cdt) -> Tensor:
+    """The rFF weights [..., L, HC, HC] ([in][out]) as the forward
+    products' slabs of the warpgroup kernels (K2, K3a): B = W^T, bf16 on
+    the bf16 path (WG_KSB k-rows a slab), else TF32 hi | lo (WG_KSF)."""
     Wt = Wrff.transpose(-1, -2)
     if cdt == torch.float32:
-        wf = wg_slabs(Wt.float(), WG_KSF, True)
-    else:
-        wf = wg_slabs(Wt.to(cdt), WG_KSB, False)
-    return wf, wg_slabs(Wrff.float(), WG_KSF, True)
+        return wg_slabs(Wt.float(), WG_KSF, True)
+    return wg_slabs(Wt.to(cdt), WG_KSB, False)
+
+
+def wg_weights(Wrff: Tensor, cdt):
+    """K3a's slabs: the forward products' (:func:`wg_fwd_weights`) and the
+    backward's dp @ W^T, B = W (TF32 hi | lo, WG_KSF a slab)."""
+    return wg_fwd_weights(Wrff, cdt), wg_slabs(Wrff.float(), WG_KSF, True)
+
+
+def fwd_kernel(HC: int, dtype) -> str:
+    """Which K2 serves width HC in ``dtype`` on the card: 'wg' (the
+    warpgroup K2 beside K3a in csrc/pma_epilogue_wg.cu: f32 at
+    WG_FWD_WIDTHS), 'wide' (csrc/pma_epilogue_wide.cu, above 512) or
+    'tiled' (csrc/pma_epilogue_fwd.cu)."""
+    if wide(HC):
+        return "wide"
+    return "wg" if HC in WG_FWD_WIDTHS and dtype == torch.float32 else "tiled"
 
 
 def dw_chunk_plan(rows: int):
@@ -380,12 +402,22 @@ def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
     runs = 1 if R is None else R
     agg = agg.contiguous()
-    if wide(HC):
+    route = fwd_kernel(HC, agg.dtype)
+    if route == "wide":
         return _launch_wide_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
                                 M, WP, HC, L)
-    Wf, Wbt = _weights(Wrff, agg.dtype)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     out = torch.empty(M, runs * HC, dtype=agg.dtype, device=agg.device)
+    if route == "wg":
+        wf = wg_fwd_weights(Wrff, agg.dtype)
+        rc = _kernels.lib().allset_pma_epilogue_fwd_wg(
+            agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(), wf.data_ptr(),
+            brff.data_ptr(), g1.data_ptr(), b1.data_ptr(), out.data_ptr(), M, WP, HC, H, L,
+            runs, int(relu), _kernels.dtype_code(agg), _kernels.stream_ptr(agg),
+        )
+        _kernels.check(rc, "pma_epilogue_fwd (warpgroup)")
+        return out
+    Wf, Wbt = _weights(Wrff, agg.dtype)
     rc = _kernels.lib().allset_pma_epilogue_fwd(
         agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
         Wf.data_ptr(), _ptr(Wbt), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),

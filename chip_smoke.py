@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
      layers in f32 and 2048 with 1 layer in bf16) and K2R/K3R its runs
      grids (HC 256, 512, 640, 768 and 1024, R in {2, 5}; L in {1, 2},
      relu on/off; the widest two at R=2; each run of K2R/K3R also bit for
-     bit against a K2/K3 launch on its slice), K4/K5
+     bit against a K2/K3 launch on its slice; two K2 calls bit for bit;
+     K2 in f32 at HC 256 on the warpgroup kernel beside K3a, the tiled
+     K2 elsewhere), K4/K5
      the PMA score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4), (512,
      8)}, rows not a multiple of the tile; gmax bit-equal, w within 2 f32
      / 1 bf16 ulps, a NaN score reaching gmax, R in {2, 5} bit for bit
@@ -145,11 +147,14 @@ TFLOP/s, f32 products at 3xTF32, 495 / 3 TFLOP/s, except K3's h^T dp
 with h in bf16 at three bf16 products (dp splits into three exact bf16
 parts), the one-hot family's
 f32 at two TF32 products, 495 / 2; other arithmetic at 67 TFLOP/s) and
-one library call's time where one computes the same function (K1 and the
+one library call's time where one computes the same function (K3c:
+torch.sum over both partial tables, dW's and the small vectors'; K1 and the
 B1 family: torch.segment_reduce; the gather inside K1: index_select then
 torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
 B10, B9: index_select; B5, B7, B8: a sum over a view); the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. K2's rows at the main path's shapes (the
+bench step's tiled K2, the epoch's warpgroup K2R) also name their kernel
+and its registers and spills from the build's ptxas output.
 """
 
 from __future__ import annotations
@@ -431,8 +436,9 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
 # (HC, H, WP): the bench and walmart width, the other widths the kernels
 # take (cuda_pma.KERNEL_WIDTHS), and heads up to one column per head (the
 # denominators leave shared memory (DG) for f32 from 192 heads in K2 at
-# HC 192, from 32 heads in K3 and 64 in K2 at HC 256, from 384 in K3 and
-# 128 in K2 at HC 384, from 256 in K3 and 128 in K2 at HC 512)
+# HC 192, from 384 in K3 and 128 in K2 at HC 384, from 256 in K3 and 128
+# in K2 at HC 512; at HC 256 the warpgroup K3 and, in f32, K2 take every
+# head count on a ring of 4, 3 or 2 weight slots)
 EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (192, 192, 384),
               (128, 4, 136),
               (64, 1, 72), (64, 64, 128), (384, 1, 392), (384, 8, 392), (384, 384, 768),
@@ -464,6 +470,9 @@ def check_epilogue(dev, gen):
                 agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
                 seed, g0, b0, W, b, g1, b1 = p
                 y = cp.epilogue_fwd_cuda(agg, seed, g0, b0, W, b, g1, b1, H, relu)
+                require(torch.equal(y, cp.epilogue_fwd_cuda(agg, seed, g0, b0, W, b, g1, b1,
+                                                             H, relu)),
+                        f"two K2 calls differ ({dtype}, HC={HC}, H={H}, M={M}, L={L})")
                 y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
                 got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
                 want = cp.epilogue_bwd_plain(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
@@ -929,7 +938,8 @@ def time_k3_parts(out, suffix, agg, gy, p, H, R, M, HC, WP, L, dt, got, want):
     against its plain version (bwd_rows_plain; one product per chunk and
     layer; the partials added in order) and, for K3b and K3c, one PyTorch
     call of the same function (torch.bmm over the chunks; a sum over
-    them); into out's Tallies pma_bwd_rows, pma_bwd_dw and pma_bwd_reduce
+    them, torch.sum over both partial tables, dW's and the small
+    vectors'); into out's Tallies pma_bwd_rows, pma_bwd_dw and pma_bwd_reduce
     + suffix. R=None: a K3 launch, else K3R's R runs."""
     from allset_tpu_torch.ops import cuda_pma as cp
 
@@ -957,14 +967,21 @@ def time_k3_parts(out, suffix, agg, gy, p, H, R, M, HC, WP, L, dt, got, want):
     parts = torch.bmm(hs.transpose(1, 2), ds).reshape(-1, nch, HC * HC)
     del hs, ds
 
+    # the small vectors' partials: one [8, HC] table per row block of K3a
+    G = min(-(-M // cp.WG_TILE), cp.WG_BLOCKS)
+    small = torch.randn(R or 1, G, 8 * HC, device=agg.device)
+
     def add_in_order():
-        acc = parts[:, 0].clone()
-        for c in range(1, nch):
-            acc += parts[:, c]
-        return acc
+        sums = []
+        for t in (parts, small):
+            acc = t[:, 0].clone()
+            for c in range(1, t.shape[1]):
+                acc += t[:, c]
+            sums.append(acc)
+        return sums
     plain_red = cuda_ms(add_in_order, 1 if R else 5)
-    lib_red = cuda_ms(lambda: parts.sum(dim=1), 1 if R else 5)
-    del parts
+    lib_red = cuda_ms(lambda: (parts.sum(dim=1), small.sum(dim=1)), 1 if R else 5)
+    del parts, small
     err_a = scaled_err(got[0], want[0])[0]
     err_w = scaled_err(got[1], want[1])[0]
     costs = k3_part_costs(M, HC, WP, L, dt, R or 1)
@@ -2678,7 +2695,8 @@ def main() -> int:
     log(f"  nvcc build {_kernels.build_seconds:.1f} s into {_kernels.BUILD_DIR}")
     with open(os.path.join(_kernels.BUILD_DIR, "ptxas.log"), "w") as f:
         f.write(_kernels.build_log)
-    for name, regs, st, ld in ptxas_summary(_kernels.build_log):
+    ptxas = ptxas_summary(_kernels.build_log)
+    for name, regs, st, ld in ptxas:
         log(f"  ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
 
     gen = torch.Generator().manual_seed(0)
@@ -2818,8 +2836,7 @@ def main() -> int:
         "pma_bwd_rows_epoch": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_bwd_dw_epoch": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_bwd_reduce_epoch": (cuh, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
-        "pma_epilogue_fwd_runs": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
-                                  "allset_tpu/ops/pallas_pma.py:365", runs_counts),
+        "pma_epilogue_fwd_runs": (wg, "allset_tpu/ops/pallas_pma.py:365", runs_counts),
         "pma_epilogue_bwd_runs": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_gmax": ("allset_tpu_torch/csrc/pma_pack.cu",
                      "allset_tpu/ops/pallas_pack.py:94", counts),
@@ -2837,10 +2854,9 @@ def main() -> int:
     # the epilogue kernels at the other widths: the bench steps at hidden
     # 384, 512 and 1024 (the wide pair), the CLI runs at 512 and 1024
     wide = "allset_tpu_torch/csrc/pma_epilogue_wide.cu"
-    narrow = {"pma_epilogue_fwd": sources["pma_epilogue_fwd"][0],
-              "pma_epilogue_bwd": k3_384_512,
-              "pma_epilogue_fwd_runs": sources["pma_epilogue_fwd_runs"][0],
-              "pma_epilogue_bwd_runs": k3_384_512}
+    k2 = "allset_tpu_torch/csrc/pma_epilogue_fwd.cu"
+    narrow = {"pma_epilogue_fwd": k2, "pma_epilogue_bwd": k3_384_512,
+              "pma_epilogue_fwd_runs": k2, "pma_epilogue_bwd_runs": k3_384_512}
     for HC in (384, 512, 1024):
         for k in ("pma_epilogue_fwd", "pma_epilogue_bwd"):
             sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1],
@@ -2853,11 +2869,20 @@ def main() -> int:
     log(f"  zoo CLI launches: {zoo_cli_counts}; CE and HyperGCN CLI launches: {ce_cli_counts}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"(the build included) [{card}]")
+    # K2's kernels at the main path's shapes, with their registers and
+    # spills: the tiled K2 (bf16 bench step), the warpgroup K2R (f32 epoch)
+    k2_ptxas = {"pma_epilogue_fwd": "pma_fwd_kernel<__nv_bfloat16, 256, false>",
+                "pma_epilogue_fwd_runs": "pma_fwd_wg_kernel<float, 256, 4>"}
     kernels = []
     for name, (src, rep, cnt) in sources.items():
         base = re.sub(r"_(hc\d+|epoch|b\d+)$", "", name)
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": cnt[base], **timings[name].row()})
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": cnt[base], **timings[name].row()}
+        if name in k2_ptxas:
+            regs, st, ld = next((p[1:] for p in ptxas if k2_ptxas[name] in p[0]),
+                                (None, None, None))
+            row.update(kernel=k2_ptxas[name], registers=regs, spill_stores=st, spill_loads=ld)
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
