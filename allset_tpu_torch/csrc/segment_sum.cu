@@ -33,13 +33,32 @@
 // times scale[run(column) * k + r] when a scale is given, the product
 // rounded to the rows' dtype before the f32 sum, as the exchange's
 // gather, scale and K1 round it in three launches (__fmul_rn: no FMA
-// contraction). Everything else is K1's: the same plan, the same f32
-// additions in row order, the same second pass. So the result is bit for
-// bit that of B10, the scale and K1, and the [k, W] gathered table is
-// never written and read back. The ids of a chunk are read by every
-// thread of the chunk (the same addresses: one L1 line per warp), the
-// row loads depend on them. Bound by bytes as K1: each id once, each
-// gathered row once from L2 or memory, each segment row written once.
+// contraction). The plan, the f32 additions in row order and the second
+// pass are K1's, so the result is bit for bit that of B10, the scale and
+// K1, and the [k, W] gathered table is never written and read back.
+// What bounds it on the H100: the table once from memory, then every
+// gathered row from L2 (k rows of W columns, several times the table on
+// the main path), each segment row written once. Its design
+// (segment_gather_kernel):
+//   * column slabs that stay in L2: the W columns are cut into slabs of
+//     whole 16-byte vectors (ops/cuda_segment.py::slab_plan) such that the
+//     table's rows times a slab's bytes stay under an L2 budget, and the
+//     grid runs slab-major (blockIdx.y is the slab, and blocks start in
+//     order of their linear index), so the blocks resident at any time
+//     read one slab of the table: each table byte comes from memory about
+//     once, the gathered rows from L2. Each slab reads the ids again;
+//   * the ids, the chunks' segment offsets and the scale staged once per
+//     block: a block holds a few whole chunks of one slab (a thread per
+//     chunk and 16-byte vector) and loads their ids (clamped), indptr
+//     and scale entries into shared memory with coalesced loads before any
+//     row load, so no row load waits on an id load; each thread keeps 4
+//     row loads in flight (8 took more registers a thread, 64-80 against
+//     48-64, so fewer resident warps, and were slower at the bench step's
+//     and the 20-run epoch's shapes, PERF.md section 6);
+//   * L2 hints: the table's rows evict last, the ids and the output rows
+//     stream through (evict first).
+// The slab changes which columns run when, not the order of additions
+// within a column: the bits are those of the one-slab grid.
 // A run r of the folded width takes the scale's row r (run_w columns a
 // run, nruns runs; a column past the last run, the zero padding of a
 // width that is not a multiple of 8, takes the last run's).
@@ -150,38 +169,18 @@ __device__ __forceinline__ void add_scaled(float* acc, uint4 v, const float* s) 
   for (int i = 0; i < V; ++i) acc[i] += round_to(__fmul_rn(x[i], s[i]), T());
 }
 
-// Where pass 1 reads its rows: msgs[r] (K1), or the gathered w[ids[r]]
-// with its optional scale (the gather inside K1).
-template <typename T, typename I>
-struct Gathered {
-  const I* ids;
-  const T* scale;  // [nruns, k] in the rows' dtype, or null
-  long long rows;
-  int k, run_w, nruns;
-};
-
 // Pass 1: thread (chunk c, vector v). chunks[c] = row0, row1, seg_lo,
 // seg_hi, head_row, tail_row (graph/incidence.py::SegPlan).
-template <typename T, typename I, bool GATHER>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-segment_chunks_kernel(const T* __restrict__ msgs, Gathered<T, I> gs,
-                      const int* __restrict__ indptr, const int* __restrict__ chunks,
-                      int nchunks, int W, T* __restrict__ out, float* __restrict__ part) {
+segment_chunks_kernel(const T* __restrict__ msgs, const int* __restrict__ indptr,
+                      const int* __restrict__ chunks, int nchunks, int W, T* __restrict__ out,
+                      float* __restrict__ part) {
   constexpr int V = Vec<T>::N;
   const int nvec = W / V;
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (g >= (long long)nchunks * nvec) return;
   const int c = (int)(g / nvec), v = (int)(g % nvec);
-  // the scale's row offset of each of this thread's V columns
-  long long soff[V];
-  bool one_run = true;
-  if (GATHER && gs.scale) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      soff[i] = (long long)min((v * V + i) / gs.run_w, gs.nruns - 1) * gs.k;
-      one_run &= soff[i] == soff[0];
-    }
-  }
   const int* ch = chunks + 6 * c;
   const int r0 = ch[0], r1 = ch[1], hi = ch[3], head_row = ch[4], tail_row = ch[5];
   int s = ch[2];
@@ -205,18 +204,9 @@ segment_chunks_kernel(const T* __restrict__ msgs, Gathered<T, I> gs,
   for (int r = r0; r < r1; r += 4) {
     const int nr = min(4, r1 - r);
     uint4 x[4];
-    long long src[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      src[u] = r + u;
-      if (GATHER && u < nr) {
-        const long long id = (long long)gs.ids[r + u];
-        src[u] = id < 0 ? 0 : (id >= gs.rows ? gs.rows - 1 : id);
-      }
-    }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (u < nr) x[u] = load16(p + (size_t)src[u] * W);
+      if (u < nr) x[u] = load16(p + (size_t)(r + u) * W);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       if (u < nr) {
@@ -225,15 +215,141 @@ segment_chunks_kernel(const T* __restrict__ msgs, Gathered<T, I> gs,
           ++s;
           seg_end = min(indptr[s + 1], r1);
         }
-        if (GATHER && gs.scale) {
+        add_vec(acc, x[u], T());
+      }
+    }
+  }
+  for (; s < hi; ++s) flush(s);  // the last segment and trailing empty ones
+}
+
+// L2 hints of the gather inside K1: the table's rows are loaded with an
+// evict-last policy (they are read again by other chunks of the slab),
+// the ids and the output rows pass through as streams (evict first)
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ uint4 load16_last(const void* p, uint64_t pol) {
+  uint4 v;
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void store_vec_cs(float* p, const float* acc) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(acc[0], acc[1], acc[2], acc[3]));
+}
+
+__device__ __forceinline__ void store_vec_cs(__nv_bfloat16* p, const float* acc) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), v);
+}
+
+// Pass 1 of the gather inside K1: block (chunk group, slab) of cpb whole
+// chunks, threads (chunk lc, vector v) of the slab's nv vectors. Dynamic
+// shared memory: ids [cpb * max_rows] (clamped), indptr [cpb * max_segs +
+// 1], and with a scale [nrs, cpb * max_rows] f32 for the runs the slab
+// touches.
+constexpr int kInflight = 4;  // row loads in flight a thread (see above)
+
+template <typename T, typename I, bool SCALE>
+__global__ void __launch_bounds__(kThreads)
+segment_gather_kernel(const T* __restrict__ w, long long rows, const I* __restrict__ ids,
+                      const T* __restrict__ scale, int k, int run_w, int nruns,
+                      const int* __restrict__ indptr, const int* __restrict__ chunks,
+                      int nchunks, int W, int slab_vecs, int cpb, int max_rows, int max_segs,
+                      T* __restrict__ out, float* __restrict__ part) {
+  constexpr int V = Vec<T>::N;
+  extern __shared__ int smem[];
+  const int nvec = W / V;
+  const int v0 = blockIdx.y * slab_vecs, nv = min(slab_vecs, nvec - v0);
+  const int c0 = blockIdx.x * cpb, c1 = min(c0 + cpb, nchunks);
+  const int rb0 = chunks[6 * c0], rb1 = chunks[6 * (c1 - 1) + 1];
+  const int sb0 = chunks[6 * c0 + 2], sb1 = chunks[6 * (c1 - 1) + 3];
+  const int cap = cpb * max_rows;
+  int* s_ids = smem;
+  int* s_ip = s_ids + cap;
+  float* s_sc = reinterpret_cast<float*>(s_ip + cpb * max_segs + 1);
+  const int nr = rb1 - rb0;
+  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+    const long long id = (long long)__ldcs(ids + rb0 + i);
+    s_ids[i] = (int)(id < 0 ? 0 : (id >= rows ? rows - 1 : id));
+  }
+  for (int i = threadIdx.x; i <= sb1 - sb0; i += blockDim.x) s_ip[i] = indptr[sb0 + i];
+  int run_lo = 0;
+  if (SCALE) {
+    run_lo = min(v0 * V / run_w, nruns - 1);
+    const int run_hi = min(((v0 + nv) * V - 1) / run_w, nruns - 1);
+    for (int i = threadIdx.x; i < (run_hi - run_lo + 1) * nr; i += blockDim.x) {
+      const int j = i / nr, rr = i - j * nr;
+      s_sc[j * cap + rr] = to_f(scale[(size_t)(run_lo + j) * k + rb0 + rr]);
+    }
+  }
+  __syncthreads();
+  const int lc = threadIdx.x / nv;
+  if (lc >= c1 - c0) return;
+  const int v = v0 + threadIdx.x % nv;
+  const int* ch = chunks + 6 * (c0 + lc);
+  const int r0 = ch[0], r1 = ch[1], hi = ch[3], head_row = ch[4], tail_row = ch[5];
+  int s = ch[2];
+  // the staged scale's row of each of this thread's V columns
+  int srow[V];
+  bool one_run = true;
+  if (SCALE) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      srow[i] = (min((v * V + i) / run_w, nruns - 1) - run_lo) * cap - rb0;
+      one_run &= srow[i] == srow[0];
+    }
+  }
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  const int* ip = s_ip - sb0;  // ip[seg] = indptr[seg] for the block's segments
+  auto flush = [&](int seg) {
+    const size_t col = (size_t)v * V;
+    if (ip[seg] < r0)
+      store_part<V>(part + (size_t)head_row * W + col, acc);
+    else if (ip[seg + 1] > r1)
+      store_part<V>(part + (size_t)tail_row * W + col, acc);
+    else
+      store_vec_cs(out + (size_t)seg * W + col, acc);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  };
+  const uint64_t pol = evict_last_policy();
+  const T* p = w + (size_t)v * V;
+  const int* sid = s_ids - rb0;  // sid[r] = clamp(ids[r])
+  int seg_end = s < hi ? min(ip[s + 1], r1) : r1;
+  for (int r = r0; r < r1; r += kInflight) {
+    const int n = min(kInflight, r1 - r);
+    uint4 x[kInflight];
+#pragma unroll
+    for (int u = 0; u < kInflight; ++u)
+      if (u < n) x[u] = load16_last(p + (size_t)sid[r + u] * W, pol);
+#pragma unroll
+    for (int u = 0; u < kInflight; ++u) {
+      if (u < n) {
+        while (r + u >= seg_end) {  // segment s ends before this row
+          flush(s);
+          ++s;
+          seg_end = min(ip[s + 1], r1);
+        }
+        if (SCALE) {
           float sc[V];
           if (one_run) {
-            const float s0 = to_f(gs.scale[soff[0] + r + u]);
+            const float s0 = s_sc[srow[0] + r + u];
 #pragma unroll
             for (int i = 0; i < V; ++i) sc[i] = s0;
           } else {
 #pragma unroll
-            for (int i = 0; i < V; ++i) sc[i] = to_f(gs.scale[soff[i] + r + u]);
+            for (int i = 0; i < V; ++i) sc[i] = s_sc[srow[i] + r + u];
           }
           add_scaled<T>(acc, x[u], sc);
         } else {
@@ -281,22 +397,10 @@ segment_combine_kernel(const float* __restrict__ part, const int* __restrict__ c
   if (threadIdx.x < nv) store_vec(out + (size_t)seg * W + (size_t)(v0 + threadIdx.x) * V, acc);
 }
 
-template <typename T, typename I, bool GATHER>
-int launch(const void* msgs, Gathered<T, I> gs, const void* indptr, const void* chunks,
-           int nchunks, const void* cuts, int ncut, void* part, void* out, int W,
-           cudaStream_t s) {
-  const long long nvec = W / Vec<T>::N;
-  const long long n1 = nchunks * nvec;
-  const long long n2 = ncut * ((nvec + kCombineVecs - 1) / kCombineVecs);
-  if (n1 > 0) {
-    segment_chunks_kernel<T, I, GATHER>
-        <<<(unsigned)((n1 + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            static_cast<const T*>(msgs), gs, static_cast<const int*>(indptr),
-            static_cast<const int*>(chunks), nchunks, W, static_cast<T*>(out),
-            static_cast<float*>(part));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+template <typename T>
+int launch_combine(const void* cuts, int ncut, const void* part, void* out, int W,
+                   cudaStream_t s) {
+  const long long n2 = (long long)ncut * ((W / Vec<T>::N + kCombineVecs - 1) / kCombineVecs);
   if (n2 > 0)
     segment_combine_kernel<T><<<(unsigned)n2, kThreads, 0, s>>>(
         static_cast<const float*>(part), static_cast<const int*>(cuts), W,
@@ -304,13 +408,59 @@ int launch(const void* msgs, Gathered<T, I> gs, const void* indptr, const void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename I>
+template <typename T>
+int launch(const void* msgs, const void* indptr, const void* chunks, int nchunks,
+           const void* cuts, int ncut, void* part, void* out, int W, cudaStream_t s) {
+  const long long n1 = (long long)nchunks * (W / Vec<T>::N);
+  if (n1 > 0) {
+    segment_chunks_kernel<T><<<(unsigned)((n1 + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        static_cast<const T*>(msgs), static_cast<const int*>(indptr),
+        static_cast<const int*>(chunks), nchunks, W, static_cast<T*>(out),
+        static_cast<float*>(part));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return launch_combine<T>(cuts, ncut, part, out, W, s);
+}
+
+template <typename T, typename I, bool SCALE>
 int launch_gather(const void* w, long long rows, const void* ids, const void* scale, int k,
                   int run_w, int nruns, const void* indptr, const void* chunks, int nchunks,
-                  const void* cuts, int ncut, void* part, void* out, int W, cudaStream_t s) {
-  const Gathered<T, I> gs{static_cast<const I*>(ids), static_cast<const T*>(scale), rows, k,
-                          run_w, nruns};
-  return launch<T, I, true>(w, gs, indptr, chunks, nchunks, cuts, ncut, part, out, W, s);
+                  const void* cuts, int ncut, void* part, void* out, int W, int slab_vecs,
+                  int slabs, int cpb, int threads, int smem, int max_rows, int max_segs,
+                  cudaStream_t s) {
+  if (nchunks > 0) {
+    auto kern = segment_gather_kernel<T, I, SCALE>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid((unsigned)((nchunks + cpb - 1) / cpb), (unsigned)slabs);
+    kern<<<grid, threads, smem, s>>>(
+        static_cast<const T*>(w), rows, static_cast<const I*>(ids), static_cast<const T*>(scale),
+        k, run_w, nruns, static_cast<const int*>(indptr), static_cast<const int*>(chunks),
+        nchunks, W, slab_vecs, cpb, max_rows, max_segs, static_cast<T*>(out),
+        static_cast<float*>(part));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return launch_combine<T>(cuts, ncut, part, out, W, s);
+}
+
+template <typename T, typename I>
+int launch_gather_scaled(const void* w, long long rows, const void* ids, const void* scale,
+                         int k, int run_w, int nruns, const void* indptr, const void* chunks,
+                         int nchunks, const void* cuts, int ncut, void* part, void* out, int W,
+                         int slab_vecs, int slabs, int cpb, int threads, int smem, int max_rows,
+                         int max_segs, cudaStream_t s) {
+  if (scale)
+    return launch_gather<T, I, true>(w, rows, ids, scale, k, run_w, nruns, indptr, chunks,
+                                     nchunks, cuts, ncut, part, out, W, slab_vecs, slabs, cpb,
+                                     threads, smem, max_rows, max_segs, s);
+  return launch_gather<T, I, false>(w, rows, ids, scale, k, run_w, nruns, indptr, chunks,
+                                    nchunks, cuts, ncut, part, out, W, slab_vecs, slabs, cpb,
+                                    threads, smem, max_rows, max_segs, s);
 }
 
 }  // namespace
@@ -325,36 +475,48 @@ int allset_segment_sum(const void* msgs, const void* indptr, const void* chunks,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (W <= 0) return (int)cudaGetLastError();
   if (dtype == 0)
-    return launch<float, int, false>(msgs, {}, indptr, chunks, nchunks, cuts, ncut, part, out,
-                                     W, s);
-  return launch<__nv_bfloat16, int, false>(msgs, {}, indptr, chunks, nchunks, cuts, ncut, part,
-                                           out, W, s);
+    return launch<float>(msgs, indptr, chunks, nchunks, cuts, ncut, part, out, W, s);
+  return launch<__nv_bfloat16>(msgs, indptr, chunks, nchunks, cuts, ncut, part, out, W, s);
 }
 
 // The gather inside K1: out[m] = sum over indptr[m] <= r < indptr[m+1] of
 // w[clamp(ids[r])] (times scale[min(col / run_w, nruns - 1) * k + r],
 // rounded to the dtype, where scale is not null). w [rows, W], ids [k]
-// int32 (ids64 = 0) or int64, scale [nruns, k] in w's dtype.
+// int32 (ids64 = 0) or int64, scale [nruns, k] in w's dtype. The launch
+// (ops/cuda_segment.py::gather_launch): `slabs` slabs of slab_vecs 16-byte
+// vectors (the last one may be narrower), cpb chunks and `threads` threads
+// a block, smem bytes of staging; max_rows, max_segs: the plan's largest
+// chunk.
 int allset_segment_sum_gather(const void* w, long long rows, const void* ids, int ids64,
                               const void* scale, int k, int run_w, int nruns,
                               const void* indptr, const void* chunks, int nchunks,
                               const void* cuts, int ncut, void* part, void* out, int W,
-                              int dtype, void* stream) {
+                              int dtype, int slab_vecs, int slabs, int cpb, int threads, int smem,
+                              int max_rows, int max_segs, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (W <= 0) return (int)cudaGetLastError();
-  if (rows <= 0 || run_w <= 0 || nruns <= 0) return (int)cudaErrorInvalidValue;
+  const long long nvec = W / (dtype == 0 ? 4 : 8);
+  if (rows <= 0 || rows > 0x7fffffffLL || run_w <= 0 || nruns <= 0 || slab_vecs <= 0 ||
+      slabs <= 0 || (long long)(slabs - 1) * slab_vecs >= nvec ||
+      (long long)slabs * slab_vecs < nvec || cpb <= 0 || threads <= 0 || threads > kThreads ||
+      cpb * slab_vecs > threads)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (ids64)
-      return launch_gather<float, long long>(w, rows, ids, scale, k, run_w, nruns, indptr,
-                                             chunks, nchunks, cuts, ncut, part, out, W, s);
-    return launch_gather<float, int>(w, rows, ids, scale, k, run_w, nruns, indptr, chunks,
-                                     nchunks, cuts, ncut, part, out, W, s);
+      return launch_gather_scaled<float, long long>(
+          w, rows, ids, scale, k, run_w, nruns, indptr, chunks, nchunks, cuts, ncut, part, out,
+          W, slab_vecs, slabs, cpb, threads, smem, max_rows, max_segs, s);
+    return launch_gather_scaled<float, int>(w, rows, ids, scale, k, run_w, nruns, indptr, chunks,
+                                            nchunks, cuts, ncut, part, out, W, slab_vecs, slabs,
+                                            cpb, threads, smem, max_rows, max_segs, s);
   }
   if (ids64)
-    return launch_gather<__nv_bfloat16, long long>(w, rows, ids, scale, k, run_w, nruns, indptr,
-                                                   chunks, nchunks, cuts, ncut, part, out, W, s);
-  return launch_gather<__nv_bfloat16, int>(w, rows, ids, scale, k, run_w, nruns, indptr, chunks,
-                                           nchunks, cuts, ncut, part, out, W, s);
+    return launch_gather_scaled<__nv_bfloat16, long long>(
+        w, rows, ids, scale, k, run_w, nruns, indptr, chunks, nchunks, cuts, ncut, part, out, W,
+        slab_vecs, slabs, cpb, threads, smem, max_rows, max_segs, s);
+  return launch_gather_scaled<__nv_bfloat16, int>(
+      w, rows, ids, scale, k, run_w, nruns, indptr, chunks, nchunks, cuts, ncut, part, out, W,
+      slab_vecs, slabs, cpb, threads, smem, max_rows, max_segs, s);
 }
 
 const char* allset_error_string(int err) {

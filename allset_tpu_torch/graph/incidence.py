@@ -76,12 +76,17 @@ class SegPlan:
         at its end to partial row tail_row; -1 where unused);
     cuts: i32[Q, 3] = seg, first partial row, count: segment seg is the
         in-order sum of partial rows [first, first + count), one per chunk
-        it touches, in chunk order.
+        it touches, in chunk order;
+    max_rows, max_segs: the most rows (row1 - row0) and segments (seg_hi -
+        seg_lo) of any chunk, which size the gather inside K1's staged ids
+        and offsets.
     """
 
     chunks: Tensor
     cuts: Tensor
     num_partials: int
+    max_rows: int
+    max_segs: int
 
     def to(self, device) -> "SegPlan":
         return _to(self, device)
@@ -141,7 +146,8 @@ def chunk_plan(indptr, budget: int = ROW_BUDGET) -> SegPlan:
     tail_row[first - 1] = row  # the chunk where the segment starts
     chunks = np.stack([r0, r1, lo, hi, head_row, tail_row], axis=1).astype(np.int32)
     cuts = np.stack([lo[first], row, count], axis=1).astype(np.int32).reshape(-1, 3)
-    return SegPlan(chunks=_t(chunks), cuts=_t(cuts), num_partials=int(count.sum()))
+    return SegPlan(chunks=_t(chunks), cuts=_t(cuts), num_partials=int(count.sum()),
+                   max_rows=int((r1 - r0).max()), max_segs=int((hi - lo).max()))
 
 
 @dataclasses.dataclass(frozen=True)

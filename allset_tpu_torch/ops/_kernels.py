@@ -62,15 +62,15 @@ _SIGNATURES = {
     "allset_pma_epilogue_fwd_wg": [P] * 9 + [I] * 8 + [P],
     "allset_pma_epilogue_bwd": [P] * 17 + [I] * 12 + [P],
     "allset_pma_epilogue_bwd_wg": [P] * 17 + [I] * 13 + [P],
-    "allset_pma_gmax": [P] * 3 + [I] * 6 + [P],
-    "allset_pma_pack": [P] * 5 + [I] * 6 + [P],
+    "allset_pma_score_pack": [P] * 7 + [I] * 9 + [P],
     "allset_layer_norm_fwd": [P] * 4 + [LL, I, I, LL, LL, I, I, P],
     "allset_layer_norm_bwd": [P] * 8 + [LL, I, I, LL, LL, I, I, I, P],
     "allset_pma_wide_fwd": [P] * 10 + [I] * 9 + [P],
     "allset_pma_wide_bwd": [P] * 17 + [I] * 9 + [P],
     "allset_gather": [P, P, I, P, LL, LL, LL, P],
     "allset_gather_sorted": [P, P, I, P, LL, LL, LL, P],
-    "allset_segment_sum_gather": [P, LL, P, I, P, I, I, I, P, P, I, P, I, P, P, I, I, P],
+    "allset_segment_sum_gather": [P, LL, P, I, P, I, I, I, P, P, I, P, I, P, P, I, I] + [I] * 7
+                                 + [P],
     "allset_segsum_onehot": [P, P, P, LL] + [I] * 9 + [P, I, P],
     "allset_stream": [P, P, P] + [I] * 5 + [P, P, I, P],
 }

@@ -11,8 +11,15 @@ padded with zero GEMM columns to ``WP = packed_width(HC, H)``:
     w     = [(yf[:, :HC] + bV) * expand(e) | e | 0]   K5, [rows, WP]
 
 On the TPU the kernels sat behind an opt-in gate; here every PMA forward
-of a CUDA tensor launches them. Both are bound by bytes on the H100: K5
-reads yf once and writes w once, K4 reads only the score columns. The
+of a CUDA tensor launches them, in one host call (``pack_fwd``: K4, then
+K5, on the current stream); ``gmax_cuda`` and ``pack_cuda`` launch one of
+them through the same C entry. Both are bound by bytes on the H100: K5
+reads yf once and writes w once, K4 reads only the score columns. K4 is
+one launch that writes gmax itself: each block folds its maxima into a
+row of a scratch table, and the last block of each run (an atomic ticket
+that wraps back to zero, so the per-device tickets, kept beside the
+scratch in ``_Workspace``, need no memset) folds the rows; the grid
+comes from ``gmax_grid``. The
 backward is the vjp of the plain composition with gmax detached, as the
 JAX package's ``custom_vjp`` takes it, written out (``pack_vjp``) from
 the saved yf and K4's gmax: the same ops autograd would run through
@@ -42,6 +49,9 @@ Tensor = torch.Tensor
 
 NEGATIVE_SLOPE = 0.2  # PMA's leaky_relu on the seed scores
 MAX_HEADS = 256  # K4's shared-memory table
+GMAX_THREADS = 256  # K4's block (csrc/pma_pack.cu THREADS)
+GMAX_INFLIGHT = 8  # head vectors a K4 thread loads at once
+GMAX_BLOCKS_PER_SM = 4  # K4's grid fills this many blocks on every SM
 
 
 def _alpha(yf: Tensor, ba: Tensor, H: int, HC: int) -> Tensor:
@@ -108,65 +118,148 @@ def pack_vjp(gw: Tensor, yf: Tensor, bV: Tensor, ba: Tensor, gmax: Tensor, H: in
 
 
 def _check_cuda_args(yf: Tensor, ba: Tensor, H: int, HC: int):
-    """Validate a K4/K5 launch; yf is [rows, WP] (one run, ba [H]) or [rows,
-    R, WP] (ba [R, H]). Returns (rows, R, WP)."""
-    if not (yf.is_cuda and ba.device == yf.device):
+    """Validate a K4/K5 launch on yf [rows, WP] (one run, ba [H]) or [rows,
+    R, WP] (ba [R, H]): contiguous, 16-byte aligned, on ba's CUDA device,
+    H <= MAX_HEADS dividing HC, WP % 8 == 0 and WP >= HC + H. Returns
+    (rows, R, WP)."""
+    if not (yf.is_cuda and ba.get_device() == yf.get_device()):
         raise ValueError("the PMA pack kernels need yf and ba on one CUDA device")
+    if not (yf.is_contiguous() and yf.data_ptr() % 16 == 0):
+        raise ValueError("the PMA pack kernels need yf contiguous and 16-byte aligned")
     runs = yf.dim() == 3
     R = yf.shape[1] if runs else 1
     WP = yf.shape[-1]
-    if not (yf.dim() in (2, 3) and yf.is_contiguous() and yf.data_ptr() % 16 == 0
-            and ba.shape == ((R,) if runs else ()) + (H,)
+    if not (yf.dim() in (2, 3) and ba.shape == ((R,) if runs else ()) + (H,)
             and 0 < H <= MAX_HEADS and HC % H == 0 and WP % 8 == 0 and WP >= HC + H):
         raise ValueError(
-            f"unsupported pack shape: yf {tuple(yf.shape)} (contiguous, 16-byte "
-            f"aligned), ba {tuple(ba.shape)}, HC={HC}, H={H} (need H <= {MAX_HEADS} "
-            "dividing HC, WP % 8 == 0, WP >= HC + H)")
+            f"unsupported pack shape: yf {tuple(yf.shape)}, ba {tuple(ba.shape)}, HC={HC}, "
+            f"H={H} (need H <= {MAX_HEADS} dividing HC, WP % 8 == 0, WP >= HC + H)")
     return yf.shape[0], R, WP
 
 
-def gmax_cuda(yf: Tensor, ba: Tensor, H: int, HC: int) -> Tensor:
-    """Launch K4 -> f32 gmax [H] ([R, H] for yf [rows, R, WP])."""
+def head_vec(HC: int, H: int, WP: int, item: int) -> int:
+    """Heads a K4 thread loads at once: the widest vector, from 16 bytes
+    down to one element, that H, HC and WP keep aligned (the kernel's
+    ``launch_gmax``)."""
+    vh = 16 // item
+    while vh > 1 and (H % vh or HC % vh or WP % vh):
+        vh //= 2
+    return vh
+
+
+def gmax_grid(rows: int, R: int, H: int, vh: int, sms: int) -> int:
+    """K4's blocks a run: enough that each thread loads at least
+    GMAX_INFLIGHT head vectors, at most what fills every SM with
+    GMAX_BLOCKS_PER_SM blocks over the R runs; at least one."""
+    want = -(-rows * (H // vh) // (GMAX_INFLIGHT * GMAX_THREADS))
+    return max(1, min(want, sms * GMAX_BLOCKS_PER_SM // R))
+
+
+class _Workspace:
+    """K4's per-device tickets (zero at rest: the kernel resets them) and
+    scratch, and the launch geometry by shape. The two are apart so that
+    no launch's scratch reaches another's tickets."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.tickets = torch.zeros(0, dtype=torch.int32, device=dev)
+        self.scratch = torch.empty(0, dtype=torch.int32, device=dev)
+        self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.geom = {}
+
+    def args(self, rows: int, R: int, WP: int, HC: int, H: int, item: int) -> tuple:
+        """(blocks, tickets pointer, scratch pointer, head vector) of a K4
+        launch."""
+        key = (rows, R, WP, HC, H, item)
+        g = self.geom.get(key)
+        if g is None:
+            vh = head_vec(HC, H, WP, item)
+            blocks = gmax_grid(rows, R, H, vh, self.sms)
+            # a buffer outgrown is replaced (tickets zeroed once): the old
+            # pointers go
+            if self.tickets.numel() < R:
+                self.tickets = torch.zeros(R, dtype=torch.int32, device=self.dev)
+                self.geom.clear()
+            if self.scratch.numel() < R * blocks * H:
+                self.scratch = torch.empty(R * blocks * H, dtype=torch.int32, device=self.dev)
+                self.geom.clear()
+            g = self.geom[key] = (blocks, self.tickets.data_ptr(), self.scratch.data_ptr(), vh)
+        return g
+
+
+_workspaces = {}  # CUDA device index -> _Workspace
+
+
+def _workspace(t: Tensor) -> _Workspace:
+    """The workspace of t's CUDA device."""
+    ws = _workspaces.get(t.get_device())
+    if ws is None:
+        ws = _workspaces[t.get_device()] = _Workspace(t.device)
+    return ws
+
+
+K4, K5 = 1, 2  # the parts of a pack launch (allset_pma_score_pack)
+
+
+def _launch(yf: Tensor, bV, ba: Tensor, gmax: Tensor, H: int, HC: int, parts: int):
+    """One call of the pack's C entry: K4 into gmax (parts & K4), then K5
+    from gmax (parts & K5) -> w [rows, R*WP], or None without K5. gmax:
+    f32, contiguous, ba's shape, on yf's device."""
     rows, R, WP = _check_cuda_args(yf, ba, H, HC)
-    gmax = torch.zeros(ba.shape, dtype=torch.float32, device=yf.device)
+    blocks = tickets = scratch = vh = 0
+    if parts & K4:
+        blocks, tickets, scratch, vh = _workspace(yf).args(rows, R, WP, HC, H,
+                                                           yf.element_size())
+    w = None
+    if parts & K5:
+        if not (bV.shape == ba.shape[:-1] + (HC,) and bV.device == yf.device):
+            raise ValueError(f"pack: bV {tuple(bV.shape)} must match ba {tuple(ba.shape)} "
+                             f"and HC={HC} on yf's device")
+        bV = bV.float().contiguous()
+        w = torch.empty(rows, R * WP, dtype=yf.dtype, device=yf.device)
     ba = ba.float().contiguous()
-    rc = _kernels.lib().allset_pma_gmax(
-        yf.data_ptr(), ba.data_ptr(), gmax.data_ptr(), rows, R, WP, HC, H,
-        _kernels.dtype_code(yf), _kernels.stream_ptr(yf),
+    rc = _kernels.lib().allset_pma_score_pack(
+        yf.data_ptr(), None if bV is None else bV.data_ptr(), ba.data_ptr(), gmax.data_ptr(),
+        None if w is None else w.data_ptr(), scratch, tickets, blocks, vh, rows, R, WP, HC, H,
+        _kernels.dtype_code(yf), parts, _kernels.stream_ptr(yf),
     )
-    _kernels.check(rc, "pma_gmax")
-    _kernels.launches["pma_gmax"] += 1
+    _kernels.check(rc, "pma_score_pack")
+    if parts & K4:
+        _kernels.launches["pma_gmax"] += 1
+    if parts & K5:
+        _kernels.launches["pma_pack"] += 1
+    return w
+
+
+def gmax_cuda(yf: Tensor, ba: Tensor, H: int, HC: int) -> Tensor:
+    """Launch K4 alone -> f32 gmax [H] ([R, H] for yf [rows, R, WP])."""
+    gmax = ba.new_empty(ba.shape, dtype=torch.float32)
+    _launch(yf, None, ba, gmax, H, HC, K4)
     return gmax
 
 
 def pack_cuda(yf: Tensor, bV: Tensor, ba: Tensor, gmax: Tensor, H: int) -> Tensor:
-    """Launch K5 with K4's gmax -> w [rows, WP] ([rows, R*WP] for yf [rows,
-    R, WP])."""
-    HC = bV.shape[-1]
-    rows, R, WP = _check_cuda_args(yf, ba, H, HC)
-    if not (bV.shape == ba.shape[:-1] + (HC,) and gmax.shape == ba.shape
-            and gmax.dtype == torch.float32
-            and bV.device == gmax.device == yf.device):
-        raise ValueError(f"pack_cuda: bV {tuple(bV.shape)} and f32 gmax "
-                         f"{tuple(gmax.shape)} must match ba {tuple(ba.shape)}")
-    bV, ba, gmax = (t.float().contiguous() for t in (bV, ba, gmax))
-    w = torch.empty(rows, R * WP, dtype=yf.dtype, device=yf.device)
-    rc = _kernels.lib().allset_pma_pack(
-        yf.data_ptr(), bV.data_ptr(), ba.data_ptr(), gmax.data_ptr(), w.data_ptr(),
-        rows, R, WP, HC, H, _kernels.dtype_code(yf), _kernels.stream_ptr(yf),
-    )
-    _kernels.check(rc, "pma_pack")
-    _kernels.launches["pma_pack"] += 1
-    return w
+    """Launch K5 alone with K4's gmax -> w [rows, WP] ([rows, R*WP] for yf
+    [rows, R, WP])."""
+    if not (gmax.shape == ba.shape and gmax.dtype == torch.float32 and gmax.is_contiguous()
+            and gmax.get_device() == yf.get_device()):
+        raise ValueError(f"pack_cuda: gmax must be f32 {tuple(ba.shape)} on yf's device")
+    return _launch(yf, bV, ba, gmax, H, bV.shape[-1], K5)
+
+
+def score_pack_cuda(yf: Tensor, bV: Tensor, ba: Tensor, H: int) -> tuple:
+    """The pack's forward on the card: K4 then K5 in one host call ->
+    (w, gmax)."""
+    gmax = ba.new_empty(ba.shape, dtype=torch.float32)
+    return _launch(yf, bV, ba, gmax, H, bV.shape[-1], K4 | K5), gmax
 
 
 def pack_fwd(yf: Tensor, bV: Tensor, ba: Tensor, H: int) -> tuple:
-    """The forward alone -> (w, gmax): K4 then K5 on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    """The forward alone -> (w, gmax): K4 then K5 in one host call on a
+    CUDA tensor, the plain version on a CPU tensor."""
     HC = bV.shape[-1]
     if yf.is_cuda:
-        gmax = gmax_cuda(yf, ba, H, HC)
-        return pack_cuda(yf, bV, ba, gmax, H), gmax
+        return score_pack_cuda(yf, bV, ba, H)
     if yf.device.type == "cpu":
         if yf.dim() == 2:
             gmax = gmax_plain(yf, ba, H, HC)

@@ -20,9 +20,14 @@ is a plain version that follows the kernel's order of additions.
 reads row r as ``w[clamp(ids[r])]``, scaled by a per-entry weight rounded
 to the rows' dtype, so it gives bit for bit what B10's gather, the scale
 and K1 give in three launches, without writing the [k, W] gathered table
-(counter ``segment_sum_gather``). Its plain version is
-``segment_sum_plain`` of the scaled gathered rows;
-``gather_segment_sum_planned`` follows the kernel's order of additions.
+(counter ``segment_sum_gather``). It runs slab by slab of columns
+(``slab_plan``: the table's rows times a slab's bytes under
+``L2_BUDGET``, so each slab of the table stays in the H100's 50 MB L2
+while every chunk gathers from it), with each block's ids, segment
+offsets and scale staged in shared memory (``gather_launch``). Its plain
+version is ``segment_sum_plain`` of the scaled gathered rows;
+``gather_segment_sum_planned`` follows the kernel's order of additions
+(which the slabs do not change: a column's sum is the same in any slab).
 """
 
 from __future__ import annotations
@@ -34,6 +39,15 @@ from allset_tpu_torch.ops import _kernels
 from allset_tpu_torch.ops.cuda_gather import gather_fwd_plain
 
 Tensor = torch.Tensor
+
+# Bytes of a table slab that the gather inside K1 keeps in the H100's
+# 50 MB L2 while every chunk reads it: the budget chosen by
+# scripts/gather_slabs.py's sweep (PERF.md §6)
+L2_BUDGET = 40 << 20
+_THREADS = 256  # the gather kernel's largest block (csrc/segment_sum.cu kThreads)
+_SMEM = 48 * 1024  # staging bytes a block takes without an opt-in
+# the gather inside K1's last launch: its slabs and their columns
+last_launch = {"slabs": 0, "cols": 0}
 
 
 def segment_sum_plain(msgs: Tensor, indptr: Tensor, num_seg: int) -> Tensor:
@@ -162,17 +176,47 @@ def gather_segment_sum_planned(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: 
     return segment_sum_planned(_gathered(w, ids, norm), indptr, num_seg, plan)
 
 
+def slab_plan(rows: int, W: int, item: int, budget: int = L2_BUDGET) -> tuple:
+    """(slab columns, slabs) of the gather inside K1 on a [rows, W] table
+    of ``item``-byte values (W % 8 == 0): slabs of whole 8-column units,
+    as wide as keeps rows * slab bytes within ``budget`` (one unit at
+    least) and at most one block of 16-byte vectors, then evened out over
+    the count; the last slab takes what is left."""
+    units = W // 8
+    per = max(1, min(budget // (rows * 8 * item), _THREADS * 16 // (8 * item)))
+    n = -(-units // per)
+    return -(-units // n) * 8, n
+
+
+def gather_launch(rows: int, W: int, item: int, plan: SegPlan, nruns: int, run_w: int,
+                  scaled: bool, budget: int = L2_BUDGET) -> tuple:
+    """(slab vectors, chunks a block, threads a block, staging bytes,
+    slabs) of the gather inside K1, as the C entry launches them (slabs:
+    the grid's second axis): slab_plan's slabs in 16-byte vectors; as many
+    whole chunks a block as fill _THREADS threads with one thread per
+    chunk and vector, and as fit their staged ids and indptr (and the
+    scale of the runs a slab touches) in _SMEM."""
+    cols, slabs = slab_plan(rows, W, item, budget)
+    vecs = cols * item // 16
+    nrs = min(nruns, (cols - 1) // run_w + 2) if scaled else 0
+    chunk = 4 * (plan.max_rows * (1 + nrs) + plan.max_segs)
+    cpb = max(1, min(_THREADS // vecs, (_SMEM - 4) // max(chunk, 1)))
+    return vecs, cpb, -(-cpb * vecs // 32) * 32, cpb * chunk + 4, slabs
+
+
 def gather_segment_sum_cuda(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int,
-                            plan: SegPlan, norm=None, run_w=None) -> Tensor:
+                            plan: SegPlan, norm=None, run_w=None,
+                            budget: int = L2_BUDGET) -> Tensor:
     """Launch the gather inside K1 on the current stream: w [rows, W] (W %
     8 == 0), ids [k] int32 or int64 (at least indptr[-1] of them are
     read), norm None, [k] or [R, k]: run r's columns, ``run_w`` of them
     (default W / R), take row r, and columns past the last run row R - 1;
-    indptr and its chunk plan as for segment_sum_cuda, all on w's device."""
+    indptr and its chunk plan as for segment_sum_cuda, all on w's device;
+    ``budget``: slab_plan's L2 budget."""
     if not (w.is_cuda and ids.is_cuda and indptr.is_cuda and w.device == ids.device == indptr.device):
         raise ValueError("gather_segment_sum_cuda needs w, ids and indptr on one CUDA device")
-    if w.dim() != 2 or w.shape[1] % 8 != 0 or w.shape[0] == 0:
-        raise ValueError(f"w must be [rows > 0, W] with W % 8 == 0, got {tuple(w.shape)}")
+    if w.dim() != 2 or w.shape[1] % 8 != 0 or not 0 < w.shape[0] < 2 ** 31:
+        raise ValueError(f"w must be [0 < rows < 2^31, W] with W % 8 == 0, got {tuple(w.shape)}")
     if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"ids must be 1-D int32 or int64, got {ids.dtype} {tuple(ids.shape)}")
     if indptr.dtype != torch.int32 or indptr.shape != (num_seg + 1,):
@@ -191,7 +235,11 @@ def gather_segment_sum_cuda(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int
                              f"columns within W, got {tuple(norm.shape)} for k={k}, W={W}, "
                              f"run_w={run_w}")
         scale = norm.to(w.dtype).contiguous()
+    if W == 0:  # no columns: nothing to launch
+        return w.new_empty(num_seg, 0)
     w, ids = w.contiguous(), ids.contiguous()
+    vecs, cpb, threads, smem, slabs = gather_launch(w.shape[0], W, w.element_size(), plan,
+                                                    nruns, run_w, scale is not None, budget)
     out = torch.empty(num_seg, W, dtype=w.dtype, device=w.device)
     part = torch.empty(plan.num_partials, W, dtype=torch.float32, device=w.device)
     rc = _kernels.lib().allset_segment_sum_gather(
@@ -199,10 +247,12 @@ def gather_segment_sum_cuda(w: Tensor, ids: Tensor, indptr: Tensor, num_seg: int
         None if scale is None else scale.data_ptr(), k, run_w, nruns,
         indptr.contiguous().data_ptr(), plan.chunks.data_ptr(), plan.chunks.shape[0],
         plan.cuts.data_ptr(), plan.cuts.shape[0], part.data_ptr(), out.data_ptr(), W,
-        _kernels.dtype_code(w), _kernels.stream_ptr(w),
+        _kernels.dtype_code(w), vecs, slabs, cpb, threads, smem, plan.max_rows, plan.max_segs,
+        _kernels.stream_ptr(w),
     )
     _kernels.check(rc, "segment_sum_gather")
     _kernels.launches["segment_sum_gather"] += 1
+    last_launch.update(slabs=slabs, cols=vecs * 16 // w.element_size())
     return out
 
 

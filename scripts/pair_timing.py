@@ -12,11 +12,14 @@ never imports either), builds its own kernels and measures, on the card:
 
   * the bench step (bf16, the bench graph of ``chip_smoke.bench_batch``):
     the median of 8 training steps (``chip_smoke.main_path``, with its
-    launch and repeatability checks), and K1's, K2's and K3's kernel time
-    per step at the main path's shapes (CUDA events);
+    launch and repeatability checks), and per step at the main path's
+    shapes (CUDA events): the gather inside K1 over _Spmm's 4 passes, K4
+    through its wrapper (``gmax_cuda``) and the pack's forward (K4 and K5,
+    ``pack_fwd``) over the 2 packs;
   * the runs protocol (f32, synthetic-walmart preset, 20 runs folded):
-    K1's, K2R's and K3R's kernel time per epoch at its shapes, and a warm
-    epoch through the CLI (one epoch to warm up, then 6 timed).
+    the same per epoch (the gather inside K1 over 6 passes, K4 and the
+    pack's forward over 4 packs), and a warm epoch through the CLI (one
+    epoch to warm up, then 6 timed).
 
 Each worker prints one JSON line; the script prints them and, per tree,
 the mean, lowest and highest reading of each number, with the card's name
@@ -35,14 +38,28 @@ import tempfile
 WALMART = "synthetic-walmart"
 
 
-def _segment_ms(cs, cseg, inc, order, W, dtype, dev):
+def _kernel_ms(cs, batch, W, dtype, fwd, R, dev):
+    """(the gather inside K1, K4, the pack's forward) in ms summed over
+    _Spmm's passes and the packs of a step (fwd 1, R None) or an epoch
+    (fwd 2: train and eval forwards, R runs)."""
     import torch
 
-    indptr = getattr(inc, f"{order}_indptr")
-    # a tree from before the chunk plan launches K1 without one
-    plan = [getattr(inc, f"{order}_plan")] if hasattr(inc, f"{order}_plan") else []
-    msgs = torch.randn(inc.nnz, W, device=dev, dtype=dtype)
-    return cs.cuda_ms(lambda: cseg.segment_sum_cuda(msgs, indptr, indptr.shape[0] - 1, *plan))
+    from allset_tpu_torch.experiments.exp_fused_gather import spmm_passes
+    from allset_tpu_torch.ops import cuda_pack as ck, cuda_segment as cseg
+
+    gather = 0.0
+    for table, ids, ip, nseg, plan, n in spmm_passes(batch, W, dtype, fwd):
+        gather += n * cs.cuda_ms(lambda: cseg.gather_segment_sum_cuda(table, ids, ip, nseg, plan))
+    del table, ids
+    k4 = pack = 0.0
+    gen = torch.Generator().manual_seed(0)
+    for rows in (batch.num_nodes, batch.inc.real.num_edges + batch.num_nodes):
+        yf, bV, ba = cs.pack_inputs(rows, 256, 8, dtype, dev, gen, R=R)
+        k4 += fwd * cs.cuda_ms(lambda: ck.gmax_cuda(yf, ba, 8, 256), iters=50)
+        pack += fwd * cs.cuda_ms(lambda: ck.pack_fwd(yf, bV, ba, 8), iters=20)
+        del yf
+    torch.cuda.empty_cache()
+    return gather, k4, pack
 
 
 def worker() -> None:
@@ -53,43 +70,21 @@ def worker() -> None:
 
     import chip_smoke as cs
     from allset_tpu_torch import cli
-    from allset_tpu_torch.ops import _kernels, cuda_pma as cp, cuda_segment as cseg
+    from allset_tpu_torch.ops import _kernels
 
     dev = torch.device("cuda", 0)
     _kernels.build(force=True)
     _kernels.lib()
-    gen = torch.Generator().manual_seed(0)
-    HC, H, WP, L = 256, 8, 264, 2
     out = {"tree": tree}
     batch = cs.bench_batch(dev)
     _, out["bench_step_ms"] = cs.main_path(batch, dev, cs.card_line())
-    inc = batch.inc.real
-    out["k1_ms_per_step"] = sum(2 * _segment_ms(cs, cseg, inc, o, WP, torch.bfloat16, dev)
-                                for o in ("edge", "node"))
-    k2 = k3 = 0.0
-    for M in (inc.num_edges + batch.inc.num_nodes, batch.inc.num_nodes):
-        agg, gy, p = cs.epi_inputs(M, HC, H, WP, L, torch.bfloat16, dev, gen, floor_rows=False)
-        k2 += cs.cuda_ms(lambda: cp.epilogue_fwd_cuda(agg, *p, H, True), iters=20)
-        k3 += cs.cuda_ms(lambda: cp.epilogue_bwd_cuda(agg, gy, *p, H, True))
-    out["k2_ms_per_step"] = k2
-    out["k3_ms_per_step"] = k3
-    del batch, agg, gy, p
+    (out["gather_ms_per_step"], out["k4_ms_per_step"],
+     out["pack_fwd_ms_per_step"]) = _kernel_ms(cs, batch, 264, torch.bfloat16, 1, None, dev)
+    del batch
     torch.cuda.empty_cache()
     wb = cs.walmart_batch(dev)
-    inc = wb.inc.real
-    out["k1_ms_per_epoch"] = sum(3 * _segment_ms(cs, cseg, inc, o, 20 * WP, torch.float32, dev)
-                                 for o in ("edge", "node"))
-    k2r = k3r = 0.0
-    for M in (inc.num_edges + wb.num_nodes, wb.num_nodes):
-        agg, gy, p = cs.runs_inputs(M, HC, H, WP, L, 20, torch.float32, dev, gen,
-                                    floor_rows=False)
-        # an epoch launches K2R twice per half-layer (train and eval), K3R once
-        k2r += 2 * cs.cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=5)
-        k3r += cs.cuda_ms(lambda: cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True), iters=3)
-        del agg, gy, p
-        torch.cuda.empty_cache()
-    out["k2r_ms_per_epoch"] = k2r
-    out["k3r_ms_per_epoch"] = k3r
+    (out["gather_ms_per_epoch"], out["k4_ms_per_epoch"],
+     out["pack_fwd_ms_per_epoch"]) = _kernel_ms(cs, wb, 20 * 264, torch.float32, 2, 20, dev)
     del wb
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
