@@ -31,8 +31,8 @@
 //     out0, and y (K2) or dagg (K3) leave through the same buffer in
 //     16-byte rows. Where the H denominators would overflow shared memory
 //     (f32 only: K3 from 32 heads at HC 256, 384 at HC 384, 256 at HC
-//     512; K2 from 192 heads at HC 192 and 128 at HC 384 and 512; f32
-//     K2 at HC 256 runs beside K3a), a second instantiation (DG) stages
+//     512; K2 from 192 heads at HC 192; f32 K2 at HC 256 runs beside K3a,
+//     K2 at 384 and 512 on a cluster), a second instantiation (DG) stages
 //     only the values and reads den from global memory, writing dden
 //     straight out; the A operand of
 //     the next product ([TM, HC], 66.5 KB at HC = 256 f32) lives in shared
@@ -63,9 +63,8 @@
 //     KS_F 16 (76,672 + 61,440 + 50,176 = 188,288); HC 512 TM 32, KS_F 8
 //     (101,248 + 49,152 + 66,560 = 216,960). K2 needs no column sums and
 //     keeps its A operand in the tile's agg buffer (next note), so it
-//     takes KS_F 32 at HC 384 (213,392 B in f32) and 16 at HC 512
-//     (217,488 B), and in bf16 KS_B 128 at HC 128 and 256 (half the
-//     barriers; 211,728 B at HC 256);
+//     takes KS_B 128 in bf16 at HC 128 and 256 (half the barriers;
+//     211,728 B at HC 256);
 //   * the rounding points of _fwd_recompute are kept; the additions that
 //     feed a rounding (out0, LN) use explicit _rn intrinsics, so the
 //     forward and the backward's recompute round alike.
@@ -83,7 +82,9 @@
 // back, PERF.md.) Every item is computed alike whatever block takes it.
 // In f32 at HC 256 K2 runs instead beside K3a (pma_epilogue_wg.cu), on
 // its layout and warpgroup products: faster there in alternating pairs,
-// slower in bf16 (PERF.md).
+// slower in bf16 (PERF.md). At HC 384 and 512 K2 runs in both dtypes on a
+// cluster of two blocks per 64-row tile, each block half the columns
+// (pma_epilogue_cluster.cu), which halves the weight bytes a row.
 //
 // K3, the backward, recomputes the forward per tile (K2 stores nothing),
 // then writes dagg = [dvals | dden | 0] in the activation dtype (at HC 256
@@ -133,12 +134,12 @@ constexpr float DEN_FLOOR = 1e-16f;
 // The tile of a width (header note): MT 16-row mma tiles per warp, so TM
 // = 16 MT WG rows per tile, and KS_F k rows per f32 weight slab (KS_B = 2
 // KS_F k columns per bf16 slab, which then takes the same bytes); K3
-// (bwd) and K2 size their slabs apart (K2 by its dtype's item size too).
+// (bwd) and K2 size their slabs apart (K2 by its dtype's item size too;
+// above 256 only K3 runs here).
 __host__ __device__ constexpr int mt_of(int HC) { return HC <= 256 ? 2 : 1; }
 __host__ __device__ constexpr int tm_of(int HC) { return 16 * mt_of(HC) * WG; }
 __host__ __device__ constexpr int ksf_of(int HC, bool bwd, int item = 4) {
-  return HC <= 256 ? (!bwd && item == 2 && HC % 128 == 0 ? 64 : 32)
-                   : HC <= 384 ? (bwd ? 16 : 32) : (bwd ? 8 : 16);
+  return HC <= 256 ? (!bwd && item == 2 && HC % 128 == 0 ? 64 : 32) : HC <= 384 ? 16 : 8;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

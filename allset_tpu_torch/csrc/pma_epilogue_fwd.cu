@@ -1,5 +1,6 @@
-// K2 / K2R: the fused PMA epilogue's forward (pallas_pma.py::_fwd_kernel,
-// its R = 1 and R > 1 grids). The design note is in pma_epilogue.cuh.
+// K2 / K2R at HC 64, 128, 192 and, in bf16, 256: the fused PMA epilogue's
+// forward (pallas_pma.py::_fwd_kernel, its R = 1 and R > 1 grids). The
+// design note is in pma_epilogue.cuh.
 
 #include "pma_epilogue.cuh"
 
@@ -185,12 +186,13 @@ int allset_pma_epilogue_fwd(const void* agg, const void* seed, const void* g0,
                                            b1, out, nullptr, nullptr, nullptr, M, WP, HC, \
                                            H, L, R, relu),                                \
                               R, s);
-  // f32 at HC 256 runs on the warpgroup K2 (pma_epilogue_wg.cu)
+  // f32 at HC 256 runs on the warpgroup K2 (pma_epilogue_wg.cu), both
+  // dtypes at 384 and 512 on the cluster K2 (pma_epilogue_cluster.cu)
   if (dtype == 0) {
-    FWD(float, 64) FWD(float, 128) FWD(float, 192) FWD(float, 384) FWD(float, 512)
+    FWD(float, 64) FWD(float, 128) FWD(float, 192)
   } else {
     FWD(__nv_bfloat16, 64) FWD(__nv_bfloat16, 128) FWD(__nv_bfloat16, 192)
-    FWD(__nv_bfloat16, 256) FWD(__nv_bfloat16, 384) FWD(__nv_bfloat16, 512)
+    FWD(__nv_bfloat16, 256)
   }
 #undef FWD
   return (int)cudaErrorInvalidValue;

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "allset_segment_sum": [P, P, P, I, P, I, P, P, I, I, P],
     "allset_pma_epilogue_fwd": [P] * 10 + [I] * 8 + [P],
     "allset_pma_epilogue_fwd_wg": [P] * 9 + [I] * 8 + [P],
+    "allset_pma_epilogue_fwd_cluster": [P] * 9 + [I] * 8 + [P],
     "allset_pma_epilogue_bwd": [P] * 17 + [I] * 12 + [P],
     "allset_pma_epilogue_bwd_wg": [P] * 17 + [I] * 13 + [P],
     "allset_pma_score_pack": [P] * 7 + [I] * 9 + [P],

@@ -1,11 +1,13 @@
 """Fused PMA epilogue (K2 forward, K3 backward; K2R/K3R with runs).
 
 Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
-``csrc/pma_epilogue_fwd.cu`` (K2 up to 512, but f32 at HC 256),
+``csrc/pma_epilogue_fwd.cu`` (K2 at HC 64 to 192, and 256 in bf16),
 ``csrc/pma_epilogue_wg.cu`` (K3 at HC 256, WG_WIDTHS, and K2 in f32 at
-HC 256, WG_FWD_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3 at the other
-widths up to 512; the code and design note these share in
-``csrc/pma_epilogue.cuh``)
+HC 256, WG_FWD_WIDTHS), ``csrc/pma_epilogue_cluster.cu`` (K2 at HC 384
+and 512, CLUSTER_FWD_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3 at the
+other widths up to 512; the code and design note these share in
+``csrc/pma_epilogue.cuh``, the Hopper primitives in
+``csrc/pma_wgmma.cuh``)
 replace its ``_fwd_kernel`` and ``_bwd_kernel``,
 both the single-run grids (K2, K3) and the runs grids R > 1 that the
 vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
@@ -30,12 +32,18 @@ here (:func:`wg_weights`), the rFF inputs and output gradients written
 transposed for the dW pass (:func:`wg_chunk_plan`). K2 in f32 at HC 256
 (WG_FWD_WIDTHS, :func:`fwd_kernel`) runs K3a's forward on the same
 layout, a persistent block over the (run, tile) items reading the forward
-slabs (:func:`wg_fwd_weights`). K2 in bf16, and K2 and K3 at the other
-widths up to 512, keep each row tile's intermediates in registers (16
-warps: two row halves, each warp an eighth of the columns; 64-row tiles
-up to HC 256, 32-row tiles above, :func:`tile_rows`) with ``mma.sync``
-products; that K2 is a persistent kernel that fetches the next tile's
-rows while it multiplies the current one.
+slabs (:func:`wg_fwd_weights`). K2 at HC 384 and 512 (CLUSTER_FWD_WIDTHS)
+takes a 64-row tile on a cluster of two blocks, each block half the
+output columns on the same warpgroup products, the A operand's halves
+and the row statistics exchanged through distributed shared memory, each
+block streaming only its column half of the weight slabs
+(:func:`cluster_fwd_weights`; f32 as plain f32, split in shared memory).
+K2 in bf16 up to 256, and K2 and K3 at the other widths up to 512, keep
+each row tile's intermediates in registers (16 warps: two row halves,
+each warp an eighth of the columns; 64-row tiles up to HC 256, 32-row
+tiles above, :func:`tile_rows`) with ``mma.sync`` products; that K2 is a
+persistent kernel that fetches the next tile's rows while it multiplies
+the current one.
 Above 512, at any HC that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``),
 a simpler pair takes HC at run time: f32 FMA products on the CUDA cores,
 intermediates in global scratch, the same per-block partials.
@@ -85,6 +93,13 @@ WG_WIDTHS = (256,)
 # scripts/pair_timing.py) it beats the tiled K2 there (the 20-run epoch's
 # K2R) and loses to it in bf16 (the bench step), which keeps the tiled K2
 WG_FWD_WIDTHS = (256,)
+# K2/K2R on the cluster kernel (csrc/pma_epilogue_cluster.cu) at these
+# widths, in both dtypes: in alternating pairs on the card against the
+# tiled K2 (PERF.md, scripts/pair_timing.py, 2 pairs) it won at both, every
+# reading lower: per bench step in bf16 1.95 against 2.08 ms (HC 384) and
+# 2.18 against 3.95 (512); per 20-run epoch in f32 154.2 against 170.3
+# and 216.2 against 287.8
+CLUSTER_FWD_WIDTHS = (384, 512)
 WG_BLOCKS = 132  # K3a's persistent blocks per run: one per SM of an H100
 WG_TILE = 64  # rows per K3a tile
 WG_KSF, WG_KSB = 16, 64  # k rows per weight slab: f32 (TF32 hi and lo), bf16
@@ -225,9 +240,9 @@ def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
 
 
 def tile_rows(HC: int) -> int:
-    """Rows per tile of the kernels at width HC: 64 up to HC 256, 32 up to
-    512 (the note in ``csrc/pma_epilogue.cuh`` has the byte counts), the
-    wide pair's WIDE_TR above."""
+    """Rows per tile of K3 at width HC: 64 up to HC 256, 32 up to 512 (the
+    note in ``csrc/pma_epilogue.cuh`` has the byte counts), the wide
+    pair's WIDE_TR above. K2 takes 64-row tiles up to 512."""
     return 64 if HC <= 256 else 32 if HC <= 512 else WIDE_TR
 
 
@@ -342,6 +357,21 @@ def wg_fwd_weights(Wrff: Tensor, cdt) -> Tensor:
     return wg_slabs(Wt.to(cdt), WG_KSB, False)
 
 
+def cluster_fwd_weights(Wrff: Tensor, cdt) -> Tensor:
+    """The rFF weights [..., L, HC, HC] ([in][out]) as the cluster K2's
+    slabs: B = W^T cut into its two column halves (block c of a cluster
+    reads half c), [..., 2, L, HC / ks, 1, ks / V, HC / 16, 8, V], each
+    half's slabs laid out as :func:`wg_slabs` lays them out; bf16 on the
+    bf16 path (WG_KSB k-rows a slab), else plain f32 (WG_KSF), which the
+    kernel splits into TF32 hi and lo in shared memory."""
+    Wt = Wrff.transpose(-1, -2)
+    *lead, L, HC, _ = Wt.shape
+    halves = Wt.reshape(*lead, L, 2, HC // 2, HC).movedim(-3, -4)
+    if cdt == torch.float32:
+        return wg_slabs(halves.float(), WG_KSF, False)
+    return wg_slabs(halves.to(cdt), WG_KSB, False)
+
+
 def wg_weights(Wrff: Tensor, cdt):
     """K3a's slabs: the forward products' (:func:`wg_fwd_weights`) and the
     backward's dp @ W^T, B = W (TF32 hi | lo, WG_KSF a slab)."""
@@ -351,10 +381,13 @@ def wg_weights(Wrff: Tensor, cdt):
 def fwd_kernel(HC: int, dtype) -> str:
     """Which K2 serves width HC in ``dtype`` on the card: 'wg' (the
     warpgroup K2 beside K3a in csrc/pma_epilogue_wg.cu: f32 at
-    WG_FWD_WIDTHS), 'wide' (csrc/pma_epilogue_wide.cu, above 512) or
+    WG_FWD_WIDTHS), 'cluster' (csrc/pma_epilogue_cluster.cu, at
+    CLUSTER_FWD_WIDTHS), 'wide' (csrc/pma_epilogue_wide.cu, above 512) or
     'tiled' (csrc/pma_epilogue_fwd.cu)."""
     if wide(HC):
         return "wide"
+    if HC in CLUSTER_FWD_WIDTHS:
+        return "cluster"
     return "wg" if HC in WG_FWD_WIDTHS and dtype == torch.float32 else "tiled"
 
 
@@ -408,14 +441,16 @@ def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
                                 M, WP, HC, L)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     out = torch.empty(M, runs * HC, dtype=agg.dtype, device=agg.device)
-    if route == "wg":
-        wf = wg_fwd_weights(Wrff, agg.dtype)
-        rc = _kernels.lib().allset_pma_epilogue_fwd_wg(
+    if route in ("wg", "cluster"):
+        slabs, entry = ((wg_fwd_weights, "allset_pma_epilogue_fwd_wg") if route == "wg" else
+                        (cluster_fwd_weights, "allset_pma_epilogue_fwd_cluster"))
+        wf = slabs(Wrff, agg.dtype)
+        rc = getattr(_kernels.lib(), entry)(
             agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(), wf.data_ptr(),
             brff.data_ptr(), g1.data_ptr(), b1.data_ptr(), out.data_ptr(), M, WP, HC, H, L,
             runs, int(relu), _kernels.dtype_code(agg), _kernels.stream_ptr(agg),
         )
-        _kernels.check(rc, "pma_epilogue_fwd (warpgroup)")
+        _kernels.check(rc, f"pma_epilogue_fwd ({route})")
         return out
     Wf, Wbt = _weights(Wrff, agg.dtype)
     rc = _kernels.lib().allset_pma_epilogue_fwd(

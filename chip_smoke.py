@@ -12,14 +12,15 @@ Phases (any failure raises and exits non-zero):
      additions, and at 4 and 20 runs x 264 run by run against launches
      on each run's slice), K2/K3 the PMA epilogue (HC in {64, 128, 192,
      256, 384, 512} and, through the wide pair, 640, 768 and 1024; heads
-     1 to HC, rows below one tile (64 rows, 32 above HC 256, 16 above 512)
-     and not a multiple of it; the widest the JAX kernel takes, 1536 with 2
-     layers in f32 and 2048 with 1 layer in bf16) and K2R/K3R its runs
-     grids (HC 256, 512, 640, 768 and 1024, R in {2, 5}; L in {1, 2},
-     relu on/off; the widest two at R=2; each run of K2R/K3R also bit for
-     bit against a K2/K3 launch on its slice; two K2 calls bit for bit;
-     K2 in f32 at HC 256 on the warpgroup kernel beside K3a, the tiled
-     K2 elsewhere), K4/K5
+     1 to HC, rows below one tile (64 rows up to HC 512, where K3 takes 32
+     above HC 256: 40 and 20 rows there; 16 above 512) and not a multiple
+     of it; the widest the JAX kernel takes, 1536 with 2 layers in f32 and
+     2048 with 1 layer in bf16) and K2R/K3R its runs grids (HC 256, 384,
+     512, 640, 768 and 1024, R in {2, 5}; L in {1, 2}, relu on/off; the
+     widest two at R=2; each run of K2R/K3R also bit for bit against a
+     K2/K3 launch on its slice; two K2 calls bit for bit; K2 in f32 at HC
+     256 on the warpgroup kernel beside K3a, at 384 and 512 in both dtypes
+     on the cluster kernel, the tiled K2 elsewhere), K4/K5
      the PMA score+pack ((HC, H) in {(256, 8), (64, 1), (128, 4), (512,
      8), (256, 256)}, rows not a multiple of the tile; gmax bit-equal, w
      within 2 f32 / 1 bf16 ulps, a NaN score reaching gmax, R in {2, 5,
@@ -159,8 +160,10 @@ B1 family: torch.segment_reduce; the gather inside K1: index_select then
 torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
 B10, B9: index_select; B5, B7, B8: a sum over a view); the last line is
 {"ok": true, "device": {...}}. K2's rows at the main path's shapes (the
-bench step's tiled K2, the epoch's warpgroup K2R) also name their kernel
-and its registers and spills from the build's ptxas output.
+bench step's tiled K2, the epoch's warpgroup K2R, the cluster K2 at
+hidden 384 and 512 and its K2R at 512) also name their kernel and its
+registers and spills from the build's ptxas output; phase 6 also times
+K2R alone at hidden 384 per 20-run epoch (logged, not in the line).
 """
 
 from __future__ import annotations
@@ -446,9 +449,10 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
 # (HC, H, WP): the bench and walmart width, the other widths the kernels
 # take (cuda_pma.KERNEL_WIDTHS), and heads up to one column per head (the
 # denominators leave shared memory (DG) for f32 from 192 heads in K2 at
-# HC 192, from 384 in K3 and 128 in K2 at HC 384, from 256 in K3 and 128
-# in K2 at HC 512; at HC 256 the warpgroup K3 and, in f32, K2 take every
-# head count on a ring of 4, 3 or 2 weight slots)
+# HC 192, from 384 in K3 at HC 384 and 256 at HC 512; at HC 256 the
+# warpgroup K3 and, in f32, K2 take every head count on a ring of 4, 3 or
+# 2 weight slots; the cluster K2 at 384 and 512 reads them from global
+# memory at every head count)
 EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (192, 192, 384),
               (128, 4, 136),
               (64, 1, 72), (64, 64, 128), (384, 1, 392), (384, 8, 392), (384, 384, 768),
@@ -472,10 +476,12 @@ def check_epilogue(dev, gen):
     for (HC, H, WP), dtype, L in cases:
         require(cp.epilogue_route(HC, H, L, WP) == "kernel",
                 f"HC={HC}, L={L}, {dtype} is not routed to the kernels")
-        small = cp.tile_rows(HC) * 5 // 8  # below one tile (64, 32 or 16 rows)
-        for M in (1000, small):  # not a multiple of the tile; below one tile
+        # below one tile: K2's 64 rows up to HC 512 and K3's 32 at 384 and
+        # 512 (40 and 20 rows), the wide pair's 16 above
+        smalls = {t * 5 // 8 for t in (cp.tile_rows(HC), 64 if HC <= 512 else cp.WIDE_TR)}
+        for M in (1000, *sorted(smalls)):  # not a multiple of the tile; below one tile
             for relu in (False, True):
-                if M == small and relu:
+                if M in smalls and relu:
                     continue
                 agg, gy, p = epi_inputs(M, HC, H, WP, L, dtype, dev, gen)
                 seed, g0, b0, W, b, g1, b1 = p
@@ -511,14 +517,14 @@ def runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen, floor_rows=True):
 def check_runs_epilogue(dev, gen):
     """K2R/K3R against their plain versions (phase 3's tolerances) and, run
     by run, bit for bit against K2/K3 launched on the run's slice, at HC
-    256 and 512, at 640, 768 and 1024 (the wide pair; R 2 and 5, L 1 and
-    2), and at WIDEST (R 2)."""
+    256, 384 and 512, at 640, 768 and 1024 (the wide pair; R 2 and 5, L 1
+    and 2), and at WIDEST (R 2)."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     M = 1000  # not a multiple of the 64-, 32- or 16-row tile
     cases = [(shape, dtype, R, L)
-             for shape in ((256, 8, 264), (512, 8, 520), (640, 8, 648), (768, 8, 776),
-                           (1024, 8, 1032))
+             for shape in ((256, 8, 264), (384, 8, 392), (512, 8, 520), (640, 8, 648),
+                           (768, 8, 776), (1024, 8, 1032))
              for dtype in (torch.float32, torch.bfloat16) for R in (2, 5) for L in (1, 2)]
     cases += [((HC, H, WP), dtype, 2, L) for HC, H, WP, dtype, L in WIDEST]
     for (HC, H, WP), dtype, R, L in cases:
@@ -1341,27 +1347,34 @@ def time_runs_shapes(batch, dev, gen, R=20):
     return out
 
 
-def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix=""):
-    """K2R and K3R at the runs path's two half-layers' row counts (hidden
-    HC, 8 heads, f32, R runs folded): K2R twice each per epoch (train and
-    eval), K3R once each, summed per epoch; each held to its plain version
-    with phase 3's tolerances, and each run of K3R bit for bit to K3 on
-    its slice. Returns {name + suffix: Tally}."""
+def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix="", bwd=True):
+    """K2R and (with ``bwd``) K3R at the runs path's two half-layers' row
+    counts (hidden HC, 8 heads, f32, R runs folded): K2R twice each per
+    epoch (train and eval), K3R once each, summed per epoch; each held to
+    its plain version with phase 3's tolerances, and each run of K3R bit
+    for bit to K3 on its slice. Returns {name + suffix: Tally}."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     inc = batch.inc.real
     H, WP, L, dt = 8, HC + 8, 2, torch.float32
-    fwd, bwd = "pma_epilogue_fwd_runs" + suffix, "pma_epilogue_bwd_runs" + suffix
-    out = {fwd: Tally(), bwd: Tally()}
+    fwd, bwd_name = "pma_epilogue_fwd_runs" + suffix, "pma_epilogue_bwd_runs" + suffix
+    out = {fwd: Tally(), bwd_name: Tally()} if bwd else {fwd: Tally()}
     for M in (inc.num_edges + batch.num_nodes, batch.num_nodes):
         agg, gy, p = runs_inputs(M, HC, H, WP, L, R, dt, dev, gen, floor_rows=False)
         kf = cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=3)
         pf = cuda_ms(lambda: cp.epilogue_fwd_runs_plain(agg, *p, H, True), iters=2)
-        kb = cuda_ms(lambda: cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True), iters=3)
-        pb = cuda_ms(lambda: cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True), iters=2)
         ef, rf = scaled_err(cp.epilogue_fwd_runs_cuda(agg, *p, H, True),
                             cp.epilogue_fwd_runs_plain(agg, *p, H, True))
         require(rf <= EPI_FWD_TOL[dt], f"K2R disagrees at M={M}, HC={HC}: {rf}")
+        out[fwd].add(2, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False, R))
+        if not bwd:
+            log(f"  K2R at M={M}, HC={HC}, R={R}: kernel {kf:.3f} ms, plain {pf:.3f} ms, "
+                f"max_abs_err {ef:.3e} (scaled {rf:.2e})")
+            del agg, gy, p
+            torch.cuda.empty_cache()
+            continue
+        kb = cuda_ms(lambda: cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True), iters=3)
+        pb = cuda_ms(lambda: cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True), iters=2)
         got = cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True)
         want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True)
         bmsg = check_bwd(got, want, TOL[dt][1], f"runs M={M}, HC={HC}")
@@ -1378,8 +1391,7 @@ def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix=""):
                     f"K3R run {r} differs from K3 on its slice at M={M}, HC={HC}")
         del got, one, agg, gy, p
         torch.cuda.empty_cache()
-        out[fwd].add(2, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False, R))
-        out[bwd].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True, R))
+        out[bwd_name].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True, R))
         log(f"  K2R at M={M}, HC={HC}, R={R}: kernel {kf:.3f} ms, plain {pf:.3f} ms, "
             f"max_abs_err {ef:.3e} (scaled {rf:.2e}); K3R: kernel {kb:.3f} ms, plain {pb:.3f} "
             f"ms, dagg max_abs_err {eb:.3e}; scaled max {bmsg}; each run bit-identical to K3")
@@ -2819,7 +2831,7 @@ def main() -> int:
                 "AllDeepSets bench step")
     counts, _ = main_path(batch, dev, card, PER_STEP, against_pair=True)
     wide_counts = {}
-    for HC in (384, 512, 1024):  # the 32-row tiles and the wide pair
+    for HC in (384, 512, 1024):  # the cluster K2 (K3's 32-row tiles) and the wide pair
         suffix = f"_hc{HC}"
         timings.update(time_epilogue_step(batch, dev, gen, HC, suffix))
         log_tallies({k: timings[k] for k in ("pma_epilogue_fwd" + suffix,
@@ -2863,6 +2875,8 @@ def main() -> int:
     log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc512",
                                          "pma_epilogue_bwd_runs_hc512")},
                 "20-run epoch at hidden 512")
+    k2r384 = time_epilogue_epoch(wb, dev, gen, 20, 384, "_hc384", bwd=False)
+    log_tallies(k2r384, "20-run epoch at hidden 384 (K2R)")
     timings.update(time_epilogue_epoch(wb, dev, gen, 2, 1024, "_hc1024"))
     log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc1024",
                                          "pma_epilogue_bwd_runs_hc1024")},
@@ -2937,7 +2951,7 @@ def main() -> int:
     # the epilogue kernels at the other widths: the bench steps at hidden
     # 384, 512 and 1024 (the wide pair), the CLI runs at 512 and 1024
     wide = "allset_tpu_torch/csrc/pma_epilogue_wide.cu"
-    k2 = "allset_tpu_torch/csrc/pma_epilogue_fwd.cu"
+    k2 = "allset_tpu_torch/csrc/pma_epilogue_cluster.cu"
     narrow = {"pma_epilogue_fwd": k2, "pma_epilogue_bwd": k3_384_512,
               "pma_epilogue_fwd_runs": k2, "pma_epilogue_bwd_runs": k3_384_512}
     for HC in (384, 512, 1024):
@@ -2953,9 +2967,14 @@ def main() -> int:
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"(the build included) [{card}]")
     # K2's kernels at the main path's shapes, with their registers and
-    # spills: the tiled K2 (bf16 bench step), the warpgroup K2R (f32 epoch)
+    # spills: the tiled K2 (bf16 bench step), the warpgroup K2R (f32
+    # epoch), the cluster K2 at hidden 384 and 512 (bf16 bench steps) and
+    # K2R at 512 (f32 epoch)
     k2_ptxas = {"pma_epilogue_fwd": "pma_fwd_kernel<__nv_bfloat16, 256, false>",
-                "pma_epilogue_fwd_runs": "pma_fwd_wg_kernel<float, 256, 4>"}
+                "pma_epilogue_fwd_runs": "pma_fwd_wg_kernel<float, 256, 4>",
+                "pma_epilogue_fwd_hc384": "pma_fwd_cluster_kernel<__nv_bfloat16, 384>",
+                "pma_epilogue_fwd_hc512": "pma_fwd_cluster_kernel<__nv_bfloat16, 512>",
+                "pma_epilogue_fwd_runs_hc512": "pma_fwd_cluster_kernel<float, 512>"}
     kernels = []
     for name, (src, rep, cnt) in sources.items():
         base = re.sub(r"_(hc\d+|epoch|b\d+)$", "", name)

@@ -10,16 +10,17 @@ sides. A worker imports its own tree's package and ``chip_smoke.py``
 (this script is a developer tool beside the smoke script; the package
 never imports either), builds its own kernels and measures, on the card:
 
-  * the bench step (bf16, the bench graph of ``chip_smoke.bench_batch``):
-    the median of 8 training steps (``chip_smoke.main_path``, with its
-    launch and repeatability checks), and per step at the main path's
-    shapes (CUDA events): the gather inside K1 over _Spmm's 4 passes, K4
-    through its wrapper (``gmax_cuda``) and the pack's forward (K4 and K5,
-    ``pack_fwd``) over the 2 packs;
-  * the runs protocol (f32, synthetic-walmart preset, 20 runs folded):
-    the same per epoch (the gather inside K1 over 6 passes, K4 and the
-    pack's forward over 4 packs), and a warm epoch through the CLI (one
-    epoch to warm up, then 6 timed).
+  * the bench step (bf16, the bench graph of ``chip_smoke.bench_batch``)
+    at hidden 256 and 512: the median of 8 training steps
+    (``chip_smoke.main_path``, with its launch and repeatability checks);
+  * K2, the PMA epilogue's forward, at hidden 384 and 512 (8 heads, 2
+    layers; CUDA events, inputs made on the card): in bf16 summed over a
+    bench step's 2 launches (its 196,608 and 131,072 rows), and K2R in f32
+    over a 20-run epoch's 4 launches (the walmart preset's 158,766 and
+    88,860 rows, twice each);
+  * the runs protocol (f32, synthetic-walmart preset, 20 runs folded) at
+    hidden 256 and 512: a warm epoch through the CLI (one epoch to warm
+    up, then 6 timed at 256 and 4 at 512).
 
 Each worker prints one JSON line; the script prints them and, per tree,
 the mean, lowest and highest reading of each number, with the card's name
@@ -36,30 +37,48 @@ import sys
 import tempfile
 
 WALMART = "synthetic-walmart"
+BENCH_ROWS = (196_608, 131_072)  # a bench step's two half-layers (one K2 each)
+EPOCH_ROWS = (158_766, 88_860)  # the walmart preset's half-layers
 
 
-def _kernel_ms(cs, batch, W, dtype, fwd, R, dev):
-    """(the gather inside K1, K4, the pack's forward) in ms summed over
-    _Spmm's passes and the packs of a step (fwd 1, R None) or an epoch
-    (fwd 2: train and eval forwards, R runs)."""
+def _k2_ms(cs, HC, rows, R, dtype, dev):
+    """K2 (R None: a launch per row count) or K2R (R runs: 2 launches per
+    row count, train and eval) at width HC with 8 heads and 2 layers, in
+    ms summed over the launches; the inputs are made on the card."""
     import torch
 
-    from allset_tpu_torch.experiments.exp_fused_gather import spmm_passes
-    from allset_tpu_torch.ops import cuda_pack as ck, cuda_segment as cseg
+    from allset_tpu_torch.ops import cuda_pma as cp
 
-    gather = 0.0
-    for table, ids, ip, nseg, plan, n in spmm_passes(batch, W, dtype, fwd):
-        gather += n * cs.cuda_ms(lambda: cseg.gather_segment_sum_cuda(table, ids, ip, nseg, plan))
-    del table, ids
-    k4 = pack = 0.0
-    gen = torch.Generator().manual_seed(0)
-    for rows in (batch.num_nodes, batch.inc.real.num_edges + batch.num_nodes):
-        yf, bV, ba = cs.pack_inputs(rows, 256, 8, dtype, dev, gen, R=R)
-        k4 += fwd * cs.cuda_ms(lambda: ck.gmax_cuda(yf, ba, 8, 256), iters=50)
-        pack += fwd * cs.cuda_ms(lambda: ck.pack_fwd(yf, bV, ba, 8), iters=20)
-        del yf
-    torch.cuda.empty_cache()
-    return gather, k4, pack
+    H, L, WP, runs = 8, 2, HC + 8, R or 1
+    g = torch.Generator(device=dev).manual_seed(HC)
+    total = 0.0
+    for M in rows:
+        agg = torch.zeros(M, runs, WP, device=dev)
+        agg[:, :, :HC] = torch.randn(M, runs, HC, device=dev, generator=g)
+        agg[:, :, HC:HC + H] = torch.rand(M, runs, H, device=dev, generator=g) * 2.7 + 0.3
+        agg = agg.reshape(M, runs * WP).to(dtype)
+        r = lambda *s: torch.randn(runs, *s, device=dev, generator=g)
+        p = [0.1 * r(HC), 1 + 0.1 * r(HC), 0.1 * r(HC), 0.05 * r(L, HC, HC), 0.1 * r(L, HC),
+             1 + 0.1 * r(HC), 0.1 * r(HC)]
+        if R is None:
+            p = [t[0] for t in p]
+            total += cs.cuda_ms(lambda: cp.epilogue_fwd_cuda(agg, *p, H, True))
+        else:
+            total += 2 * cs.cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=3)
+        del agg, p
+        torch.cuda.empty_cache()
+    return total
+
+
+def _warm_epoch(cli, tmp, hidden, epochs):
+    """ms per epoch of the walmart preset at ``hidden`` (20 runs folded,
+    f32) over ``epochs`` epochs after one to warm up, and the final mean
+    training loss."""
+    base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
+            "--MLP_hidden", str(hidden), "--res_root", tmp]
+    cli.run(base + ["--epochs", "1"])
+    res = cli.run(base + ["--epochs", str(epochs)])
+    return res.wall_time / epochs * 1e3, float(res.metrics[:, -1, 3].mean())
 
 
 def worker() -> None:
@@ -76,24 +95,21 @@ def worker() -> None:
     _kernels.build(force=True)
     _kernels.lib()
     out = {"tree": tree}
+    card = cs.card_line()
     batch = cs.bench_batch(dev)
-    _, out["bench_step_ms"] = cs.main_path(batch, dev, cs.card_line())
-    (out["gather_ms_per_step"], out["k4_ms_per_step"],
-     out["pack_fwd_ms_per_step"]) = _kernel_ms(cs, batch, 264, torch.bfloat16, 1, None, dev)
+    _, out["bench_step_ms"] = cs.main_path(batch, dev, card)
+    _, out["bench_step_hc512_ms"] = cs.main_path(batch, dev, card, cs.off_wg(cs.PER_STEP),
+                                                 hidden=512)
     del batch
     torch.cuda.empty_cache()
-    wb = cs.walmart_batch(dev)
-    (out["gather_ms_per_epoch"], out["k4_ms_per_epoch"],
-     out["pack_fwd_ms_per_epoch"]) = _kernel_ms(cs, wb, 20 * 264, torch.float32, 2, 20, dev)
-    del wb
-    torch.cuda.empty_cache()
+    for HC in (384, 512):
+        out[f"k2_bf16_hc{HC}_ms_per_step"] = _k2_ms(cs, HC, BENCH_ROWS, None, torch.bfloat16,
+                                                    dev)
+        out[f"k2r_f32_hc{HC}_ms_per_epoch"] = _k2_ms(cs, HC, EPOCH_ROWS, 20, torch.float32,
+                                                     dev)
     with tempfile.TemporaryDirectory() as tmp:
-        base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
-                "--res_root", tmp]
-        cli.run(base + ["--epochs", "1"])
-        res = cli.run(base + ["--epochs", "6"])
-    out["epoch_ms"] = res.wall_time / 6 * 1e3
-    out["final_loss"] = float(res.metrics[:, -1, 3].mean())
+        out["epoch_ms"], out["final_loss"] = _warm_epoch(cli, tmp, 256, 6)
+        out["epoch_hc512_ms"], out["final_loss_hc512"] = _warm_epoch(cli, tmp, 512, 4)
     print("PAIR " + json.dumps(out), flush=True)
 
 
