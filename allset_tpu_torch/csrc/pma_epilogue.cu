@@ -1,6 +1,7 @@
 // K3 / K3R: the fused PMA epilogue's backward (pallas_pma.py::_bwd_kernel,
-// its R = 1 and R > 1 grids) at HC 64, 128, 192, 384 and 512. The design
-// note is in pma_epilogue.cuh; HC 256 runs on pma_epilogue_wg.cu.
+// its R = 1 and R > 1 grids) at HC 64, 128 and 192. The design note is in
+// pma_epilogue.cuh; HC 256 runs on pma_epilogue_wg.cu, 384 and 512 on
+// pma_epilogue_cluster_bwd.cu.
 
 #include "pma_epilogue.cuh"
 
@@ -448,12 +449,12 @@ int allset_pma_epilogue_bwd(const void* agg, const void* gy, const void* seed,
                                            R, relu),                                       \
                               R, static_cast<float*>(dW), static_cast<float*>(dsmall),     \
                               static_cast<float*>(part_w), grid_rows, nch, chunk_rows, parts, s);
-  // HC 256 runs on the warpgroup kernels (pma_epilogue_wg.cu)
+  // HC 256 runs on the warpgroup kernels (pma_epilogue_wg.cu), 384 and
+  // 512 on the cluster kernel (pma_epilogue_cluster_bwd.cu)
   if (dtype == 0) {
-    BWD(float, 64) BWD(float, 128) BWD(float, 192) BWD(float, 384) BWD(float, 512)
+    BWD(float, 64) BWD(float, 128) BWD(float, 192)
   } else {
     BWD(__nv_bfloat16, 64) BWD(__nv_bfloat16, 128) BWD(__nv_bfloat16, 192)
-    BWD(__nv_bfloat16, 384) BWD(__nv_bfloat16, 512)
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;

@@ -21,18 +21,18 @@
 //     groups of 8; group q owns rows [16 MT q, 16 MT (q + 1)), warp w of a
 //     group the columns [w*HC/8, (w+1)*HC/8), and each warp keeps its
 //     [16 MT, HC/8] share of every intermediate in registers in the mma
-//     accumulator layout. MT = 2 (64 rows) up to HC 256 (with four m-tiles
-//     8 warps needed 255 registers and spilled); MT = 1 (32 rows) at HC
-//     384 and 512, which keeps a warp at HC/16 <= 32 floats per
-//     intermediate, as at HC 256. Row statistics (LN means, the LN backward's row sums) are
+//     accumulator layout. MT = 2 (64 rows) (with four m-tiles 8 warps
+//     needed 255 registers and spilled; HC 384 and 512 run on the cluster
+//     kernels, pma_epilogue_cluster*.cu). Row
+//     statistics (LN means, the LN backward's row sums) are
 //     per-warp partial sums exchanged through shared memory in a fixed
 //     order. The tile's agg rows are staged in shared memory once
 //     (cp.async, 16 bytes), read there by the three passes that need
 //     out0, and y (K2) or dagg (K3) leave through the same buffer in
 //     16-byte rows. Where the H denominators would overflow shared memory
-//     (f32 only: K3 from 32 heads at HC 256, 384 at HC 384, 256 at HC
-//     512; K2 from 192 heads at HC 192; f32 K2 at HC 256 runs beside K3a,
-//     K2 at 384 and 512 on a cluster), a second instantiation (DG) stages
+//     (f32 only: K2 from 192 heads at HC 192; f32 K2 at HC 256 runs
+//     beside K3a, K2 at 384 and 512 on a cluster; K3 here, at HC 192 or
+//     less, never), a second instantiation (DG) stages
 //     only the values and reads den from global memory, writing dden
 //     straight out; the A operand of
 //     the next product ([TM, HC], 66.5 KB at HC = 256 f32) lives in shared
@@ -59,9 +59,7 @@
 //     heads in f32 (A operand, row exchange and statistics, column sums;
 //     two weight stages; staged agg rows) against the 232,448 a block may
 //     take: HC 64-256 TM 64, KS_F 32 (HC 256: 87,808 + 73,728 + 67,584 =
-//     229,120; from 32 heads the staged rows overflow, DG); HC 384 TM 32,
-//     KS_F 16 (76,672 + 61,440 + 50,176 = 188,288); HC 512 TM 32, KS_F 8
-//     (101,248 + 49,152 + 66,560 = 216,960). K2 needs no column sums and
+//     229,120; from 32 heads the staged rows overflow, DG). K2 needs no column sums and
 //     keeps its A operand in the tile's agg buffer (next note), so it
 //     takes KS_B 128 in bf16 at HC 128 and 256 (half the barriers;
 //     211,728 B at HC 256);
@@ -88,8 +86,9 @@
 //
 // K3, the backward, recomputes the forward per tile (K2 stores nothing),
 // then writes dagg = [dvals | dden | 0] in the activation dtype (at HC 256
-// it runs on warpgroup products, pma_epilogue_wg.cu; the K3 described
-// here serves HC 64, 128, 192, 384 and 512). The
+// it runs on warpgroup products, pma_epilogue_wg.cu, and at 384 and 512 on
+// a cluster of two blocks, pma_epilogue_cluster_bwd.cu; the K3 described
+// here serves HC 64, 128 and 192). The
 // parameter gradients are reduced without atomics, so they repeat bit for
 // bit:
 //   * K3a (persistent blocks over the row tiles): the row-local
@@ -134,12 +133,12 @@ constexpr float DEN_FLOOR = 1e-16f;
 // The tile of a width (header note): MT 16-row mma tiles per warp, so TM
 // = 16 MT WG rows per tile, and KS_F k rows per f32 weight slab (KS_B = 2
 // KS_F k columns per bf16 slab, which then takes the same bytes); K3
-// (bwd) and K2 size their slabs apart (K2 by its dtype's item size too;
-// above 256 only K3 runs here).
-__host__ __device__ constexpr int mt_of(int HC) { return HC <= 256 ? 2 : 1; }
+// (bwd) and K2 size their slabs apart (K2 by its dtype's item size too).
+// The tiled kernels take HC up to 256.
+__host__ __device__ constexpr int mt_of(int) { return 2; }
 __host__ __device__ constexpr int tm_of(int HC) { return 16 * mt_of(HC) * WG; }
 __host__ __device__ constexpr int ksf_of(int HC, bool bwd, int item = 4) {
-  return HC <= 256 ? (!bwd && item == 2 && HC % 128 == 0 ? 64 : 32) : HC <= 384 ? 16 : 8;
+  return !bwd && item == 2 && HC % 128 == 0 ? 64 : 32;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -20,7 +20,8 @@ one-hot segment-sum experiments B1-B4 and B6 (``csrc/segsum_onehot.cu``);
 ``stream_flat``, ``stream_dual`` and ``stream_fold``, the probes B5, B7
 and B8 (``csrc/stream.cu``); ``pma_bwd_rows``, ``pma_bwd_dw`` and
 ``pma_bwd_reduce``, the three parts (K3a, K3b, K3c) of K3 and K3R on the
-warpgroup route (``csrc/pma_epilogue_wg.cu``, at HC 256), counted
+warpgroup route (``csrc/pma_epilogue_wg.cu``, at HC 256) and the cluster
+route (``csrc/pma_epilogue_cluster_bwd.cu``, at HC 384 and 512), counted
 besides ``pma_epilogue_bwd``/``pma_epilogue_bwd_runs``.
 """
 
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "allset_pma_epilogue_fwd_cluster": [P] * 9 + [I] * 8 + [P],
     "allset_pma_epilogue_bwd": [P] * 17 + [I] * 12 + [P],
     "allset_pma_epilogue_bwd_wg": [P] * 17 + [I] * 13 + [P],
+    "allset_pma_epilogue_bwd_cluster": [P] * 17 + [I] * 13 + [P],
     "allset_pma_score_pack": [P] * 7 + [I] * 9 + [P],
     "allset_layer_norm_fwd": [P] * 4 + [LL, I, I, LL, LL, I, I, P],
     "allset_layer_norm_bwd": [P] * 8 + [LL, I, I, LL, LL, I, I, I, P],

@@ -4,10 +4,11 @@ Counterpart of ``allset_tpu/ops/pallas_pma.py``; the CUDA kernels in
 ``csrc/pma_epilogue_fwd.cu`` (K2 at HC 64 to 192, and 256 in bf16),
 ``csrc/pma_epilogue_wg.cu`` (K3 at HC 256, WG_WIDTHS, and K2 in f32 at
 HC 256, WG_FWD_WIDTHS), ``csrc/pma_epilogue_cluster.cu`` (K2 at HC 384
-and 512, CLUSTER_FWD_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3 at the
-other widths up to 512; the code and design note these share in
-``csrc/pma_epilogue.cuh``, the Hopper primitives in
-``csrc/pma_wgmma.cuh``)
+and 512, CLUSTER_FWD_WIDTHS), ``csrc/pma_epilogue_cluster_bwd.cu`` (K3
+at HC 384 and 512, CLUSTER_BWD_WIDTHS) and ``csrc/pma_epilogue.cu`` (K3
+at HC 64 to 192; the code and design note these share in
+``csrc/pma_epilogue.cuh``, the Hopper primitives and K3b in
+``csrc/pma_wgmma.cuh``, the cluster layout in ``csrc/pma_cluster.cuh``)
 replace its ``_fwd_kernel`` and ``_bwd_kernel``,
 both the single-run grids (K2, K3) and the runs grids R > 1 that the
 vmapped statistical runs take (K2R, K3R). Per row of the packed aggregate
@@ -38,12 +39,17 @@ output columns on the same warpgroup products, the A operand's halves
 and the row statistics exchanged through distributed shared memory, each
 block streaming only its column half of the weight slabs
 (:func:`cluster_fwd_weights`; f32 as plain f32, split in shared memory).
-K2 in bf16 up to 256, and K2 and K3 at the other widths up to 512, keep
-each row tile's intermediates in registers (16 warps: two row halves,
-each warp an eighth of the columns; 64-row tiles up to HC 256, 32-row
-tiles above, :func:`tile_rows`) with ``mma.sync`` products; that K2 is a
-persistent kernel that fetches the next tile's rows while it multiplies
-the current one.
+K3 at HC 384 and 512 (CLUSTER_BWD_WIDTHS, :func:`bwd_kernel`) runs K3a on
+the same cluster layout, the forward recompute and the backward's
+exchanges (the LN1 and LN0 backward's row sums, the dp_l halves) through
+distributed shared memory, each block streaming its column half of the
+forward and backward slabs (:func:`cluster_bwd_weights`), and K3b over
+the transposed scratch as at HC 256. K2 in bf16 up to 256, and K2 and K3
+at HC 64 to 192, keep each row tile's intermediates in registers (16
+warps: two row halves, each warp an eighth of the columns; 64-row tiles,
+:func:`tile_rows`) with ``mma.sync`` products; that K2 is a persistent
+kernel that fetches the next tile's rows while it multiplies the current
+one.
 Above 512, at any HC that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``),
 a simpler pair takes HC at run time: f32 FMA products on the CUDA cores,
 intermediates in global scratch, the same per-block partials.
@@ -100,6 +106,15 @@ WG_FWD_WIDTHS = (256,)
 # 2.18 against 3.95 (512); per 20-run epoch in f32 154.2 against 170.3
 # and 216.2 against 287.8
 CLUSTER_FWD_WIDTHS = (384, 512)
+# K3/K3R on the cluster kernel (csrc/pma_epilogue_cluster_bwd.cu) at these
+# widths, in both dtypes: in alternating pairs on the card against the
+# tiled K3 (PERF.md, scripts/k3_parts.py, 2 pairs) it won at both, every
+# reading lower: per bench step in bf16 12.18 against 13.92 ms (HC 384)
+# and 15.35 against 26.14 (512); per 20-run epoch in f32 226.4 against
+# 283.9 and 325.9 against 507.8
+CLUSTER_BWD_WIDTHS = (384, 512)
+CLUSTER_BWD_ENTRIES = 66  # clusters of the cluster K3a, each a set of small-vector partials
+CB_KSB = 32  # k rows per bf16 forward slab of the cluster K3a (the bytes of an f32 one)
 WG_BLOCKS = 132  # K3a's persistent blocks per run: one per SM of an H100
 WG_TILE = 64  # rows per K3a tile
 WG_KSF, WG_KSB = 16, 64  # k rows per weight slab: f32 (TF32 hi and lo), bf16
@@ -240,10 +255,9 @@ def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
 
 
 def tile_rows(HC: int) -> int:
-    """Rows per tile of K3 at width HC: 64 up to HC 256, 32 up to 512 (the
-    note in ``csrc/pma_epilogue.cuh`` has the byte counts), the wide
-    pair's WIDE_TR above. K2 takes 64-row tiles up to 512."""
-    return 64 if HC <= 256 else 32 if HC <= 512 else WIDE_TR
+    """Rows per tile of K2 and K3 at width HC: 64 up to HC 512 (at 384
+    and 512 on the cluster kernels), the wide pair's WIDE_TR above."""
+    return WIDE_TR if wide(HC) else 64
 
 
 def wide(HC: int) -> bool:
@@ -364,12 +378,33 @@ def cluster_fwd_weights(Wrff: Tensor, cdt) -> Tensor:
     half's slabs laid out as :func:`wg_slabs` lays them out; bf16 on the
     bf16 path (WG_KSB k-rows a slab), else plain f32 (WG_KSF), which the
     kernel splits into TF32 hi and lo in shared memory."""
-    Wt = Wrff.transpose(-1, -2)
-    *lead, L, HC, _ = Wt.shape
-    halves = Wt.reshape(*lead, L, 2, HC // 2, HC).movedim(-3, -4)
+    halves = _halves(Wrff.transpose(-1, -2))
     if cdt == torch.float32:
         return wg_slabs(halves.float(), WG_KSF, False)
     return wg_slabs(halves.to(cdt), WG_KSB, False)
+
+
+def _halves(B: Tensor) -> Tensor:
+    """A K-major operand B [..., L, N, K] cut into its two N halves (block c
+    of a cluster reads half c): [..., 2, L, N / 2, K]."""
+    *lead, L, N, K = B.shape
+    return B.reshape(*lead, L, 2, N // 2, K).movedim(-3, -4)
+
+
+def cluster_bwd_weights(Wrff: Tensor, cdt):
+    """The rFF weights [..., L, HC, HC] ([in][out]) as the cluster K3a's
+    slabs, (wf, wb), each [..., 2, L, HC / ks, 1, ks / V, HC / 16, 8, V]
+    (block c of a cluster reads half c, laid out as :func:`wg_slabs` lays
+    them out): wf the forward products' B = W^T cut into its column halves
+    (bf16 on the bf16 path, CB_KSB k-rows a slab, else plain f32, WG_KSF),
+    wb the backward's dp @ W^T, B = W cut into its row halves, plain f32
+    (WG_KSF) in both dtypes. The kernel splits f32 slabs into TF32 hi and
+    lo in shared memory. Every slab takes 32 HC bytes."""
+    Wt = _halves(Wrff.transpose(-1, -2))
+    wb = wg_slabs(_halves(Wrff).float(), WG_KSF, False)
+    if cdt == torch.float32:
+        return wg_slabs(Wt.float(), WG_KSF, False), wb
+    return wg_slabs(Wt.to(cdt), CB_KSB, False), wb
 
 
 def wg_weights(Wrff: Tensor, cdt):
@@ -391,6 +426,26 @@ def fwd_kernel(HC: int, dtype) -> str:
     return "wg" if HC in WG_FWD_WIDTHS and dtype == torch.float32 else "tiled"
 
 
+def bwd_kernel(HC: int, dtype) -> str:
+    """Which K3 serves width HC in ``dtype`` on the card: 'wg' (the
+    warpgroup K3a in csrc/pma_epilogue_wg.cu, at WG_WIDTHS), 'cluster'
+    (csrc/pma_epilogue_cluster_bwd.cu, at CLUSTER_BWD_WIDTHS), 'wide'
+    (csrc/pma_epilogue_wide.cu, above 512) or 'tiled'
+    (csrc/pma_epilogue.cu). The first two share K3b over the transposed
+    scratch (:func:`wg_chunk_plan`)."""
+    if wide(HC):
+        return "wide"
+    if HC in CLUSTER_BWD_WIDTHS:
+        return "cluster"
+    return "wg" if HC in WG_WIDTHS else "tiled"
+
+
+def cluster_bwd_entries(M: int) -> int:
+    """The cluster K3a's clusters at M rows, each a set of small-vector
+    partials: one per 64-row tile up to CLUSTER_BWD_ENTRIES."""
+    return max(1, min(-(-M // WG_TILE), CLUSTER_BWD_ENTRIES))
+
+
 def dw_chunk_plan(rows: int):
     """(chunk_rows, nch): K3b's row chunks, each a dW partial: at most
     DW_PARTIALS chunks of chunk_rows, a multiple of 32, the last one
@@ -409,13 +464,15 @@ def wg_chunk_plan(M: int):
 
 def bwd_scratch_bytes(M: int, HC: int, L: int, itemsize: int) -> int:
     """Bytes of K3's scratch per run at M rows: the stored rFF inputs and
-    output gradients (transposed on the warpgroup route; f32 in the wide
-    pair), the small vectors' and dW's partials (the wide pair: its tile
-    buffers)."""
-    if HC in WG_WIDTHS:
+    output gradients (transposed on the warpgroup and cluster routes; f32
+    in the wide pair), the small vectors' and dW's partials (the wide
+    pair: its tile buffers)."""
+    route = bwd_kernel(HC, torch.float32 if itemsize == 4 else torch.bfloat16)
+    if route in ("wg", "cluster"):
         Mp, _, nch = wg_chunk_plan(M)
         tables = L * HC * Mp * (itemsize + 4)
-        blocks = min(-(-M // WG_TILE), WG_BLOCKS)
+        blocks = (min(-(-M // WG_TILE), WG_BLOCKS) if route == "wg"
+                  else 4 * cluster_bwd_entries(M))
     elif wide(HC):
         G = _wide_grid(M)
         return L * HC * M * 8 + G * (WIDE_NBUF * WIDE_TR + 8) * HC * 4
@@ -487,12 +544,13 @@ def _bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     dev, cdt = agg.device, agg.dtype
     agg = agg.contiguous()
     gy = gy.to(cdt).contiguous()
-    if wide(HC):
+    route = bwd_kernel(HC, cdt)
+    if route == "wide":
         return _wide_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
                                lead, M, WP, HC, L)
-    if HC in WG_WIDTHS:
+    if route in ("wg", "cluster"):
         return _wg_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
-                             lead, M, WP, HC, L)
+                             lead, M, WP, HC, L, route)
     Wf, Wbt = _weights(Wrff, cdt)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     grid_rows = max(1, min(-(-M // tile_rows(HC)), _BWD_MAX_BLOCKS))
@@ -523,14 +581,24 @@ def _bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
 
 
 def _wg_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead, M, WP,
-                  HC, L):
-    """K3/K3R at WG_WIDTHS (_bwd_setup's contract): K3a on the warpgroup
-    products, K3b over the transposed scratch (wg_chunk_plan), K3c."""
+                  HC, L, route):
+    """K3/K3R on the warpgroup (route 'wg', WG_WIDTHS) or cluster ('cluster',
+    CLUSTER_BWD_WIDTHS) K3a (_bwd_setup's contract), K3b over the
+    transposed scratch (wg_chunk_plan), K3c. grid_rows: the small-vector
+    partials per run, K3a's blocks (wg) or 4 per cluster (one per warp of a
+    warpgroup's rows)."""
     dev, cdt, f32 = agg.device, agg.dtype, torch.float32
-    wf, wb = wg_weights(Wrff, cdt)
+    if route == "wg":
+        wf, wb = wg_weights(Wrff, cdt)
+        grid_rows = max(1, min(-(-M // WG_TILE), WG_BLOCKS))
+        entry, arg = "allset_pma_epilogue_bwd_wg", grid_rows
+    else:
+        wf, wb = cluster_bwd_weights(Wrff, cdt)
+        arg = cluster_bwd_entries(M)
+        grid_rows = 4 * arg
+        entry = "allset_pma_epilogue_bwd_cluster"
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     Mp, chunk_rows, nch = wg_chunk_plan(M)
-    grid_rows = max(1, min(-(-M // WG_TILE), WG_BLOCKS))
     dagg = torch.empty(M, runs * WP, dtype=cdt, device=dev)
     dW = torch.empty(lead + (L, HC, HC), dtype=f32, device=dev)
     dsmall = torch.empty(lead + (8, HC), dtype=f32, device=dev)
@@ -540,15 +608,15 @@ def _wg_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead
     part_w = torch.empty(runs, nch, L, HC, HC, dtype=f32, device=dev)
 
     def call(parts=ALL_PARTS):
-        rc = _kernels.lib().allset_pma_epilogue_bwd_wg(
+        rc = getattr(_kernels.lib(), entry)(
             agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
             wf.data_ptr(), wb.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
             dagg.data_ptr(), dW.data_ptr(), dsmall.data_ptr(), hT.data_ptr(), dpT.data_ptr(),
             part_small.data_ptr(), part_w.data_ptr(), M, Mp, WP, HC, H, L, runs, int(relu),
-            _kernels.dtype_code(agg), grid_rows, nch, chunk_rows, parts,
+            _kernels.dtype_code(agg), arg, nch, chunk_rows, parts,
             _kernels.stream_ptr(agg),
         )
-        _kernels.check(rc, "pma_epilogue_bwd (warpgroup)")
+        _kernels.check(rc, f"pma_epilogue_bwd ({route})")
         for bit, name in ((1, "pma_bwd_rows"), (2, "pma_bwd_dw"), (4, "pma_bwd_reduce")):
             if parts & bit:
                 _kernels.launches[name] += 1

@@ -161,9 +161,13 @@ torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
 B10, B9: index_select; B5, B7, B8: a sum over a view); the last line is
 {"ok": true, "device": {...}}. K2's rows at the main path's shapes (the
 bench step's tiled K2, the epoch's warpgroup K2R, the cluster K2 at
-hidden 384 and 512 and its K2R at 512) also name their kernel and its
-registers and spills from the build's ptxas output; phase 6 also times
-K2R alone at hidden 384 per 20-run epoch (logged, not in the line).
+hidden 384 and 512 and its K2R at 512) and the cluster K3a's (hidden 384
+and 512 steps, the 512 epoch) also name their kernel and its registers
+and spills from the build's ptxas output; K3's parts at hidden 384 and
+512 have rows of their own (per bench step, and per 20-run epoch at
+512); phase 6 also times K2R, K3R and K3R's parts at hidden 384 per
+20-run epoch (logged, not in the line: no CLI run there counts their
+launches).
 """
 
 from __future__ import annotations
@@ -449,10 +453,10 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
 # (HC, H, WP): the bench and walmart width, the other widths the kernels
 # take (cuda_pma.KERNEL_WIDTHS), and heads up to one column per head (the
 # denominators leave shared memory (DG) for f32 from 192 heads in K2 at
-# HC 192, from 384 in K3 at HC 384 and 256 at HC 512; at HC 256 the
-# warpgroup K3 and, in f32, K2 take every head count on a ring of 4, 3 or
-# 2 weight slots; the cluster K2 at 384 and 512 reads them from global
-# memory at every head count)
+# HC 192; at HC 256 the warpgroup K3 and, in f32, K2 take every head
+# count on a ring of 4, 3 or 2 weight slots; the cluster K2 and K3 at 384
+# and 512 read them from global memory at every head count, K3 once per
+# row, column pair or column as the heads fall on its warpgroups)
 EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (192, 192, 384),
               (128, 4, 136),
               (64, 1, 72), (64, 64, 128), (384, 1, 392), (384, 8, 392), (384, 384, 768),
@@ -476,9 +480,11 @@ def check_epilogue(dev, gen):
     for (HC, H, WP), dtype, L in cases:
         require(cp.epilogue_route(HC, H, L, WP) == "kernel",
                 f"HC={HC}, L={L}, {dtype} is not routed to the kernels")
-        # below one tile: K2's 64 rows up to HC 512 and K3's 32 at 384 and
-        # 512 (40 and 20 rows), the wide pair's 16 above
-        smalls = {t * 5 // 8 for t in (cp.tile_rows(HC), 64 if HC <= 512 else cp.WIDE_TR)}
+        # below one tile: K2's and K3's 64 rows up to HC 512 (40 rows) and,
+        # at 384 and 512, the 32 of the tiled K3 there before (20 rows), the
+        # wide pair's 16 above
+        tiles = (cp.tile_rows(HC), *((32,) if HC in cp.CLUSTER_BWD_WIDTHS else ()))
+        smalls = {t * 5 // 8 for t in tiles}
         for M in (1000, *sorted(smalls)):  # not a multiple of the tile; below one tile
             for relu in (False, True):
                 if M in smalls and relu:
@@ -491,6 +497,10 @@ def check_epilogue(dev, gen):
                         f"two K2 calls differ ({dtype}, HC={HC}, H={H}, M={M}, L={L})")
                 y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
                 got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
+                if HC in cp.CLUSTER_BWD_WIDTHS:
+                    again = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
+                    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                            f"two K3 calls differ ({dtype}, HC={HC}, H={H}, M={M}, L={L})")
                 want = cp.epilogue_bwd_plain(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
                 torch.cuda.synchronize()
                 what = f"{dtype}, HC={HC}, H={H}, M={M}, L={L}, relu={relu}"
@@ -518,23 +528,28 @@ def check_runs_epilogue(dev, gen):
     """K2R/K3R against their plain versions (phase 3's tolerances) and, run
     by run, bit for bit against K2/K3 launched on the run's slice, at HC
     256, 384 and 512, at 640, 768 and 1024 (the wide pair; R 2 and 5, L 1
-    and 2), and at WIDEST (R 2)."""
+    and 2; 1000 rows), at WIDEST (R 2) and, at 384 and 512, on 5000 rows
+    (R 2, L 2: more tiles than the cluster K3a has clusters)."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    M = 1000  # not a multiple of the 64-, 32- or 16-row tile
-    cases = [(shape, dtype, R, L)
+    cases = [(shape, dtype, R, L, 1000)  # 1000 rows: not a multiple of the 64- or 16-row tile
              for shape in ((256, 8, 264), (384, 8, 392), (512, 8, 520), (640, 8, 648),
                            (768, 8, 776), (1024, 8, 1032))
              for dtype in (torch.float32, torch.bfloat16) for R in (2, 5) for L in (1, 2)]
-    cases += [((HC, H, WP), dtype, 2, L) for HC, H, WP, dtype, L in WIDEST]
-    for (HC, H, WP), dtype, R, L in cases:
+    cases += [((HC, H, WP), dtype, 2, L, 1000) for HC, H, WP, dtype, L in WIDEST]
+    # the cluster K3a over more 64-row tiles than its clusters
+    # (CLUSTER_BWD_ENTRIES): each cluster's small-vector partials sum
+    # several tiles of a run
+    cases += [((HC, 8, HC + 8), dtype, 2, 2, 5000) for HC in cp.CLUSTER_BWD_WIDTHS
+              for dtype in (torch.float32, torch.bfloat16)]
+    for (HC, H, WP), dtype, R, L, M in cases:
         for relu in (False, True):
             agg, gy, p = runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen)
             y = cp.epilogue_fwd_runs_cuda(agg, *p, H, relu)
             y_ref = cp.epilogue_fwd_runs_plain(agg, *p, H, relu)
             got = cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, relu)
             want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, relu)
-            what = f"{dtype}, HC={HC}, R={R}, L={L}, relu={relu}"
+            what = f"{dtype}, HC={HC}, R={R}, L={L}, M={M}, relu={relu}"
             err, rel = scaled_err(y, y_ref)
             require(rel <= EPI_FWD_TOL[dtype], f"K2R disagrees ({what})")
             msg = check_bwd(got, want, TOL[dtype][1], what)
@@ -550,7 +565,7 @@ def check_runs_epilogue(dev, gen):
                         and torch.equal(got[1][r], d1[1])
                         and torch.equal(got[2][r], d1[2]),
                         f"K3R run {r} differs from K3 on its slice ({what})")
-            log(f"  K2R/K3R {str(dtype)[6:]:8s} HC={HC} R={R} L={L} relu={int(relu)}: fwd "
+            log(f"  K2R/K3R {str(dtype)[6:]:8s} HC={HC} R={R} L={L} M={M} relu={int(relu)}: fwd "
                 f"max_abs_err={err:.3e} scaled={rel:.3e}; bwd scaled max {msg}; "
                 f"every run bit-identical to K2/K3 on its slice")
     _kernels.reset_launches()
@@ -981,9 +996,19 @@ def time_main_shapes(batch, dev, gen):
     return out
 
 
+def k3_small_partials(M, HC, dtype):
+    """The small vectors' partials per run of K3a on its route: one per
+    block of the warpgroup K3a, four per cluster of the cluster K3a."""
+    from allset_tpu_torch.ops import cuda_pma as cp
+
+    if cp.bwd_kernel(HC, dtype) == "cluster":
+        return 4 * cp.cluster_bwd_entries(M)
+    return min(-(-M // cp.WG_TILE), cp.WG_BLOCKS)
+
+
 def k3_part_costs(M, HC, WP, L, dtype, R=1):
-    """(bytes, ops) of K3a, K3b and K3c on the warpgroup route at M rows
-    and R runs: K3a reads agg, gy and the parameters once, writes dagg,
+    """(bytes, ops) of K3a, K3b and K3c on the warpgroup and cluster routes
+    at M rows and R runs: K3a reads agg, gy and the parameters once, writes dagg,
     the transposed h and dp tables and the small vectors' partials, and
     takes the forward's and dp @ W^T's products; K3b reads the tables,
     writes the dW partials and takes h^T dp; K3c reads both partials and
@@ -992,7 +1017,7 @@ def k3_part_costs(M, HC, WP, L, dtype, R=1):
 
     item = 2 if dtype == torch.bfloat16 else 4
     Mp, _, nch = cp.wg_chunk_plan(M)
-    G = min(-(-M // cp.WG_TILE), cp.WG_BLOCKS)
+    G = k3_small_partials(M, HC, dtype)
     tables = L * HC * Mp * (item + 4)
     small = G * 8 * HC * 4
     partials = nch * L * HC * HC * 4
@@ -1007,7 +1032,7 @@ def k3_part_costs(M, HC, WP, L, dtype, R=1):
 
 
 def time_k3_parts(out, suffix, agg, gy, p, H, R, M, HC, WP, L, dt, got, want):
-    """K3a, K3b and K3c of the warpgroup route apart (cuda_pma._bwd_setup's
+    """K3a, K3b and K3c of the warpgroup and cluster routes apart (cuda_pma._bwd_setup's
     parts, each launched alone on the scratch of a whole launch), each
     against its plain version (bwd_rows_plain; one product per chunk and
     layer; the partials added in order) and, for K3b and K3c, one PyTorch
@@ -1025,25 +1050,29 @@ def time_k3_parts(out, suffix, agg, gy, p, H, R, M, HC, WP, L, dt, got, want):
     runs = [(agg, gy, p)] if R is None else [
         (agg[:, r * WP:(r + 1) * WP], gy[:, r * HC:(r + 1) * HC], [t[r] for t in p])
         for r in range(R)]
-    plain_rows = cuda_ms(lambda: [cp.bwd_rows_plain(a, g, *q, H, True) for a, g, q in runs], 1)
+    def plain_all():  # each run's outputs freed before the next (HC 512, R 20: GiBs)
+        for a, g, q in runs:
+            cp.bwd_rows_plain(a, g, *q, H, True)
+    plain_rows = cuda_ms(plain_all, 1)
     Mp, chunk, nch = cp.wg_chunk_plan(M)
-    tabs = [cp.bwd_rows_plain(a, g, *q, H, True)[1:3] for a, g, q in runs]
-    hs, ds = [], []
-    for hins, dps in tabs:
-        for h, d in zip(hins, dps):
-            hs.append(torch.nn.functional.pad(h.float(), (0, 0, 0, nch * chunk - M)))
-            ds.append(torch.nn.functional.pad(d, (0, 0, 0, nch * chunk - M)))
-    del tabs
-    hs = torch.stack(hs).reshape(-1, chunk, HC)
-    ds = torch.stack(ds).reshape(-1, chunk, HC)
+    # h and dp per run and layer, zero-padded to whole chunks, filled in place
+    hs = torch.zeros(len(runs) * L, nch * chunk, HC, device=agg.device)
+    ds = torch.zeros_like(hs)
+    for i, (a, g, q) in enumerate(runs):
+        _, hins, dps, _ = cp.bwd_rows_plain(a, g, *q, H, True)
+        for l in range(L):
+            hs[i * L + l, :M] = hins[l].float()
+            ds[i * L + l, :M] = dps[l]
+        del hins, dps
+    hs = hs.reshape(-1, chunk, HC)
+    ds = ds.reshape(-1, chunk, HC)
     plain_dw = cuda_ms(lambda: [cp._mm(hs[i].T, ds[i]) for i in range(hs.shape[0])], 1)
     lib_dw = cuda_ms(lambda: torch.bmm(hs.transpose(1, 2), ds), 1 if R else 5)
     parts = torch.bmm(hs.transpose(1, 2), ds).reshape(-1, nch, HC * HC)
     del hs, ds
 
-    # the small vectors' partials: one [8, HC] table per row block of K3a
-    G = min(-(-M // cp.WG_TILE), cp.WG_BLOCKS)
-    small = torch.randn(R or 1, G, 8 * HC, device=agg.device)
+    # the small vectors' partials: the route's [8, HC] tables
+    small = torch.randn(R or 1, k3_small_partials(M, HC, dt), 8 * HC, device=agg.device)
 
     def add_in_order():
         sums = []
@@ -1093,7 +1122,7 @@ def time_epilogue_step(batch, dev, gen, HC=256, suffix=""):
         want = cp.epilogue_bwd_plain(agg, gy, *p, H, True)
         bmsg = check_bwd(got, want, TOL[dt][1], f"M={M}, HC={HC}")
         eb, _ = scaled_err(got[0], want[0])
-        if HC in cp.WG_WIDTHS:
+        if cp.bwd_kernel(HC, dt) in ("wg", "cluster"):
             time_k3_parts(out, suffix, agg, gy, p, H, None, M, HC, WP, L, dt, got, want)
         out["pma_epilogue_fwd" + suffix].add(1, kf, pf, ef, *epi_cost(M, HC, WP, L, dt, False))
         out["pma_epilogue_bwd" + suffix].add(1, kb, pb, eb, *epi_cost(M, HC, WP, L, dt, True))
@@ -1216,14 +1245,20 @@ def run_steps(model, batch, mask, steps):
 # inside K1 (ops/exchange.py's route) and neither B10 nor K1
 PER_STEP = {"segment_sum_gather": 4, "pma_epilogue_fwd": 2, "pma_epilogue_bwd": 2,
             "pma_gmax": 2, "pma_pack": 2, "pma_bwd_rows": 2, "pma_bwd_dw": 2, "pma_bwd_reduce": 2}
-# K3's parts on the warpgroup route (HC 256; cuda_pma.WG_WIDTHS), one
-# launch each per K3 or K3R launch
+# K3's parts on the warpgroup and cluster routes (HC 256, 384 and 512;
+# cuda_pma.WG_WIDTHS, CLUSTER_BWD_WIDTHS), one launch each per K3 or K3R
+# launch
 WG_PARTS = ("pma_bwd_rows", "pma_bwd_dw", "pma_bwd_reduce")
 
 
-def off_wg(per):
-    """``per`` at a width off the warpgroup route (HC other than 256): K3
-    launches without its parts' counters."""
+def off_wg(per, HC=None):
+    """``per`` at width HC (None: a width off both routes): K3 launches
+    without its parts' counters where K3 takes neither the warpgroup nor
+    the cluster route."""
+    from allset_tpu_torch.ops import cuda_pma as cp
+
+    if HC is not None and cp.bwd_kernel(HC, torch.float32) in ("wg", "cluster"):
+        return dict(per)
     return {k: v for k, v in per.items() if k not in WG_PARTS}
 
 
@@ -1379,7 +1414,7 @@ def time_epilogue_epoch(batch, dev, gen, R=20, HC=256, suffix="", bwd=True):
         want = cp.epilogue_bwd_runs_plain(agg, gy, *p, H, True)
         bmsg = check_bwd(got, want, TOL[dt][1], f"runs M={M}, HC={HC}")
         eb, _ = scaled_err(got[0], want[0])
-        if HC in cp.WG_WIDTHS:
+        if cp.bwd_kernel(HC, dt) in ("wg", "cluster"):
             time_k3_parts(out, suffix + "_epoch", agg, gy, p, H, R, M, HC, WP, L, dt, got, want)
         del want
         for r in range(R):
@@ -1506,7 +1541,7 @@ def hidden512_protocol(card, tmp, dev):
             "--device", "cuda", "--res_root", tmp]
     epochs = 2
     res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs,
-                                      off_wg(pma_group_epoch()), dev, mlp_hidden=512)
+                                      off_wg(pma_group_epoch(), 512), dev, mlp_hidden=512)
     loss = res.metrics[:, :, 3].mean(axis=0)
     log(f"  --MLP_hidden 512: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
         f"{counts}; params {res.num_params}; mean training loss per epoch "
@@ -1516,7 +1551,8 @@ def hidden512_protocol(card, tmp, dev):
     log(f"  --MLP_hidden 512: peak device memory per folded run {peak / 2**30:.3f} GiB; the "
         f"trainer's estimate {est / 2**30:.3f} GiB [{card}]")
     require(est >= peak, "--MLP_hidden 512: the trainer's estimate is below the measured peak")
-    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2"], 2, off_wg(pma_group_epoch()))
+    folded_vs_one_by_one(base + ["--runs", "2", "--epochs", "2"], 2,
+                         off_wg(pma_group_epoch(), 512))
     return counts
 
 
@@ -2831,13 +2867,12 @@ def main() -> int:
                 "AllDeepSets bench step")
     counts, _ = main_path(batch, dev, card, PER_STEP, against_pair=True)
     wide_counts = {}
-    for HC in (384, 512, 1024):  # the cluster K2 (K3's 32-row tiles) and the wide pair
+    for HC in (384, 512, 1024):  # the cluster K2 and K3, and the wide pair
         suffix = f"_hc{HC}"
         timings.update(time_epilogue_step(batch, dev, gen, HC, suffix))
-        log_tallies({k: timings[k] for k in ("pma_epilogue_fwd" + suffix,
-                                             "pma_epilogue_bwd" + suffix)},
+        log_tallies({k: v for k, v in timings.items() if k.endswith(suffix)},
                     f"bench step at hidden {HC}")
-        wide_counts[HC], _ = main_path(batch, dev, card, off_wg(PER_STEP), hidden=HC)
+        wide_counts[HC], _ = main_path(batch, dev, card, off_wg(PER_STEP, HC), hidden=HC)
     main_path(batch, dev, card, PER_STEP_GPR, gpr=True)
     main_path(batch, dev, card, PER_STEP, learn_mask=True)
     deepsets = dict(pma=False, aggregate="add")
@@ -2872,11 +2907,11 @@ def main() -> int:
     del batch
     timings.update(time_runs_shapes(wb, dev, gen))
     timings.update(time_epilogue_epoch(wb, dev, gen, 20, 512, "_hc512"))
-    log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc512",
-                                         "pma_epilogue_bwd_runs_hc512")},
+    log_tallies({k: v for k, v in timings.items() if k.endswith(("_hc512_epoch", "_runs_hc512"))},
                 "20-run epoch at hidden 512")
-    k2r384 = time_epilogue_epoch(wb, dev, gen, 20, 384, "_hc384", bwd=False)
-    log_tallies(k2r384, "20-run epoch at hidden 384 (K2R)")
+    # no CLI run at hidden 384 counts their launches: logged, not in the line
+    log_tallies(time_epilogue_epoch(wb, dev, gen, 20, 384, "_hc384"),
+                "20-run epoch at hidden 384 (K2R, K3R and its parts)")
     timings.update(time_epilogue_epoch(wb, dev, gen, 2, 1024, "_hc1024"))
     log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc1024",
                                          "pma_epilogue_bwd_runs_hc1024")},
@@ -2902,7 +2937,8 @@ def main() -> int:
     stream = "allset_tpu_torch/csrc/stream.cu"
     wg = "allset_tpu_torch/csrc/pma_epilogue_wg.cu"
     cuh = "allset_tpu_torch/csrc/pma_epilogue.cuh"
-    k3_384_512 = "allset_tpu_torch/csrc/pma_epilogue.cu"
+    k3_384_512 = "allset_tpu_torch/csrc/pma_epilogue_cluster_bwd.cu"
+    dwg = "allset_tpu_torch/csrc/pma_wgmma.cuh"
     sources = {  # name -> (source, TPU kernel replaced, launches of its path)
         "segment_sum": ("allset_tpu_torch/csrc/segment_sum.cu",
                         "allset_tpu/ops/pallas_segment.py:39", zoo_counts["UniGAT"]),
@@ -2928,10 +2964,10 @@ def main() -> int:
         # K3's parts on the warpgroup route at the bench step and the 20-run
         # epoch (HC 256)
         "pma_bwd_rows": (wg, "allset_tpu/ops/pallas_pma.py:185", counts),
-        "pma_bwd_dw": (wg, "allset_tpu/ops/pallas_pma.py:185", counts),
+        "pma_bwd_dw": (dwg, "allset_tpu/ops/pallas_pma.py:185", counts),
         "pma_bwd_reduce": (cuh, "allset_tpu/ops/pallas_pma.py:185", counts),
         "pma_bwd_rows_epoch": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
-        "pma_bwd_dw_epoch": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
+        "pma_bwd_dw_epoch": (dwg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_bwd_reduce_epoch": (cuh, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
         "pma_epilogue_fwd_runs": (wg, "allset_tpu/ops/pallas_pma.py:365", runs_counts),
         "pma_epilogue_bwd_runs": (wg, "allset_tpu/ops/pallas_pma.py:424", runs_counts),
@@ -2961,6 +2997,13 @@ def main() -> int:
     for HC, cnt in ((512, runs512_counts), (1024, runs1024_counts)):
         for k in ("pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs"):
             sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1], cnt)
+    # K3's parts on the cluster route: the bench steps at hidden 384 and
+    # 512, the CLI's 20 runs at 512
+    parts = {"pma_bwd_rows": k3_384_512, "pma_bwd_dw": dwg, "pma_bwd_reduce": cuh}
+    for k, src in parts.items():
+        for HC in (384, 512):
+            sources[f"{k}_hc{HC}"] = (src, sources[k][1], wide_counts[HC])
+        sources[f"{k}_hc512_epoch"] = (src, sources[f"{k}_epoch"][1], runs512_counts)
     for k in ("layer_norm_fwd", "layer_norm_bwd"):  # per AllDeepSets 20-run epoch
         sources[f"{k}_epoch"] = (*sources[k][:2], ln_epoch_counts)
     log(f"  zoo CLI launches: {zoo_cli_counts}; CE and HyperGCN CLI launches: {ce_cli_counts}")
@@ -2970,20 +3013,24 @@ def main() -> int:
     # spills: the tiled K2 (bf16 bench step), the warpgroup K2R (f32
     # epoch), the cluster K2 at hidden 384 and 512 (bf16 bench steps) and
     # K2R at 512 (f32 epoch)
-    k2_ptxas = {"pma_epilogue_fwd": "pma_fwd_kernel<__nv_bfloat16, 256, false>",
+    ptxas_of = {"pma_epilogue_fwd": "pma_fwd_kernel<__nv_bfloat16, 256, false>",
                 "pma_epilogue_fwd_runs": "pma_fwd_wg_kernel<float, 256, 4>",
                 "pma_epilogue_fwd_hc384": "pma_fwd_cluster_kernel<__nv_bfloat16, 384>",
                 "pma_epilogue_fwd_hc512": "pma_fwd_cluster_kernel<__nv_bfloat16, 512>",
-                "pma_epilogue_fwd_runs_hc512": "pma_fwd_cluster_kernel<float, 512>"}
+                "pma_epilogue_fwd_runs_hc512": "pma_fwd_cluster_kernel<float, 512>",
+                # and K3a on the cluster route (bf16 steps, f32 epoch)
+                "pma_bwd_rows_hc384": "pma_bwd_cluster_kernel<__nv_bfloat16, 384>",
+                "pma_bwd_rows_hc512": "pma_bwd_cluster_kernel<__nv_bfloat16, 512>",
+                "pma_bwd_rows_hc512_epoch": "pma_bwd_cluster_kernel<float, 512>"}
     kernels = []
     for name, (src, rep, cnt) in sources.items():
-        base = re.sub(r"_(hc\d+|epoch|b\d+)$", "", name)
+        base = re.sub(r"(_(hc\d+|epoch|b\d+))+$", "", name)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": cnt[base], **timings[name].row()}
-        if name in k2_ptxas:
-            regs, st, ld = next((p[1:] for p in ptxas if k2_ptxas[name] in p[0]),
+        if name in ptxas_of:
+            regs, st, ld = next((p[1:] for p in ptxas if ptxas_of[name] in p[0]),
                                 (None, None, None))
-            row.update(kernel=k2_ptxas[name], registers=regs, spill_stores=st, spill_loads=ld)
+            row.update(kernel=ptxas_of[name], registers=regs, spill_stores=st, spill_loads=ld)
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -141,30 +141,40 @@ __device__ unsigned long long k2_total[9];
 
 def stamped_cluster(tmp: str, csrc: str) -> str:
     """Write the stamped cluster K2 (and its headers) of csrc into tmp;
-    return the source. Counters: the CL_NAMES in order, then the tiles."""
-    for name in ("pma_epilogue.cuh", "pma_wgmma.cuh"):
-        with open(os.path.join(csrc, name)) as f:
-            text = f.read()
-        if name == "pma_wgmma.cuh":
-            text = insert(text, "namespace {\n", CL_STAMPS)
-        with open(os.path.join(tmp, name), "w") as f:
-            f.write(text)
-    with open(os.path.join(csrc, "pma_epilogue_cluster.cu")) as f:
-        cu = f.read()
+    return the source. Counters: the CL_NAMES in order, then the tiles.
+    The products' stamps go where the products are: pma_cluster.cuh where
+    the tree has it, else (an older tree) pma_epilogue_cluster.cu."""
+    texts = {}
+    for name in ("pma_epilogue.cuh", "pma_wgmma.cuh", "pma_cluster.cuh",
+                 "pma_epilogue_cluster.cu"):
+        if os.path.exists(os.path.join(csrc, name)):
+            with open(os.path.join(csrc, name)) as f:
+                texts[name] = f.read()
+    texts["pma_wgmma.cuh"] = insert(texts["pma_wgmma.cuh"], "namespace {\n", CL_STAMPS)
+    prod = "pma_cluster.cuh" if "pma_cluster.cuh" in texts else "pma_epilogue_cluster.cu"
+    text = texts[prod]
     wait = "    mbar_wait(&full[slot], (n / nst) & 1);\n"
     for after in ("    float4* hi", "    const uint32_t b = smem_u32"):
-        cu = insert(cu, wait + after, "", 1)
-        cu = cu.replace(wait + after, "    STAMP(3);\n" + wait + "    STAMP(6);\n" + after)
+        text = insert(text, wait + after, "", 1)
+        text = text.replace(wait + after, "    STAMP(3);\n" + wait + "    STAMP(6);\n" + after)
     barrier = "    __syncthreads();  // slab n + 1 split; every warpgroup done with slab n\n"
-    cu = insert(cu, barrier, "    STAMP(7);\n").replace(barrier, "    STAMP(3);\n" + barrier, 1)
+    text = insert(text, barrier, "    STAMP(7);\n").replace(barrier, "    STAMP(3);\n" + barrier, 1)
+    texts[prod] = text
+    for name, text in texts.items():
+        if name.endswith(".cuh"):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write(text)
+    cu = texts["pma_epilogue_cluster.cu"]
     k = cu.index("pma_fwd_cluster_kernel(ClArgs<T> A, int R) {")
     head, body = cu[:k], cu[k:]
     body = insert(body, "  extern __shared__ __align__(128) char smem[];\n",
                   "  if (threadIdx.x == 0) {\n    for (int i = 0; i < 9; ++i) k2_acc[i] = 0;\n"
                   "    k2_last = clock64();\n  }\n")
     body = insert(body, "    mbar_wait(staged, k & 1);\n", "    STAMP(0);\n")
-    body = insert(body, "    cl_row_sum<NWG>(pa, pb, red, blk, blk0, blk1, 0, ln, cluster);\n",
-                  "    STAMP(1);\n")
+    row_sum = next(c for c in ("    cl_row_sum<NWG>(pa, pb, red, blk, blk0, blk1, 0, ln);\n",
+                               "    cl_row_sum<NWG>(pa, pb, red, blk, blk0, blk1, 0, ln, cluster);\n")
+                   if c in body)
+    body = insert(body, row_sum, "    STAMP(1);\n")
     body = insert(body, "__float2bfloat16_rn(X[j][2 * h + 1]));\n    }\n    cluster.sync();\n",
                   "    STAMP(2);\n")
     relu = "      if (l + 1 < A.L) {  // h_1 = relu(p_0), exact in T\n"

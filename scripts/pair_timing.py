@@ -12,7 +12,10 @@ never imports either), builds its own kernels and measures, on the card:
 
   * the bench step (bf16, the bench graph of ``chip_smoke.bench_batch``)
     at hidden 256 and 512: the median of 8 training steps
-    (``chip_smoke.main_path``, with its launch and repeatability checks);
+    (``chip_smoke.main_path``, with its launch and repeatability checks,
+    K3's parts counted where the tree routes K3 at 512 to the warpgroup
+    or cluster kernels), and the last of 8 steps' losses from the same
+    seeds, so that two trees' losses can be held to the same bits;
   * K2, the PMA epilogue's forward, at hidden 384 and 512 (8 heads, 2
     layers; CUDA events, inputs made on the card): in bf16 summed over a
     bench step's 2 launches (its 196,608 and 131,072 rows), and K2R in f32
@@ -70,6 +73,17 @@ def _k2_ms(cs, HC, rows, R, dtype, dev):
     return total
 
 
+def _last_loss(cs, batch, dev, hidden):
+    """The last loss of 8 bench steps at ``hidden`` from chip_smoke's
+    seeded bench model (main_path's first run)."""
+    import torch
+
+    mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
+    model = cs.bench_model(0, batch.inc.nnz_padded, hidden).to(dev)
+    losses, _ = cs.run_steps(model, batch, mask, 8)
+    return float(losses[-1])
+
+
 def _warm_epoch(cli, tmp, hidden, epochs):
     """ms per epoch of the walmart preset at ``hidden`` (20 runs folded,
     f32) over ``epochs`` epochs after one to warm up, and the final mean
@@ -89,7 +103,7 @@ def worker() -> None:
 
     import chip_smoke as cs
     from allset_tpu_torch import cli
-    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
     dev = torch.device("cuda", 0)
     _kernels.build(force=True)
@@ -98,8 +112,11 @@ def worker() -> None:
     card = cs.card_line()
     batch = cs.bench_batch(dev)
     _, out["bench_step_ms"] = cs.main_path(batch, dev, card)
-    _, out["bench_step_hc512_ms"] = cs.main_path(batch, dev, card, cs.off_wg(cs.PER_STEP),
-                                                 hidden=512)
+    parts512 = hasattr(cp, "bwd_kernel") and cp.bwd_kernel(512, torch.bfloat16) != "tiled"
+    _, out["bench_step_hc512_ms"] = cs.main_path(
+        batch, dev, card, cs.PER_STEP if parts512 else cs.off_wg(cs.PER_STEP), hidden=512)
+    out["bench_final_loss"] = _last_loss(cs, batch, dev, 256)
+    out["bench_final_loss_hc512"] = _last_loss(cs, batch, dev, 512)
     del batch
     torch.cuda.empty_cache()
     for HC in (384, 512):

@@ -1,9 +1,11 @@
-"""K3's warpgroup route (csrc/pma_epilogue_wg.cu, HC 256) on its
-host side: the weights' TF32 split and their slab layout against the
-descriptor arithmetic the kernel hands wgmma, the bf16 x 3 split of dp
-that K3b multiplies with a bf16 h, the chunk plan of the transposed
-scratch, the scratch the trainer counts, and the epilogue with the
-route's products emulated against the JAX kernel in interpret mode."""
+"""K3's warpgroup route (csrc/pma_epilogue_wg.cu, HC 256) and cluster
+route (csrc/pma_epilogue_cluster_bwd.cu, HC 384 and 512) on their host
+side: the route by width and dtype, the weights' TF32 split and their
+slab layouts against the descriptor arithmetic the kernels hand wgmma
+(the cluster's column and row halves), the bf16 x 3 split of dp that K3b
+multiplies with a bf16 h, the chunk plan of the transposed scratch, the
+scratch the trainer counts, and the epilogue with the routes' products
+emulated against the JAX kernel in interpret mode."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 
 from allset_tpu_torch.ops import cuda_pma
 from tests.test_torch_pma import _check_against_jax, split_mm, tf32
+from tests.test_torch_pma_fwd import read_slab
 
 
 def slab_element(slabs, n, k, ks, part=0):
@@ -103,12 +106,13 @@ def wg_mm(a, b):
 
 
 @pytest.mark.parametrize("L", [1, 2])
-@pytest.mark.parametrize("HC", [256, 512])
+@pytest.mark.parametrize("HC", [256, 384, 512])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_epilogue_on_the_route_products_matches_jax_kernel(dtype, HC, L, monkeypatch):
     """The plain epilogue with every rFF product taken as the warpgroup
-    route takes it (wg_mm) stays within the JAX kernel's tolerances, at
-    HC 256 and 512, 8 heads, 1 and 2 layers, a few hundred rows."""
+    and cluster routes take it (wg_mm) stays within the JAX kernel's
+    tolerances, at HC 256, 384 and 512, 8 heads, 1 and 2 layers, a few
+    hundred rows."""
     monkeypatch.setattr(cuda_pma, "_mm", wg_mm)
     _check_against_jax(dtype, L, True, 8, HC, 200 if HC == 256 else 90, HC + 8,
                        blk=64 if HC == 256 else 32)
@@ -129,13 +133,16 @@ def test_chunk_plan_of_the_transposed_scratch(M):
 
 
 @pytest.mark.parametrize("HC,itemsize,per_elem", [(256, 4, 8), (256, 2, 6), (128, 4, 8),
+                                                  (384, 4, 8), (384, 2, 6),
                                                   (512, 4, 8), (512, 2, 6)])
 def test_scratch_bytes_match_the_route(HC, itemsize, per_elem, monkeypatch):
     """The scratch the trainer counts per run (bwd_scratch_bytes) is what
     K3R's setup allocates beside its outputs, at the walmart preset's V->E
-    rows and 3 runs: on the warpgroup route (HC 256) h and dp transposed
-    over Mp rows, at the other widths up to 512 over M rows (per_elem
-    bytes a row and column), the small vectors' and dW's partials."""
+    rows and 3 runs: on the warpgroup (HC 256) and cluster (384, 512)
+    routes h and dp transposed over Mp rows, at the other widths up to 512
+    over M rows (per_elem bytes a row and column), the small vectors' and
+    dW's partials (on the cluster route 4 per cluster of the
+    CLUSTER_BWD_ENTRIES)."""
     M, L, H, R = 158_766, 2, 8, 3
     WP = HC + 8
     dt = torch.float32 if itemsize == 4 else torch.bfloat16
@@ -157,5 +164,54 @@ def test_scratch_bytes_match_the_route(HC, itemsize, per_elem, monkeypatch):
     scratch = [t for t in made if not any(t is o for o in outs)]
     assert len(scratch) == 4
     assert sum(t.nbytes for t in scratch) == R * cuda_pma.bwd_scratch_bytes(M, HC, L, itemsize)
-    Mp = cuda_pma.wg_chunk_plan(M)[0] if HC in cuda_pma.WG_WIDTHS else M
+    route = cuda_pma.bwd_kernel(HC, dt)
+    Mp = cuda_pma.wg_chunk_plan(M)[0] if route in ("wg", "cluster") else M
     assert scratch[0].nbytes + scratch[1].nbytes == R * L * HC * Mp * per_elem
+    if route == "cluster":
+        assert scratch[2].shape == (R, 4 * cuda_pma.CLUSTER_BWD_ENTRIES, 8, HC)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_backward_route_by_width_and_dtype(dtype):
+    """K3 at HC 256 takes the warpgroup kernel, at 384 and 512 the cluster
+    kernel (CLUSTER_BWD_WIDTHS), from 64 to 192 the tiled K3, above 512 the
+    wide pair, in both dtypes; K3's tile is 64 rows up to 512 and the
+    cluster's small-vector partials one set per 64-row tile up to
+    CLUSTER_BWD_ENTRIES."""
+    assert cuda_pma.CLUSTER_BWD_WIDTHS == (384, 512)
+    for HC in (64, 128, 192, 256, 384, 512, 640, 1024):
+        want = ("wide" if HC > 512 else "cluster" if HC in (384, 512)
+                else "wg" if HC == 256 else "tiled")
+        assert cuda_pma.bwd_kernel(HC, dtype) == want
+        assert cuda_pma.tile_rows(HC) == (64 if HC <= 512 else cuda_pma.WIDE_TR)
+    for M, want in ((1, 1), (64, 1), (65, 2), (4224, 66), (4225, 66), (158_766, 66)):
+        assert cuda_pma.cluster_bwd_entries(M) == want
+
+
+@pytest.mark.parametrize("HC", [384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_bwd_slabs_follow_the_descriptor_layout(HC, dtype):
+    """cluster_bwd_weights' two slab sequences, read at the cluster K3a's
+    descriptor offsets (LBO = 16 HC / 2 bytes, SBO = 128, a slot of 32 HC
+    bytes): block c's forward slab s of layer l is W_l^T's column half c
+    (B [k][n] = W_l[k][c HC/2 + n]) in the dtype's values, CB_KSB bf16 or
+    WG_KSF f32 k-rows; its backward slab s is W_l's row half c (B [k][n] =
+    W_l[c HC/2 + n][k]) in f32, WG_KSF k-rows, in both dtypes."""
+    R, L, N = 2, 2, HC // 2
+    W = torch.from_numpy(np.random.default_rng(HC).normal(size=(R, L, HC, HC))
+                         .astype(np.float32))
+    wf, wb = cuda_pma.cluster_bwd_weights(W, dtype)
+    ksf = cuda_pma.CB_KSB if dtype == torch.bfloat16 else cuda_pma.WG_KSF
+    ksb = cuda_pma.WG_KSF
+    assert wf.shape[:4] == (R, 2, L, HC // ksf) and wf.dtype == dtype
+    assert wb.shape[:4] == (R, 2, L, HC // ksb) and wb.dtype == torch.float32
+    for slabs in (wf, wb):
+        assert slabs[0, 0, 0, 0].numel() * slabs.element_size() == 32 * HC
+    Wd = W.to(dtype)
+    for r in range(R):
+        for c in range(2):
+            for l in range(L):
+                fwd = torch.cat([read_slab(wf[r, c, l, s], N, ksf) for s in range(HC // ksf)])
+                assert torch.equal(fwd, Wd[r, l, :, c * N:(c + 1) * N])
+                bwd = torch.cat([read_slab(wb[r, c, l, s], N, ksb) for s in range(HC // ksb)])
+                assert torch.equal(bwd, W[r, l, c * N:(c + 1) * N, :].T)

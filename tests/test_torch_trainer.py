@@ -388,7 +388,7 @@ def test_memory_estimate_counts_the_dw_partials(method, hidden, layers, monkeypa
     want = scratch(rows, hidden, layers, 4) if method != "AllDeepSets" else 0
     assert est - without == want
     if method != "AllDeepSets":
-        if hidden in cuda_pma.WG_WIDTHS:
+        if cuda_pma.bwd_kernel(hidden, torch.float32) in ("wg", "cluster"):
             Mp, _, nch = cuda_pma.wg_chunk_plan(rows)
         else:
             Mp, nch = rows, cuda_pma.dw_chunk_plan(rows)[1]
