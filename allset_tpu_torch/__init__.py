@@ -13,7 +13,9 @@ LearnMask, All_num_layers=0; masked NLL, torch Adam), the conv zoo
 (HCHA/HGNN, HNHN, UniGNN with its five convs, UniGCNII, MLP), the
 clique-expansion baselines (CEGCN, CEGAT), HyperGCN (fast and reapprox)
 and the statistical runs protocol with its CLI (``python -m
-allset_tpu_torch.cli``), through the sorted segment-sum (K1), PMA's
+allset_tpu_torch.cli``: every flag and dataset name of the JAX CLI but
+``--profile``; batch norm, remat, the accuracy plot, the best-valid
+state saved), through the sorted segment-sum (K1), PMA's
 score+pack (K4 global max, K5 packed table), the fused PMA epilogue
 forward and backward, for one run (K2, K3) and for R runs folded into the
 width (K2R, K3R), the LayerNorm pair (B12, B13), the row gather (B10),
@@ -23,15 +25,16 @@ inside (B11), which the exchange runs. The TPU round's other experiments
 
 Layout:
   graph/     Incidence (host build + sorted orders), Batch, transforms, splits
-  data/      synthetic hypergraph generators and their registry
+  data/      synthetic hypergraph generators, the raw-archive loaders, the
+             registry and its npz cache, a miniature archive for tests
   ops/       segment-sum (with the gather inside), row gather, segment ops,
              exchange (dir_spmm), PMA score+pack and epilogue, LayerNorm,
              the one-hot segment-sum and streaming experiments, kernel build
-  nn/        TorchDense, NormLayer, MLP, PMA, HalfNLHconv, PReLU
+  nn/        TorchDense, NormLayer, BatchNorm, MLP, PMA, HalfNLHconv, PReLU
   models/    SetGNN, HCHA, HNHN, UniGNN/UniGCNII, MLPModel/LegacyHGNN,
              CEGCN/CEGAT, HyperGCN
   train/     Trainer (runs protocol), presets, experiment factory
-  utils/     parameter bridge from the JAX package
+  utils/     parameter bridge from the JAX package, checkpoints, EarlyStopping
   experiments/  the benchmarks/ scripts' kernels on the card, one module each
   cli.py     the experiment command line
 """

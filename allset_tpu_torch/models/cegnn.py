@@ -24,6 +24,9 @@ narrow (``ops/cuda_gather.py::gather_route``); the source scores are
 gathered in the node-sorted order (``node_order``), whose K1 sum is their
 transpose.
 
+Between convs: relu, under ``normalization='bn'`` a BatchNorm ``bn{i}``
+(flax's, momentum 0.9, eps 1e-5, as the JAX models), then dropout.
+
 Statistical runs (a list of generators): parameters carry a leading [R]
 axis, activations are [rows, R, F], the sparse ops take the runs folded
 into the width and the dense products and scores run run by run.
@@ -40,8 +43,8 @@ from torch import nn
 from allset_tpu_torch.graph.batch import Batch
 from allset_tpu_torch.models.hcha import _leaky_relu
 from allset_tpu_torch.nn.init import Generators, glorot_uniform, xavier_uniform_torch_fans
-from allset_tpu_torch.nn.modules import (dropout, fold, head_expand, per_run, runs_apply, runs_of,
-                                         unfold)
+from allset_tpu_torch.nn.modules import (BatchNorm, dropout, fold, head_expand, per_run,
+                                         runs_apply, runs_of, unfold)
 from allset_tpu_torch.ops.exchange import dir_gather, dir_reduce, dir_spmm
 from allset_tpu_torch.ops.segment import gather_rows, segment_softmax
 
@@ -138,7 +141,7 @@ class CEConfig:
     all_num_layers: int = 2
     mlp_hidden: int = 64
     dropout: float = 0.5
-    normalization: str = "None"  # 'bn' raises; anything else is the identity (reference)
+    normalization: str = "None"  # 'bn': BatchNorm between convs; anything else: none
     heads: int = 1
     output_heads: int = 1
     dtype: str = "float32"  # 'bfloat16' -> mixed precision
@@ -149,20 +152,30 @@ def _dt(cfg) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else None
 
 
-def _no_bn(cfg: CEConfig) -> None:
-    if cfg.normalization == "bn":
-        raise NotImplementedError(
-            "normalization='bn' (batch statistics) is not ported yet (ROADMAP Queue 1 item 13)"
-        )
+class _CE(nn.Module):
+    """What CEGCN and CEGAT share: between convs relu, under 'bn' a
+    BatchNorm ``bn{i}`` (momentum 0.9, eps 1e-5, f32 output as the JAX
+    module's, which takes no dtype), then dropout."""
+
+    def _between(self, i: int, x: Tensor, train: bool, generator) -> Tensor:
+        x = torch.relu(x)
+        if self.cfg.normalization == "bn":
+            x = getattr(self, f"bn{i}")(x, train)
+        return dropout(x, self.cfg.dropout, train, generator)
+
+    def _add_bns(self, count: int, width: int, generator: Generators) -> None:
+        if self.cfg.normalization == "bn":
+            R = runs_of(generator)
+            for i in range(count):
+                self.add_module(f"bn{i}", BatchNorm(width, () if R is None else (R,)))
 
 
-class CEGCN(nn.Module):
-    """GCN stack on the clique expansion (``src/models.py:80-128``): relu
-    and dropout between convs."""
+class CEGCN(_CE):
+    """GCN stack on the clique expansion (``src/models.py:80-128``): relu,
+    the batch norm under 'bn', and dropout between convs."""
 
     def __init__(self, cfg: CEConfig, generator: Generators):
         super().__init__()
-        _no_bn(cfg)
         self.cfg = cfg
         widths = [cfg.mlp_hidden] * (cfg.all_num_layers - 1) + [cfg.num_classes]
         self.num_layers = len(widths)
@@ -170,24 +183,25 @@ class CEGCN(nn.Module):
         for i, w in enumerate(widths):
             self.add_module(f"conv{i}", GCNConv(in_dim, w, generator, dtype=_dt(cfg)))
             in_dim = w
+        self._add_bns(self.num_layers - 1, cfg.mlp_hidden, generator)
 
     def forward(self, batch: Batch, train: bool = False, generator=None) -> Tensor:
         x = batch.x
         for i in range(self.num_layers):
             x = getattr(self, f"conv{i}")(x, batch)
             if i < self.num_layers - 1:
-                x = dropout(torch.relu(x), self.cfg.dropout, train, generator)
+                x = self._between(i, x, train, generator)
         return x.float()
 
 
-class CEGAT(nn.Module):
+class CEGAT(_CE):
     """GAT stack on the clique expansion (``src/models.py:131-183``):
-    hidden convs of ``heads`` heads concatenated, relu and dropout between
-    convs, an output conv of ``output_heads`` heads averaged."""
+    hidden convs of ``heads`` heads concatenated, relu, the batch norm
+    under 'bn' and dropout between convs, an output conv of
+    ``output_heads`` heads averaged."""
 
     def __init__(self, cfg: CEConfig, generator: Generators):
         super().__init__()
-        _no_bn(cfg)
         self.cfg = cfg
         self.num_hidden = cfg.all_num_layers - 1
         in_dim = cfg.num_features
@@ -198,12 +212,13 @@ class CEGAT(nn.Module):
         self.add_module(f"conv{self.num_hidden}",
                         GATConv(in_dim, cfg.num_classes, generator, heads=cfg.output_heads,
                                 dtype=_dt(cfg), concat=False))
+        self._add_bns(self.num_hidden, cfg.heads * cfg.mlp_hidden, generator)
 
     def forward(self, batch: Batch, train: bool = False, generator=None) -> Tensor:
         x = batch.x
         for i in range(self.num_hidden):
             x = getattr(self, f"conv{i}")(x, batch, train, generator)
-            x = dropout(torch.relu(x), self.cfg.dropout, train, generator)
+            x = self._between(i, x, train, generator)
         return getattr(self, f"conv{self.num_hidden}")(x, batch, train, generator).float()
 
 

@@ -11,7 +11,10 @@ version runs is decided by the device of the batch alone.
 
   * The exchange takes the self-loop split (N-slot layout) when the
     incidence has one, and the unsplit Directions when it has none
-    (``add_self_loop=False``) or under ``learn_mask``.
+    (``add_self_loop=False``), under ``learn_mask``, or under
+    ``normalization='bn'``: the split layout's hole rows would enter the
+    batch statistics of the Deep Sets half-layer's f_dec, as in the JAX
+    gate (``allset_tpu/models/setgnn.py:143-155``).
   * Without GPR the fixed input dropout 0.2 of the reference is kept; it
     is the identity when ``train=False``.
   * ``gpr`` (reference ``src/models.py:389-397,457-471``): the relu'd
@@ -43,8 +46,6 @@ from torch import nn
 from allset_tpu_torch.graph.batch import Batch
 from allset_tpu_torch.nn.init import Generators
 from allset_tpu_torch.nn.modules import MLP, HalfNLHconv, TorchDense, dropout, runs_of
-
-_LATER = "is not ported yet (ROADMAP Queue 1 item 13)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +99,6 @@ class _ZeroGrad(torch.autograd.Function):
 class SetGNN(nn.Module):
     def __init__(self, cfg: SetGNNConfig, generator: Generators):
         super().__init__()
-        if cfg.normalization == "bn":
-            raise NotImplementedError(f"normalization='bn' {_LATER}")
         self.cfg = cfg
         self.runs = runs_of(generator)
         lead = () if self.runs is None else (self.runs,)
@@ -151,7 +150,7 @@ class SetGNN(nn.Module):
         p = cfg.dropout
         if cfg.all_num_layers == 0:
             return self.classifier(batch.x, train, generator).float()
-        if cfg.learn_mask or inc.real is None:
+        if cfg.learn_mask or cfg.normalization == "bn" or inc.real is None:
             d_v2e, d_e2v = inc.v2e(), inc.e2v()
         else:
             d_v2e, d_e2v = inc.v2e_split(), inc.e2v_split()

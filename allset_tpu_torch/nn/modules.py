@@ -26,12 +26,13 @@ folded with others.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 
-from allset_tpu_torch.graph.incidence import Direction
+from allset_tpu_torch.graph.incidence import Direction, SegOrder
 from allset_tpu_torch.nn.init import (
     Generators,
     glorot_uniform,
@@ -40,9 +41,10 @@ from allset_tpu_torch.nn.init import (
     xavier_uniform_torch_fans,
 )
 from allset_tpu_torch.ops.cuda_ln import layer_norm
-from allset_tpu_torch.ops.cuda_pack import pma_pack
-from allset_tpu_torch.ops.cuda_pma import pma_epilogue, pma_epilogue_runs
-from allset_tpu_torch.ops.exchange import dir_spmm
+from allset_tpu_torch.ops.cuda_pack import NEGATIVE_SLOPE, pma_pack
+from allset_tpu_torch.ops.cuda_pma import DEN_FLOOR, pma_epilogue, pma_epilogue_runs
+from allset_tpu_torch.ops.exchange import dir_gather, dir_reduce, dir_spmm
+from allset_tpu_torch.ops.segment import gather_rows, segment_softmax
 
 
 def runs_of(generator: Generators) -> Optional[int]:
@@ -204,27 +206,155 @@ class MLPParams(nn.Module):
                 torch.stack([m.bias for m in lins], dim=at))
 
 
+BN_MOMENTUM = 0.9  # flax momentum == 1 - torch momentum
+BN_EPS = 1e-5
+
+
+def _bn_normalize(x, mu, var, scale, bias, out_dtype):
+    """flax's _normalize: (x - mu) * (rsqrt(var + eps) * scale) + bias in
+    f32, then ``out_dtype``."""
+    return ((x.float() - mu) * (torch.rsqrt(var + BN_EPS) * scale) + bias).to(out_dtype)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """BatchNorm's training forward and its backward, run by run on
+    contiguous [rows, F] tables: (y, batch mean, batch variance). The
+    statistics are flax's: f32, the fast variance E[x^2] - E[x]^2 clamped
+    at 0. Only x and the [(R,) F] vectors are kept for the backward, which
+    recomputes xhat = (x - mu) * rstd and takes
+
+        dx = rstd * (gs - mean(gs) - xhat * mean(gs * xhat)),  gs = g * scale
+
+    (the derivative of either variance form), dscale = sum(g * xhat),
+    dbias = sum(g); a shared x sums its runs' dx."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, out_dtype):
+        runs = scale.dim() == 2
+        xs = per_run(x, scale.shape[0]) if runs else [x]
+        sb = zip(scale.unbind(0), bias.unbind(0)) if runs else [(scale, bias)]
+        ys, mus, vars_ = [], [], []
+        for xr, (s, b) in zip(xs, sb):
+            x32 = xr.float()
+            mu = x32.mean(dim=0)
+            var = ((x32 * x32).mean(dim=0) - mu * mu).clamp_min(0.0)
+            ys.append(_bn_normalize(xr, mu, var, s, b, out_dtype))
+            mus.append(mu)
+            vars_.append(var)
+        if runs:
+            y, mu, var = torch.stack(ys, dim=1), torch.stack(mus), torch.stack(vars_)
+        else:
+            y, mu, var = ys[0], mus[0], vars_[0]
+        ctx.save_for_backward(x, scale, mu, var)
+        ctx.mark_non_differentiable(mu, var)
+        return y, mu, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmu, _gvar):
+        x, scale, mu, var = ctx.saved_tensors
+        runs = scale.dim() == 2
+        R = scale.shape[0] if runs else 1
+        xs = per_run(x, R) if runs else [x]
+        gys = [t.contiguous() for t in gy.unbind(1)] if runs else [gy]
+        params = zip(scale.unbind(0), mu.unbind(0), var.unbind(0)) if runs else [(scale, mu, var)]
+        dxs, dss, dbs = [], [], []
+        for xr, g, (s, m, v) in zip(xs, gys, params):
+            rstd = torch.rsqrt(v + BN_EPS)
+            xhat = (xr.float() - m) * rstd
+            g = g.float()
+            gs = g * s
+            dxs.append(rstd * (gs - gs.mean(dim=0) - xhat * (gs * xhat).mean(dim=0)))
+            dss.append((g * xhat).sum(dim=0))
+            dbs.append(g.sum(dim=0))
+        if not runs:
+            return dxs[0].to(x.dtype), dss[0], dbs[0], None
+        dx = torch.stack(dxs, dim=1) if x.dim() == 3 else sum(dxs[1:], dxs[0])
+        return dx.to(x.dtype), torch.stack(dss), torch.stack(dbs), None
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the rows:
+    parameters 'scale' (ones) and 'bias' (zeros), running statistics in
+    the buffers 'mean' (zeros) and 'var' (ones), the flax names.
+
+    Training (``train=True``) normalises with the batch statistics,
+    reduced in f32 with the fast variance E[x^2] - E[x]^2 clamped at 0
+    (:class:`_BatchNormTrain`), and updates the running ones as flax does:
+    ``ra = 0.9 ra + 0.1 batch``, the variance biased (torch's BatchNorm1d
+    differs on both: its momentum convention and an unbiased running
+    variance). Evaluation normalises with the running statistics. The
+    output is in ``dtype``, or in x's dtype promoted with f32 when
+    ``dtype`` is None, as flax promotes with its f32 parameters.
+
+    With R runs the parameters and statistics are [R, F]: run r's
+    statistics come from run r's rows of x [rows, R, F], each run reduced
+    on its own contiguous [rows, F] table, so a run gives the same bits
+    folded or alone; a shared x [rows, F] gives every run the same
+    statistics. ``frozen`` (set by :func:`frozen_batch_stats`) keeps the
+    running statistics as they are: a recomputed forward must not update
+    them twice."""
+
+    def __init__(self, dim: int, lead: tuple = (), dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(lead + (dim,)))
+        self.bias = nn.Parameter(torch.zeros(lead + (dim,)))
+        self.register_buffer("mean", torch.zeros(lead + (dim,)))
+        self.register_buffer("var", torch.ones(lead + (dim,)))
+        self.dtype, self.frozen = dtype, False
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out_dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        if train:
+            y, mu, var = _BatchNormTrain.apply(x, self.scale, self.bias, out_dtype)
+            if not self.frozen:
+                with torch.no_grad():
+                    self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mu)
+                    self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+            return y
+        stats = (self.mean, self.var, self.scale, self.bias)
+        if self.scale.dim() == 1:
+            return _bn_normalize(x, *stats, out_dtype)
+        return runs_apply(lambda xr, *p: _bn_normalize(xr, *p, out_dtype), x, *stats)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """Inside: every BatchNorm of ``model`` leaves its running statistics
+    as they are (a recomputed forward under remat)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    was = [m.frozen for m in bns]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m, f in zip(bns, was):
+            m.frozen = f
+
+
 class NormLayer(nn.Module):
     """'ln' (flax LayerNorm: f32 statistics, fast variance, 'scale' and
-    'bias'; the B12/B13 kernels, ``ops/cuda_ln.py``) or 'None' (identity,
-    no parameters). 'bn' raises. With R runs the parameters are [R, F] and
-    one launch serves every run of x [rows, R, F] (or a shared [rows, F])."""
+    'bias'; the B12/B13 kernels, ``ops/cuda_ln.py``), 'bn' (flax
+    BatchNorm with batch statistics, :class:`BatchNorm`, plain PyTorch as
+    the JAX package computes it with flax, outside any Pallas kernel) or
+    'None' (identity, no parameters). With R runs the parameters are [R,
+    F] and x is [rows, R, F] (or a shared [rows, F]); one B12/B13 launch
+    serves every run."""
 
     def __init__(self, kind: str, dim: int, lead: tuple = (),
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if kind == "bn":
-            raise NotImplementedError(
-                "normalization='bn' (batch statistics) is not ported yet "
-                "(ROADMAP Queue 1 item 13)"
-            )
-        if kind not in ("ln", "None", "none", None):
+        if kind not in ("bn", "ln", "None", "none", None):
             raise ValueError(f"unknown normalization {kind!r}")
         self.kind, self.dtype = kind, dtype
-        if kind == "ln":  # the flax submodule's automatic name
+        if kind == "ln":  # the flax submodules' automatic names
             self.LayerNorm_0 = LNParams(dim, lead)
+        elif kind == "bn":
+            self.BatchNorm_0 = BatchNorm(dim, lead, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.kind == "bn":
+            return self.BatchNorm_0(x, train)
         if self.kind != "ln":
             return x
         ln = self.LayerNorm_0
@@ -256,17 +386,17 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         if hasattr(self, "input_norm"):
-            x = self.input_norm(x)
+            x = self.input_norm(x, train)
         for i in range(self.num_layers - 1):
             x = torch.relu(getattr(self, f"lin{i}")(x))
-            x = getattr(self, f"norm{i}")(x)
+            x = getattr(self, f"norm{i}")(x, train)
             x = dropout(x, self.p, train, generator)
         return getattr(self, f"lin{self.num_layers - 1}")(x)
 
 
 class PMA(nn.Module):
-    """Pooling by Multihead Attention with a learned seed per head, in the
-    global-softmax mode (reference ``src/layers.py:42-199``):
+    """Pooling by Multihead Attention with a learned seed per head
+    (reference ``src/layers.py:42-199``):
 
       alpha = leaky_relu(x_K . att_r, 0.2)   per-head seed scores [N, H]
       e     = exp(alpha - max(colmax(alpha), 0))   one shift per head
@@ -284,18 +414,34 @@ class PMA(nn.Module):
     With R runs the GEMMs run run by run and their outputs are stacked
     [rows, R, WP]; K4/K5 fold them to [rows, R*WP] for the exchange and the
     fused epilogue (K2R/K3R); the output is [M, R, out].
+
+    The JAX module's parity options (``allset_tpu/nn/modules.py:241-247``)
+    take its routes: neither uses the score+pack, and both compose the
+    epilogue (LayerNorms through B12/B13, the rFF as GEMMs) in place of
+    K2/K3. ``softmax_mode='segment'`` is the reference's per-segment-max
+    softmax: the packed [x_V | alpha] rows gathered by source
+    (``dir_gather``), ``segment_softmax`` by destination and the weighted
+    rows summed (``dir_reduce``); it needs an unsplit Direction.
+    ``return_attention`` makes the forward return (out, attn), attn[i, h]
+    entry i's softmax weight in its destination segment ([nnz_pad, H], 0
+    at padding in segment mode; with runs [nnz_pad, R, H]). With runs
+    these options go run by run.
     """
 
     def __init__(self, in_dim: int, hid_dim: int, out_dim: int, num_layers: int,
                  heads: int, generator: Generators,
-                 dtype: Optional[torch.dtype] = None, fold_relu: bool = False):
+                 dtype: Optional[torch.dtype] = None, fold_relu: bool = False,
+                 softmax_mode: str = "global", return_attention: bool = False):
         super().__init__()
         if out_dim != hid_dim or num_layers < 1:
             raise NotImplementedError("PMA needs out_dim == hid_dim and an rFF of 1 or more layers")
+        if softmax_mode not in ("global", "segment"):
+            raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
         H, C = heads, hid_dim // heads
         HC = H * C
         self.heads = heads
         self.dtype, self.fold_relu = dtype, fold_relu
+        self.softmax_mode, self.return_attention = softmax_mode, return_attention
         self.lin_K = TorchDense(in_dim, HC, generator, kernel_init=glorot_uniform)
         self.lin_V = TorchDense(in_dim, HC, generator, kernel_init=glorot_uniform)
         self.att_r = nn.Parameter(xavier_uniform_torch_fans((1, H, C), generator))
@@ -320,8 +466,67 @@ class PMA(nn.Module):
                        dim=1)
         return xc @ Wf.to(xc.dtype), ba
 
-    def forward(self, x: torch.Tensor, d: Direction) -> torch.Tensor:
+    def _params(self):
+        """Every parameter, with the leading [R] axis where there are runs;
+        the rFF's as lists of (kernel, bias) layer by layer."""
+        HC = self.lin_V.kernel.shape[-1]
+        lins = [getattr(self.rFF, f"lin{i}") for i in range(self.rFF.num_layers)]
+        return dict(WK=self.lin_K.kernel, bK=self.lin_K.bias, WV=self.lin_V.kernel,
+                    bV=self.lin_V.bias, att=self.att_r.reshape(self.att_r.shape[:-3] + (HC,)),
+                    g0=self.ln0.scale, b0=self.ln0.bias, g1=self.ln1.scale, b1=self.ln1.bias,
+                    Ws=[m.kernel for m in lins], bs=[m.bias for m in lins])
+
+    def _composed(self, x, d: Direction, p: dict):
+        """One run through the JAX module's composed route -> (out [M, out],
+        attn [nnz_pad, H])."""
+        H = self.heads
+        HC = p["att"].shape[0]
+        C = HC // H
+        yf, ba = self._scores(x, p["WK"], p["bK"], p["WV"], p["att"])
+        x_V = yf[:, :HC] + p["bV"].to(yf.dtype)
+        alpha = torch.nn.functional.leaky_relu(yf[:, HC:HC + H].float() + ba, NEGATIVE_SLOPE)
+        if self.softmax_mode == "segment":
+            if d.sl_mode != "none":
+                raise ValueError("PMA softmax_mode='segment' needs an unsplit Direction")
+            g = dir_gather(torch.cat([x_V, alpha.to(x_V.dtype)], dim=1), d)
+            x_j, a_j = g[:, :HC], g[:, HC:].float()
+            mask = torch.arange(g.shape[0], device=g.device) < d.nnz
+            attn = segment_softmax(a_j, d.dst, d.num_dst, mask=mask,
+                                   order=SegOrder(None, d.indptr, d.plan))
+            out = dir_reduce(x_j * head_expand(attn.to(x_j.dtype), C), d, "add")
+        else:
+            gmax = alpha.detach().amax(dim=0).clamp_min(0.0)
+            e = torch.exp(alpha - gmax).to(x_V.dtype)
+            pad = x_V.new_zeros(x_V.shape[0], packed_width(HC, H) - HC - H)
+            agg = dir_spmm(torch.cat([x_V * head_expand(e, C), e, pad], dim=1), d)
+            denom = agg[:, HC:HC + H].clamp_min(DEN_FLOOR)
+            out = agg[:, :HC] / head_expand(denom, C)
+            attn = gather_rows(e, d.src).float() / gather_rows(denom, d.dst).float()
+        out = layer_norm(out + p["att"].to(out.dtype), p["g0"], p["b0"], self.dtype)
+        h = out
+        for i, (k, b) in enumerate(zip(p["Ws"], p["bs"])):  # the rFF, dropout 0, no norm
+            if self.dtype is not None:
+                h, k = h.to(self.dtype), k.to(self.dtype)
+            h = h @ k
+            h = h + b.to(h.dtype)
+            if i < len(p["Ws"]) - 1:
+                h = torch.relu(h)
+        out = layer_norm(out + torch.relu(h).to(out.dtype), p["g1"], p["b1"], self.dtype)
+        return (torch.relu(out) if self.fold_relu else out), attn
+
+    def forward(self, x: torch.Tensor, d: Direction):
         R = self.runs
+        if self.softmax_mode == "segment" or self.return_attention:
+            p = self._params()
+            if R is None:
+                out, attn = self._composed(x, d, p)
+            else:
+                per = [self._composed(x_r, d, {k: ([t[r] for t in v] if isinstance(v, list)
+                                                   else v[r]) for k, v in p.items()})
+                       for r, x_r in enumerate(per_run(x, R))]
+                out = torch.stack([o for o, _ in per], dim=1)
+                attn = torch.stack([a for _, a in per], dim=1)
+            return (out, attn) if self.return_attention else out
         HC = self.lin_V.kernel.shape[-1]
         att_flat = self.att_r.reshape(self.att_r.shape[:-3] + (HC,))  # [(R,) HC]
         params = (self.lin_K.kernel, self.lin_K.bias, self.lin_V.kernel, att_flat)

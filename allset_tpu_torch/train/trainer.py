@@ -22,10 +22,27 @@ elementwise, so one Adam over the stacked parameters is per-run Adam.
 
 Metrics stay on the device as [R, epochs, 6] (train/valid/test accuracy,
 train/valid/test loss) until a group ends.
+
+BatchNorm models ('bn'): the training forward normalises with the batch
+statistics and updates the running ones; the evaluation forward reads
+the running ones, as the JAX trainer's ``batch_stats`` collection does.
+
+``remat`` recomputes the training forward in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX trainer):
+the recompute restores each run's dropout generator to its state before
+the forward, so it draws the same masks, and leaves the running
+statistics alone, so they update once; losses and gradients are the
+same bits as without it.
+
+``keep_params`` keeps each run's state (parameters and running
+statistics) at its best-valid epoch, the epoch whose test accuracy the
+summary reports as Final Test, in ``Results.params``; the JAX package
+keeps the final epoch's instead.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
@@ -39,7 +56,7 @@ from allset_tpu_torch.models import (CEConfig, HCHAConfig, HNHNConfig, HyperGCNC
                                      LegacyHGNNConfig, MLPConfig, SetGNNConfig, UniGCNIIConfig,
                                      UniGNNConfig, build_model)
 from allset_tpu_torch.models.hypergcn import laplacian_nnz_bound
-from allset_tpu_torch.nn.modules import packed_width
+from allset_tpu_torch.nn.modules import frozen_batch_stats, packed_width
 from allset_tpu_torch.ops import cuda_pma
 from allset_tpu_torch.train.factory import make_optimizer
 
@@ -87,6 +104,10 @@ class TrainConfig:
     # printed from the metrics once the runs have finished
     display_step: int = -1
     seed: int = 0
+    # recompute the training forward in the backward (torch.utils.checkpoint)
+    remat: bool = False
+    # keep each run's state at its best-valid epoch (Results.params)
+    keep_params: bool = False
 
 
 def run_seeds(seed: int, run: int) -> tuple:
@@ -143,6 +164,58 @@ def count_params(model: torch.nn.Module, runs: Optional[int]) -> int:
     return total // runs if runs else total
 
 
+class BestState:
+    """Each run's state at its best-valid epoch so far, on the device.
+    ``update`` takes the runs' validation accuracy [R] after an evaluation
+    and keeps the state of the runs that beat their best: strictly, on the
+    accuracy scaled to percent as ``Results.best_by_valid`` scales it, so
+    the kept epoch is the first of the best, the epoch whose test accuracy
+    is the run's Final Test."""
+
+    def __init__(self, model: torch.nn.Module, runs: int):
+        self.model = model
+        self.state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        device = next(iter(self.state.values())).device
+        self.best = torch.full((runs,), float("-inf"), device=device)
+
+    def update(self, valid_acc: torch.Tensor) -> None:
+        pct = valid_acc * 100.0
+        better = pct > self.best
+        self.best = torch.where(better, pct, self.best)
+        for k, v in self.model.state_dict().items():
+            sel = better.view((-1,) + (1,) * (v.dim() - 1))
+            self.state[k] = torch.where(sel, v.detach(), self.state[k])
+
+
+def remat_forward(model: torch.nn.Module, forward, generators) -> torch.Tensor:
+    """``forward()`` (a training forward of ``model`` drawing its dropout
+    masks from ``generators``) under ``torch.utils.checkpoint``: its
+    activations are dropped and recomputed in the backward. The recompute
+    starts each generator from its state before the forward and puts back
+    its state after, and freezes the running statistics of every
+    BatchNorm, so the masks, the outputs and the gradients are the bits of
+    the forward without remat and the statistics update once."""
+    from torch.utils.checkpoint import checkpoint
+
+    gens = [] if generators is None else list(generators)
+    before = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def recompute():
+        after = [g.get_state() for g in gens]
+        for g, s in zip(gens, before):
+            g.set_state(s)
+        try:
+            with frozen_batch_stats(model):
+                yield
+        finally:
+            for g, s in zip(gens, after):
+                g.set_state(s)
+
+    return checkpoint(forward, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
+
+
 class Trainer:
     """The runs protocol for one model configuration (any of
     ``models.MODELS``) on one Batch; the batch's device decides where
@@ -166,6 +239,13 @@ class Trainer:
         """Logits [N, R, C]."""
         return model(self.batch, train, generators)
 
+    def _train_logits(self, model: torch.nn.Module, generators) -> torch.Tensor:
+        """The training forward; under ``remat`` through
+        :func:`remat_forward`."""
+        if not self.cfg.remat:
+            return self._apply(model, True, generators)
+        return remat_forward(model, lambda: self._apply(model, True, generators), generators)
+
     def _eval(self, model, masks, train_loss) -> torch.Tensor:
         """The evaluation forward -> metrics [R, 6]."""
         y = self.batch.y
@@ -182,7 +262,9 @@ class Trainer:
 
     def _run_group(self, runs: Sequence[int], masks: Dict[str, torch.Tensor]):
         """Train the runs of one group together -> (metrics [R, epochs, 6]
-        on the device, the parameter count of one run)."""
+        on the device, the parameter count of one run, and with
+        ``keep_params`` each run's state at its best-valid epoch, else
+        None)."""
         cfg = self.cfg
         model = self._init(runs)
         gens = [torch.Generator(device=self.device).manual_seed(run_seeds(cfg.seed, r)[1])
@@ -191,16 +273,19 @@ class Trainer:
         k = max(1, cfg.eval_every)
         metrics = torch.zeros(len(runs), cfg.epochs, 6, device=self.device)
         prev = torch.zeros(len(runs), 6, device=self.device)
+        best = BestState(model, len(runs)) if cfg.keep_params else None
         for ep in range(cfg.epochs):
             opt.zero_grad(set_to_none=True)
-            loss = masked_nll(self._apply(model, True, gens), self.batch.y, masks["train"])
+            loss = masked_nll(self._train_logits(model, gens), self.batch.y, masks["train"])
             loss.sum().backward()  # run r's gradient is that of its own loss
             opt.step()
             # off epochs repeat the last evaluated metrics (JAX eval_every)
             if (ep + 1) % k == 0 or ep == cfg.epochs - 1:
                 prev = self._eval(model, masks, loss.detach())
+                if best is not None:
+                    best.update(prev[:, 1])
             metrics[:, ep] = prev
-        return metrics, count_params(model, len(runs))
+        return metrics, count_params(model, len(runs)), None if best is None else best.state
 
     # --- group sizing ---
 
@@ -222,8 +307,8 @@ class Trainer:
         LayerNorm inputs and dropout masks kept for the backward, the
         reduce's output), and under LearnMask the SDDMM's gathered rows
         and product, three f32 [nnz, hid] tables. The exchange is unsplit
-        under LearnMask or without the self-loop split: then the V->E
-        output has one row per hyperedge instead of the N-slot layout's
+        under LearnMask, under 'bn' or without the self-loop split: then
+        the V->E output has one row per hyperedge instead of the N-slot layout's
         real edges + N. On an H100 at the walmart preset in f32 this gives
         1.745, 2.254, 1.751 and 1.129 GiB for AllSetTransformer (the preset,
         GPR, LearnMask, no self-loops) against measured peaks of 1.473,
@@ -236,7 +321,7 @@ class Trainer:
         HC, L = mc.mlp_hidden, mc.all_num_layers
         WP = packed_width(HC, mc.heads)
         N = inc.num_nodes
-        if inc.real is None or mc.learn_mask:
+        if inc.real is None or mc.learn_mask or mc.normalization == "bn":
             nnz, rows_v2e = inc.nnz, inc.num_edges
         else:
             nnz, rows_v2e = inc.real.nnz, inc.real.num_edges + N
@@ -321,28 +406,32 @@ class Trainer:
 
     # --- the protocol ---
 
-    def fit(self) -> "Results":
+    def masks(self) -> Dict[str, torch.Tensor]:
+        """The runs' splits: {train, valid, test: [N, runs] bool} on the
+        device, run r's the r-th draw of ``default_rng(seed)``."""
         cfg = self.cfg
-        n = self.batch.num_nodes
         host_rng = np.random.default_rng(cfg.seed)
         y_host = self.batch.y.cpu().numpy()
         split = [split_masks(rand_train_test_idx(y_host, cfg.train_prop, cfg.valid_prop,
-                                                 rng=host_rng), n)
+                                                 rng=host_rng), self.batch.num_nodes)
                  for _ in range(cfg.runs)]
-        # [N, runs] per split, on the device
-        masks = {k: torch.stack([s[k] for s in split], dim=1).to(self.device)
-                 for k in ("train", "valid", "test")}
+        return {k: torch.stack([s[k] for s in split], dim=1).to(self.device)
+                for k in ("train", "valid", "test")}
+
+    def fit(self) -> "Results":
+        cfg = self.cfg
+        masks = self.masks()
 
         group = self._group_size()
         if cfg.vmap_runs and group < cfg.runs:
             print(f"[trainer] folding runs in groups of {group}")
         t0 = time.time()
-        mets, groups, num_params = [], [], 0
+        mets, groups, states, num_params = [], [], [], 0
         lo = 0
         while lo < cfg.runs:
             hi = min(lo + group, cfg.runs)
             try:
-                m, num_params = self._run_group(
+                m, num_params, state = self._run_group(
                     range(lo, hi), {k: v[:, lo:hi] for k, v in masks.items()})
             except torch.cuda.OutOfMemoryError:
                 if group == 1:
@@ -358,13 +447,17 @@ class Trainer:
                 continue
             mets.append(m.cpu())
             groups.append(hi - lo)
+            if state is not None:
+                states.append({k: v.cpu() for k, v in state.items()})
             lo = hi
         wall = time.time() - t0
         metrics = torch.cat(mets).numpy()
         if cfg.display_step > 0:
             self._print_progress(metrics)
+        params = ({k: torch.cat([s[k] for s in states]) for k in states[0]} if states
+                  else None)
         return Results(metrics=metrics, wall_time=wall, num_params=num_params,
-                       groups=groups)
+                       groups=groups, params=params)
 
     def _print_progress(self, metrics: np.ndarray) -> None:
         """Reference-format per-epoch lines (``src/train.py:489-496``),
@@ -392,6 +485,10 @@ class Results:
     wall_time: float
     num_params: int
     groups: List[int] = dataclasses.field(default_factory=list)  # runs per group
+    # with TrainConfig.keep_params: {state_dict name: [runs, ...] tensor on
+    # the CPU}, each run's parameters and running statistics at its
+    # best-valid epoch (best_by_valid's best_epoch)
+    params: Optional[Dict[str, torch.Tensor]] = None
 
     def best_by_valid(self) -> Dict[str, object]:
         acc = self.metrics[:, :, :3] * 100.0
@@ -412,6 +509,33 @@ class Results:
             "final_test": ms(final_test),
             "best_epoch": best_epoch,
         }
+
+    def plot(self, path: Optional[str] = None, run: Optional[int] = None):
+        """Accuracy curves, as the reference ``Logger.plot_result``
+        (``src/train.py:152-167``): train/valid/test accuracy per epoch,
+        averaged over runs (or of run ``run``). Saves to ``path`` and
+        returns it, or returns the matplotlib figure. matplotlib is
+        imported here, so nothing else of the port needs it."""
+        import matplotlib
+
+        if path is not None:
+            matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        acc = self.metrics[:, :, :3] * 100.0
+        curves = acc[run] if run is not None else acc.mean(axis=0)
+        fig, ax = plt.subplots(figsize=(7, 4))
+        for i, label in enumerate(["train", "valid", "test"]):
+            ax.plot(curves[:, i], label=label)
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("accuracy (%)")
+        ax.legend()
+        fig.tight_layout()
+        if path is not None:
+            fig.savefig(path, dpi=120)
+            plt.close(fig)
+            return path
+        return fig
 
     def summary(self) -> str:
         s = self.best_by_valid()

@@ -12,18 +12,23 @@ layout ``[in, out]``: nothing is transposed. The input is the flax
 ``params`` tree with its leaves converted to numpy arrays. A vmapped
 tree (a leading runs axis on every leaf, the same keys) gives the
 parameters of the port's runs model, built with a list of generators.
+The flax ``batch_stats`` collection (the running 'mean' and 'var' of
+every BatchNorm) goes into the buffers of the same names.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 
-def params_from_jax(tree: Mapping, prefix: str = "") -> dict:
-    """Nested {name: subtree | array} -> {"a.b.c": float32 tensor}."""
+def params_from_jax(tree: Mapping, prefix: str = "",
+                    batch_stats: Optional[Mapping] = None) -> dict:
+    """Nested {name: subtree | array} -> {"a.b.c": float32 tensor}; with
+    ``batch_stats`` (the flax collection of the same model) its entries
+    too, so the result loads as the port model's whole ``state_dict``."""
     out = {}
     for name, v in tree.items():
         key = f"{prefix}{name}"
@@ -31,4 +36,6 @@ def params_from_jax(tree: Mapping, prefix: str = "") -> dict:
             out.update(params_from_jax(v, key + "."))
         else:
             out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+    if batch_stats:
+        out.update(params_from_jax(batch_stats, prefix))
     return out

@@ -132,6 +132,23 @@ Phases (any failure raises and exits non-zero):
      the same way (CEGAT's routes by each group's folded width), CEGAT's 2
      runs folded against 2 one by one, and --HyperGCN_fast false on
      synthetic (2 runs x 2 epochs, each run on its own structures);
+  4d. (after 4c) 'bn' at the bench step, bf16, training steps (batch
+     statistics): AllSetTransformer, AllDeepSets and CEGCN, 8 steps each,
+     launches as predicted (no B12/B13), finite falling losses, two runs
+     from one state bit-identical, SetGNN's half-layers on the unsplit
+     exchange; PMA's parity options (softmax_mode='segment',
+     return_attention) at the bench shapes in f32 against the global
+     mode (rtol 1e-4, atol 1e-5), attention sums of 1, no K4/K5/K2/K3;
+  6b. (after 6) the real dataset names --dname cora and walmart-trips-100
+     from a miniature archive in the real layout (2 runs x 5 epochs, a
+     falling loss); --normalization bn at the walmart preset (20 runs x 3
+     epochs on the unsplit exchange; the peak per run against the
+     trainer's estimate), 2 runs folded against 2 one by one with
+     --save_params (the saved best-valid states bit-identical, the
+     reloaded state's evaluation each run's Final Test) and AllDeepSets
+     with 'bn'; --remat on the preset (20 runs x 2 epochs) and on
+     AllDeepSets with 'bn': bit-identical metrics, the peak per run both
+     ways;
   7. the accuracy band: 5 runs x 500 epochs of the same preset; the mean
      final test accuracy within band_tolerance(std, 5, 20) of the 20-run
      band in BANDS.json (scripts/record_bands.py).
@@ -172,6 +189,7 @@ launches).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1664,6 +1682,325 @@ def route_runs(card, tmp):
         f"{res.wall_time / 2 * 1e3:.1f} ms per epoch [{card}]")
 
 
+# --- phases 4d and 6b: the rest of the CLI surface --------------------------
+
+
+@contextlib.contextmanager
+def direction_spy(seen: set):
+    """Inside: every half-layer of SetGNN adds (sl_mode, rows) of the
+    Direction it runs to ``seen``."""
+    from allset_tpu_torch.nn.modules import HalfNLHconv
+
+    orig = HalfNLHconv.forward
+
+    def spy(self, x, d, *a, **k):
+        seen.add((d.sl_mode, d.num_dst))
+        return orig(self, x, d, *a, **k)
+
+    HalfNLHconv.forward = spy
+    try:
+        yield
+    finally:
+        HalfNLHconv.forward = orig
+
+
+def run_train_steps(model, batch, mask, steps, seed=0):
+    """``steps`` Adam steps with train=True (batch statistics, dropout from
+    a card generator seeded ``seed``), each timed on the host clock to a
+    synchronize -> (losses, times)."""
+    from allset_tpu_torch.train import masked_nll
+
+    gen = torch.Generator(device=batch.x.device).manual_seed(seed)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, weight_decay=0.0)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = masked_nll(model(batch, True, gen), batch.y, mask)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return torch.stack(losses), times
+
+
+def bn_bench_steps(batch, batches, dev, card):
+    """'bn' at the bench step (bf16, hidden 256): AllSetTransformer,
+    AllDeepSets and CEGCN, 8 training steps each (batch statistics) with
+    every launch count set to 0 just before: the launches per step as the
+    code predicts (the same kernels as 'ln' less B12/B13, which 'bn' leaves),
+    a finite and falling loss, two runs from one state bit-identical; the
+    SetGNN half-layers on the unsplit exchange (every hyperedge row, the
+    self-loops inside the sparse reduce); the median step time."""
+    from allset_tpu_torch.ops import _kernels
+
+    steps, nnz = 8, batch.inc.nnz_padded
+    inc = batch.inc
+    cases = (
+        ("AllSetTransformer", lambda s: bench_model(s, nnz, normalization="bn"), batch,
+         PER_STEP),
+        ("AllDeepSets", lambda s: bench_model(s, nnz, pma=False, aggregate="add",
+                                              normalization="bn"), batch,
+         {"segment_sum_gather": 4}),
+        ("CEGCN", lambda s: zoo_model(batches, dev, "CEGCN",
+                                      dict(method="CEGCN", normalization="bn"), seed=s)[0],
+         batches["CEGCN"], zoo_launches("CEGCN")),
+    )
+    out = {}
+    for name, build, b, per in cases:
+        mask = torch.arange(b.num_nodes, device=dev) % 2 == 0
+        model = build(0).to(dev)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        run_train_steps(build(0).to(dev), b, mask, 1)  # warm-up on a throwaway copy
+        seen = set()
+        _kernels.reset_launches()
+        with direction_spy(seen):
+            losses, times = run_train_steps(model, b, mask, steps)
+        counts = dict(_kernels.launches)
+        for k in _kernels.KERNELS:
+            require(counts[k] == per.get(k, 0) * steps,
+                    f"bn {name}: {k} launched {counts[k]} times, expected {per.get(k, 0) * steps}")
+        if name != "CEGCN":
+            want = {("none", inc.num_edges), ("none", inc.num_nodes)}
+            require(seen == want, f"bn {name}: exchanges {seen}, expected the unsplit {want}")
+        lo = losses.cpu()
+        require(bool(torch.isfinite(lo).all()) and lo[-1] < lo[0],
+                f"bn {name}: losses {lo.tolist()}")
+        model2 = build(1).to(dev)
+        model2.load_state_dict(state)
+        losses2, _ = run_train_steps(model2, b, mask, steps)
+        require(torch.equal(losses, losses2), f"bn {name}: two runs from one state differ")
+        ms = statistics.median(times) * 1e3
+        out[name] = ms
+        log(f"  [bn {name}] launches over {steps} steps {counts}; exchanges {sorted(seen)}; "
+            f"losses {[round(v, 6) for v in lo.tolist()]}; two runs from one state "
+            f"bit-identical; median step {ms:.3f} ms [{card}] (smoke, not a benchmark)")
+        del model, model2
+        torch.cuda.empty_cache()
+    return out
+
+
+def pma_options_check(batch, dev, card):
+    """PMA's parity options at the bench step's shapes (f32, 256 features,
+    hidden 256, 8 heads, 2-layer rFF, the unsplit V->E exchange): the
+    segment mode and return_attention (global and segment) against the
+    global mode within tests/test_parity_setgnn.py's rtol 1e-4, atol 1e-5;
+    each destination's attention sums to 1 (rtol 1e-4); a backward through
+    each, finite. The options launch no K4/K5 and no K2/K3: the segment
+    mode runs the B10/B9 gathers and K1, return_attention in the global
+    mode the gather inside K1; both compose the epilogue's LayerNorms on
+    B12/B13."""
+    from allset_tpu_torch.nn.modules import PMA
+    from allset_tpu_torch.ops import _kernels
+
+    d = batch.inc.v2e()
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(d.num_src, 256, generator=gen).to(dev)
+    tgt = torch.randn(d.num_dst, 256, generator=gen).to(dev)
+    ref = None
+    fused = ("pma_gmax", "pma_pack", "pma_epilogue_fwd", "pma_epilogue_bwd")
+    for label, kw in (("global", {}), ("segment", dict(softmax_mode="segment")),
+                      ("return_attention", dict(return_attention=True)),
+                      ("segment, return_attention", dict(softmax_mode="segment",
+                                                         return_attention=True))):
+        m = PMA(256, 256, 256, 2, 8, torch.Generator().manual_seed(0), fold_relu=True,
+                **kw).to(dev)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = m(x, d)
+        y, attn = out if kw.get("return_attention") else (out, None)
+        (y * tgt).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in _kernels.launches.items() if v}
+        require(all(bool(torch.isfinite(p.grad).all()) for p in m.parameters()),
+                f"PMA {label}: non-finite gradient")
+        if not kw:
+            require(all(counts.get(k, 0) == 1 for k in fused), f"PMA global: {counts}")
+            ref = y.detach()
+            log(f"  [PMA global] launches {counts}; fwd+bwd {ms:.1f} ms [{card}]")
+            continue
+        require(not any(counts.get(k, 0) for k in fused) and counts.get("layer_norm_fwd") == 2,
+                f"PMA {label}: launches {counts}")
+        if kw.get("softmax_mode") == "segment":
+            require(counts.get("segment_sum", 0) > 0
+                    and counts.get("gather", 0) + counts.get("gather_sorted", 0) > 0,
+                    f"PMA {label}: launches {counts}")
+        else:
+            require(counts.get("segment_sum_gather", 0) > 0, f"PMA {label}: launches {counts}")
+        err = (y.detach() - ref).abs()
+        require(bool((err <= 1e-5 + 1e-4 * ref.abs()).all()),
+                f"PMA {label} against global: max abs err {err.max().item()}")
+        msg = f"max abs err against global {err.max().item():.3e} (rtol 1e-4, atol 1e-5)"
+        if attn is not None:
+            k = d.nnz
+            sums = torch.zeros(d.num_dst, 8, device=dev).index_add_(0, d.dst[:k],
+                                                                   attn[:k].detach())
+            present = torch.unique(d.dst[:k])
+            dev_sum = (sums[present] - 1).abs().max().item()
+            require(dev_sum <= 1e-4, f"PMA {label}: attention sums off 1 by {dev_sum}")
+            msg += f"; attention sums within {dev_sum:.2e} of 1"
+        log(f"  [PMA {label}] launches {counts}; {msg}; fwd+bwd {ms:.1f} ms [{card}]")
+        del m, out, y, attn
+    torch.cuda.empty_cache()
+
+
+MINI_NODES = 2000  # nodes per dataset of the miniature archive (phase 6b)
+
+
+def real_names_protocol(card, tmp):
+    """The real dataset names through the CLI from a miniature archive in
+    the real layout (allset_tpu_torch.data.miniature; the raw archive is
+    not in the repository): --dname cora and walmart-trips-100 at the
+    CLI's defaults (2 layers, hidden 64, 1 head), 2 runs x 5 epochs, the
+    launches per group and epoch, a finite and falling training loss."""
+    import numpy as np
+
+    from allset_tpu_torch.data.miniature import write_miniature_archive
+
+    root = write_miniature_archive(os.path.join(tmp, "archive"), nodes=MINI_NODES, seed=0)
+    per = off_wg(pma_group_epoch(layers=2, ln_fwd=2, ln_bwd=1))
+    for name in ("cora", "walmart-trips-100"):
+        res, counts = cli_run(["--dname", name, "--data_root", root, "--cache_dir",
+                               os.path.join(tmp, "cache"), "--runs", "2", "--epochs", "5",
+                               "--device", "cuda", "--res_root", tmp], 5, per)
+        loss = res.metrics[:, :, 3].mean(axis=0)
+        require(bool(np.isfinite(loss).all()) and loss[-1] < loss[0],
+                f"{name}: training loss {loss.tolist()}")
+        log(f"  --dname {name} ({MINI_NODES} nodes, miniature archive): launches {counts}; "
+            f"mean training loss per epoch {[round(float(v), 6) for v in loss]}; final test "
+            f"{res.best_by_valid()['final_test'][0]:.2f}; {res.wall_time / 5 * 1e3:.1f} ms per "
+            f"epoch [{card}]")
+
+
+def saved_state_check(argv, epochs, dev, tmp, **cfg):
+    """2 runs folded and the same 2 runs one by one, each with
+    --save_params: equal accuracies and losses within rtol 2e-3 (as
+    folded_vs_one_by_one), the two saved states the same bits (each run's
+    best-valid parameters and running statistics); the folded state
+    loaded into a fresh model on the card evaluates to each run's Final
+    Test."""
+    import numpy as np
+
+    from allset_tpu_torch.data import load_dataset
+    from allset_tpu_torch.models import build_model
+    from allset_tpu_torch.train import TrainConfig, Trainer, masked_acc
+    from allset_tpu_torch.train.factory import ExperimentConfig, prepare
+    from allset_tpu_torch.train.presets import preset_for
+    from allset_tpu_torch.utils.checkpoint import load_checkpoint
+
+    paths = [os.path.join(tmp, f"state_{k}.pt") for k in ("folded", "seq")]
+    folded, _ = cli_run(argv + ["--save_params", paths[0]], epochs)
+    seq, _ = cli_run(argv + ["--no_vmap_runs", "--save_params", paths[1]], epochs)
+    require(folded.groups == [2] and seq.groups == [1, 1], "2-run groups")
+    require(np.array_equal(folded.metrics[..., :3], seq.metrics[..., :3]),
+            "folded and sequential accuracies differ")
+    rel = np.abs(folded.metrics[..., 3:] - seq.metrics[..., 3:]) / np.abs(seq.metrics[..., 3:])
+    require(rel.max() <= 2e-3, f"folded and sequential losses differ: {rel.max()}")
+    a, b = load_checkpoint(paths[0]), load_checkpoint(paths[1])
+    same = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    require(same, "the folded runs' saved states differ from the runs' alone")
+    fields = ExperimentConfig.__dataclass_fields__
+    tuned = {k: v for k, v in preset_for(WALMART, 1.0).items() if k in fields}
+    data = load_dataset(WALMART, feature_noise=1.0, seed=0)
+    mcfg, batch = prepare(ExperimentConfig(dname=WALMART, **{**tuned, **cfg, "runs": 2}), data,
+                          dev)
+    model = load_checkpoint(paths[0], build_model(mcfg, [torch.Generator() for _ in range(2)]))
+    model = model.to(dev)
+    masks = Trainer(mcfg, batch, TrainConfig(runs=2)).masks()
+    with torch.no_grad():
+        acc = masked_acc(model(batch, False), batch.y, masks["test"]).cpu().numpy()
+    best = folded.best_by_valid()["best_epoch"]
+    want = folded.metrics[np.arange(2), best, 2]
+    require(np.array_equal(acc, want), f"reloaded state: test accuracy {acc}, Final Test {want}")
+    log(f"  2 runs x {epochs} epochs folded vs one by one: equal accuracies, losses within "
+        f"{rel.max():.2e}, saved best-valid states ({len(a)} tensors) bit-identical; the "
+        f"reloaded state's test accuracy {acc.tolist()} = each run's Final Test (best epochs "
+        f"{best.tolist()})")
+    del model, batch
+
+
+def bn_protocol(card, tmp, dev):
+    """--normalization bn at the walmart preset through the CLI (20 runs
+    folded, f32, hidden 256, 8 heads): launches per group and epoch as
+    'ln' on the unsplit exchange (both half-layers over every row), a
+    falling loss, ms per epoch, the peak device memory per folded run
+    against the trainer's estimate (which must not be lower); then
+    saved_state_check on 2 runs. AllDeepSets with 'bn' (the batch norm
+    on its f_enc/f_dec rows) the same way, 20 runs x 2 epochs."""
+    import numpy as np
+
+    base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
+            "--res_root", tmp, "--normalization", "bn"]
+    epochs = 3
+    seen = set()
+    with direction_spy(seen):
+        res, counts, peak, est = cli_peak(base + ["--epochs", str(epochs)], epochs, None, dev,
+                                          normalization="bn")
+    require(all(m == "none" for m, _ in seen) and len(seen) == 2,
+            f"bn: exchanges {seen}, expected the unsplit pair")
+    loss = res.metrics[:, :, 3].mean(axis=0)
+    require(bool(np.isfinite(loss).all()) and loss[-1] < loss[0], f"bn: losses {loss}")
+    log(f"  --normalization bn: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
+        f"{counts}; exchanges {sorted(seen)}; mean training loss per epoch "
+        f"{[round(float(v), 6) for v in loss]}; {res.wall_time / epochs * 1e3:.1f} ms per epoch "
+        f"over {epochs} epochs (first included); peak device memory per folded run "
+        f"{peak / 2**30:.3f} GiB; the trainer's estimate {est / 2**30:.3f} GiB [{card}]")
+    require(est >= peak, "bn: the trainer's estimate is below the measured peak")
+    saved_state_check(base + ["--runs", "2", "--epochs", "3"], 3, dev, tmp, normalization="bn")
+    ds = base + ["--method", "AllDeepSets"]
+    res_d, counts_d, peak_d, est_d = cli_peak(ds + ["--epochs", "2"], 2, {"segment_sum_gather": 6},
+                                              dev, normalization="bn", method="AllDeepSets")
+    loss = res_d.metrics[:, :, 3].mean(axis=0)
+    require(bool(np.isfinite(loss).all()) and loss[-1] < loss[0], f"bn AllDeepSets: {loss}")
+    log(f"  AllDeepSets --normalization bn: groups {res_d.groups}; launches {counts_d}; "
+        f"{res_d.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs (first included); peak "
+        f"device memory per folded run {peak_d / 2**30:.3f} GiB; the trainer's estimate "
+        f"{est_d / 2**30:.3f} GiB [{card}]")
+    require(est_d >= peak_d, "bn AllDeepSets: the trainer's estimate is below the measured peak")
+
+
+# --remat recomputes the training forward in the backward: one more forward
+# per group and epoch (the gather inside K1's two forward passes, K2R, K4,
+# K5), the backward unchanged
+REMAT_GROUP_EPOCH = {**PER_GROUP_EPOCH, "segment_sum_gather": 8, "pma_epilogue_fwd_runs": 6,
+                     "pma_gmax": 6, "pma_pack": 6}
+
+
+def remat_protocol(card, tmp, dev):
+    """--remat through the CLI: the walmart preset (20 runs x 2 epochs, f32)
+    without and with it, in the order plain, remat, remat, plain: the
+    metrics (losses and accuracies) bit-identical, one more forward's
+    launches per group and epoch (REMAT_GROUP_EPOCH), ms per epoch and the
+    peak device memory per folded run each time; AllDeepSets with 'bn' (2
+    runs x 2 epochs: dropout and batch statistics inside the recompute)
+    bit-identical too."""
+    import numpy as np
+
+    base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
+            "--res_root", tmp, "--epochs", "2"]
+    got = {False: [], True: []}
+    for remat in (False, True, True, False):
+        flags = ["--remat"] if remat else []
+        res, counts, peak, est = cli_peak(base + flags, 2,
+                                          REMAT_GROUP_EPOCH if remat else None, dev)
+        got[remat].append((res, peak))
+        log(f"  the preset{' --remat' if remat else ''}: groups {res.groups}; launches "
+            f"{counts}; {res.wall_time / 2 * 1e3:.1f} ms per epoch over 2 epochs; peak device "
+            f"memory per folded run {peak / 2**30:.3f} GiB (the trainer's estimate "
+            f"{est / 2**30:.3f} GiB) [{card}]")
+    runs = [r for r, _ in got[False] + got[True]]
+    require(all(np.array_equal(runs[0].metrics, r.metrics) for r in runs[1:]),
+            "--remat: the preset's metrics differ")
+    ds = ["--method", "AllDeepSets", "--normalization", "bn", "--runs", "2"]
+    plain, _ = cli_run(base + ds, 2, {"segment_sum_gather": 6})
+    remat, _ = cli_run(base + ds + ["--remat"], 2, {"segment_sum_gather": 8})
+    require(np.array_equal(plain.metrics, remat.metrics),
+            "--remat: AllDeepSets with bn differs")
+    log("  --remat: the preset's and AllDeepSets-bn's metrics bit-identical with and without")
+
+
 def band_replay(card, tmp, runs=5):
     """The walmart preset's 5-run x 500-epoch replay against BANDS.json."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2887,6 +3224,11 @@ def main() -> int:
     timings.update(time_gather_sorted_step(batches, dev))
     log_tallies({"gather_sorted": timings["gather_sorted"]}, "CEGAT bench step")
     ce_counts = {name: zoo_path(batches, dev, card, name, over)[0] for name, over in CE}
+    log("phase 4d: 'bn' at bench size (bf16, training steps) and PMA's parity options")
+    t0 = time.perf_counter()
+    bn_bench_steps(batch, batches, dev, card)
+    pma_options_check(batch, dev, card)
+    log(f"  phase 4d took {time.perf_counter() - t0:.1f} s")
     del batches
     reapprox_steps(raw, dev, card)
     require("jax" not in sys.modules, "the port loaded jax")
@@ -2929,6 +3271,12 @@ def main() -> int:
         route_runs(card, tmp)
         zoo_cli_counts = zoo_protocol(card, tmp, dev)
         ce_cli_counts = ce_protocol(card, tmp, dev)
+        log("phase 6b: real dataset names, --normalization bn, --save_params, --remat")
+        t0 = time.perf_counter()
+        real_names_protocol(card, tmp)
+        bn_protocol(card, tmp, dev)
+        remat_protocol(card, tmp, dev)
+        log(f"  phase 6b took {time.perf_counter() - t0:.1f} s")
         require("jax" not in sys.modules, "the port loaded jax")
         log("phase 7: the accuracy band (5 runs x 500 epochs)")
         band_replay(card, tmp)

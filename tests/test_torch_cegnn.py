@@ -9,7 +9,7 @@ the masked NLL, in f32, within 2e-4 (the zoo's tolerance). CEGAT at 1 and
 Also: the port's V2V graph (construct_v2v, gcn_norm, the self-loops, the
 Incidence) equals the JAX package's array for array; R=3 runs folded
 equal each run alone, bit for bit, dropout included; the CLI on
-``--device cpu``; ``--normalization bn`` raises naming its ROADMAP item;
+``--device cpu``; ``--normalization bn`` builds a BatchNorm between convs;
 GATConv's dropout defaults to 0.6; the trainer's per-run estimate grows
 with the heads."""
 
@@ -214,11 +214,15 @@ def test_ce_cli_runs_on_cpu(method, tmp_path):
 
 @pytest.mark.parametrize("method", ["CEGCN", "CEGAT"])
 def test_ce_batchnorm_names_its_roadmap_item(method):
+    """The batch norm that raised naming its ROADMAP item (Queue 1 item 13)
+    is ported: --normalization bn gives the JAX model's bn{i} between
+    convs, flax names (tests/test_torch_batchnorm.py holds the values)."""
     _, td = _data()
-    mcfg, _ = tfactory.prepare(tfactory.ExperimentConfig(method=method, normalization="bn"),
-                               td, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        build_model(mcfg, torch.Generator())
+    mcfg, tb = tfactory.prepare(tfactory.ExperimentConfig(method=method, normalization="bn"),
+                                td, "cpu")
+    state = build_model(mcfg, torch.Generator()).state_dict()
+    assert {k for k in state if k.startswith("bn")} == {"bn0.scale", "bn0.bias", "bn0.mean",
+                                                       "bn0.var"}
 
 
 def test_gat_attention_dropout_is_its_own():

@@ -133,9 +133,12 @@ def test_train_mode_dropout_follows_its_generator(jax_ref):
     np.testing.assert_allclose(d.numpy(), jax_ref["float32"]["logits"], atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.parametrize("override", [dict(normalization="bn")])
+@pytest.mark.parametrize("override", [dict(normalization="gn", classifier_num_layers=2)])
 def test_other_modes_raise(override):
-    with pytest.raises(NotImplementedError):
+    """'bn' builds since the batch norm was ported
+    (tests/test_torch_batchnorm.py); a normalization neither package has
+    raises."""
+    with pytest.raises(ValueError):
         SetGNN(SetGNNConfig(**{**CFG, **override}), torch.Generator().manual_seed(0))
 
 

@@ -232,18 +232,19 @@ def test_prepare_and_cli_run_every_zoo_method_on_cpu(name, tmp_path):
 @pytest.mark.parametrize("method", ["CEGCN", "CEGAT", "HyperGCN"])
 def test_unported_methods_name_their_roadmap_item(method):
     """The three methods that raised until the CE and HyperGCN models were
-    ported now prepare and build; what they still leave unported,
-    CEGCN's and CEGAT's batch norm, raises naming its ROADMAP item."""
+    ported now prepare and build; CEGCN's and CEGAT's batch norm, which
+    raised naming its ROADMAP item, builds too."""
     _, td = _data()
     mcfg, tb = tfactory.prepare(tfactory.ExperimentConfig(method=method), td, "cpu")
     assert tb.x.device.type == "cpu" and tb.inc is not None
     assert sum(p.numel() for p in build_model(mcfg, torch.Generator()).parameters()) > 0
     if method == "HyperGCN":
         return
-    mcfg, _ = tfactory.prepare(tfactory.ExperimentConfig(method=method, normalization="bn"),
-                               td, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        build_model(mcfg, torch.Generator())
+    mcfg, tb = tfactory.prepare(tfactory.ExperimentConfig(method=method, normalization="bn"),
+                                td, "cpu")
+    model = build_model(mcfg, torch.Generator())
+    assert "bn0.mean" in model.state_dict()
+    assert torch.isfinite(model(tb, True, torch.Generator())).all()
 
 
 def test_unigcnii_optimizer_has_the_reference_groups():
