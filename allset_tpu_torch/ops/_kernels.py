@@ -68,8 +68,10 @@ _SIGNATURES = {
     "allset_pma_score_pack": [P] * 7 + [I] * 9 + [P],
     "allset_layer_norm_fwd": [P] * 4 + [LL, I, I, LL, LL, I, I, P],
     "allset_layer_norm_bwd": [P] * 8 + [LL, I, I, LL, LL, I, I, I, P],
-    "allset_pma_wide_fwd": [P] * 10 + [I] * 9 + [P],
-    "allset_pma_wide_bwd": [P] * 17 + [I] * 9 + [P],
+    "allset_pma_wide_rows": [I] + [P] * 12 + [I] * 8 + [P],
+    "allset_pma_wide_gemm": [I] + [P] * 6 + [I] * 7 + [P],
+    "allset_pma_wide_dw": [P] * 3 + [I] * 8 + [P],
+    "allset_pma_wide_reduce": [P, I, P, P, I, P, I, I, I, P],
     "allset_gather": [P, P, I, P, LL, LL, LL, P],
     "allset_gather_sorted": [P, P, I, P, LL, LL, LL, P],
     "allset_segment_sum_gather": [P, LL, P, I, P, I, I, I, P, P, I, P, I, P, P, I, I] + [I] * 7

@@ -50,9 +50,17 @@ warps: two row halves, each warp an eighth of the columns; 64-row tiles,
 :func:`tile_rows`) with ``mma.sync`` products; that K2 is a persistent
 kernel that fetches the next tile's rows while it multiplies the current
 one.
-Above 512, at any HC that is a multiple of 128 (``csrc/pma_epilogue_wide.cu``),
-a simpler pair takes HC at run time: f32 FMA products on the CUDA cores,
-intermediates in global scratch, the same per-block partials.
+Above 512, at any HC that is a multiple of 128 up to WIDE_MAX
+(``csrc/pma_epilogue_wide_wg.cu``, HC at run time), the row phases and
+the products run as separate kernels over [R, M, HC] tables: LN0, then
+per layer a persistent warpgroup product of 128 x 128 tiles fed by bulk
+copies (its A tables zb, h1, dp_l tiled by 128 rows and 128 bytes of
+columns, swizzled; the weights as :func:`wide_fwd_weights`,
+:func:`wide_bwd_weights` lay them out) with the
+bias, rounding and relu (backward: the mask of the layer below, dbrff's
+column sums, dz += dh) in its epilogue, LN1 or its backward, dW over a
+few row chunks (:func:`wide_dw_plan`), LN0's backward, K3c's reduce;
+every partial in a fixed order per 128-row tile (:func:`wide_tiles`).
 
 With R runs folded into the width, ``agg`` is ``[M, R*WP]`` (run r in
 columns ``[r*WP, (r+1)*WP)``), ``y`` is ``[M, R*HC]``, every parameter
@@ -85,9 +93,17 @@ EPS = 1e-5  # torch/flax LayerNorm default
 DEN_FLOOR = 1e-16  # softmax denominator clamp
 
 KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)  # the HC the tiled kernels take
-WIDE_G = 264  # blocks of the wide kernels' row grid: 2 waves of 132
-WIDE_TR = 16  # rows per tile of the wide kernels
-WIDE_NBUF = 10  # [WIDE_TR, HC] f32 tile buffers per wide block
+WIDE_TR = 128  # rows per tile of the wide route: its products, row phases, partials
+WIDE_MAX = 2048  # the widest HC the wide route takes (its row phases' column chunks)
+# dW blocks a layer the wide route's chunk plan aims at: about three waves
+# of two an SM on an H100's 132 (12 chunks at HC 1024, 3 at 2048), which
+# keeps K3R's scratch at --MLP_hidden 1024 under that of the FMA pair before it
+WIDE_DW_BLOCKS = 768
+# K2's tables on the wide route at most (wide_fwd_rows): at --MLP_hidden
+# 1024 whole-M tables raised the CLI's peak per run above the FMA pair's
+WIDE_FWD_BYTES = 256 << 20
+ROW_LN0, ROW_LN1, ROW_LN1_BWD, ROW_LN0_BWD = range(4)  # the wide route's row phases
+EP_H, EP_V, EP_DP, EP_DZ = range(4)  # the wide route's product epilogues
 _BWD_MAX_BLOCKS = 264  # row-kernel blocks (= small-grad partials) of K3: 2 waves of 132
 DW_PARTIALS = 64  # row chunks of K3, each a dW partial (part_w below)
 # K3/K3R on the warpgroup kernels (csrc/pma_epilogue_wg.cu) at these widths:
@@ -256,22 +272,48 @@ def epilogue_bwd_runs_plain(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
 
 def tile_rows(HC: int) -> int:
     """Rows per tile of K2 and K3 at width HC: 64 up to HC 512 (at 384
-    and 512 on the cluster kernels), the wide pair's WIDE_TR above."""
+    and 512 on the cluster kernels), the wide route's WIDE_TR above."""
     return WIDE_TR if wide(HC) else 64
 
 
 def wide(HC: int) -> bool:
-    """HC is served by the wide pair (csrc/pma_epilogue_wide.cu)."""
+    """HC is served by the wide route (csrc/pma_epilogue_wide_wg.cu)."""
     return HC > KERNEL_WIDTHS[-1]
+
+
+def wide_tiles(M: int) -> int:
+    """The wide route's 128-row tiles at M rows, each a set of small-vector
+    partials."""
+    return max(1, -(-M // WIDE_TR))
+
+
+def wide_fwd_rows(M: int, HC: int, L: int, runs: int, itemsize: int) -> int:
+    """Rows a pass of K2's wide route: its tables (zb and h1 in the dtype,
+    p in f32) within WIDE_FWD_BYTES, a multiple of the 128-row tile, at
+    most M rounded up to it. Every row is computed alike in any pass."""
+    per_row = runs * HC * (itemsize * L + 4)
+    rows = max(WIDE_TR, WIDE_FWD_BYTES // per_row // WIDE_TR * WIDE_TR)
+    return min(rows, wide_tiles(M) * WIDE_TR)
+
+
+def wide_dw_plan(M: int, HC: int, L: int):
+    """(chunk_rows, nch): the wide route's dW row chunks, each a dW
+    partial: about WIDE_DW_BLOCKS blocks of 128 x 128 dW tiles a layer, at
+    most DW_PARTIALS chunks, chunk_rows a multiple of 32, the last chunk
+    short. Fixed by M and HC alone (not by the runs), so a folded run sums
+    as a single-run launch does."""
+    want = min(DW_PARTIALS, max(1, -(-WIDE_DW_BLOCKS // (HC // 128) ** 2)))
+    chunk_rows = -(-(-(-max(M, 1) // want)) // 32) * 32
+    return chunk_rows, max(1, -(-M // chunk_rows))
 
 
 def epilogue_supported(HC: int, H: int, L: int, WP: int, R: int = 1) -> bool:
     """The shapes K2/K3 (R = 1) and K2R/K3R (R runs) take: HC in
-    KERNEL_WIDTHS or any multiple of 128 above them (the wide pair, whose
-    intermediates live in global scratch: no width limit of its own), H
-    dividing HC, a packed width WP >= HC + H of whole 16-byte rows (WP % 8
-    == 0), an rFF of L in (1, 2) layers and at most 65535 runs."""
-    width_ok = HC in KERNEL_WIDTHS or (wide(HC) and HC % 128 == 0)
+    KERNEL_WIDTHS or any multiple of 128 above them up to WIDE_MAX (the
+    wide route), H dividing HC, a packed width WP >= HC + H of whole
+    16-byte rows (WP % 8 == 0), an rFF of L in (1, 2) layers and at most
+    65535 runs."""
+    width_ok = HC in KERNEL_WIDTHS or (wide(HC) and HC % 128 == 0 and HC <= WIDE_MAX)
     return (width_ok and H >= 1 and HC % H == 0
             and WP >= HC + H and WP % 8 == 0 and L in (1, 2) and 1 <= R <= 65535)
 
@@ -288,7 +330,7 @@ def epilogue_route(HC: int, H: int, L: int, WP: int, R: int = 1) -> str:
         return "plain"
     raise ValueError(
         f"no epilogue kernel for HC={HC}, H={H}, L={L}, WP={WP}, runs={R}: the kernels need "
-        "H dividing HC, WP >= HC + H, WP % 8 == 0 and runs <= 65535"
+        f"H dividing HC, WP >= HC + H, WP % 8 == 0, HC <= {WIDE_MAX} and runs <= 65535"
     )
 
 
@@ -309,7 +351,7 @@ def _check_cuda_args(agg, seed, Wrff, H, R):
         raise ValueError(
             f"unsupported epilogue shape: agg {tuple(agg.shape)}, seed "
             f"{tuple(seed.shape)}, Wrff {tuple(Wrff.shape)}, H={H} (need HC in "
-            f"{KERNEL_WIDTHS} or a multiple of 128 above, "
+            f"{KERNEL_WIDTHS} or a multiple of 128 above, up to {WIDE_MAX}, "
             "H dividing HC, WP >= HC + H, WP % 8 == 0 (16-byte rows), L in (1, 2), "
             "runs <= 65535)"
         )
@@ -407,6 +449,31 @@ def cluster_bwd_weights(Wrff: Tensor, cdt):
     return wg_slabs(Wt.to(cdt), CB_KSB, False), wb
 
 
+def wide_slabs(B: Tensor, cdt) -> Tensor:
+    """A K-major operand B [..., L, HC, HC] (row n holds B's column n) as
+    the wide route's product slabs: its 128-column tiles one after another,
+    [..., L, HC / 128, HC / ks, parts, ks / V, 16, 8, V], each tile's slabs
+    laid out as :func:`wg_slabs` lays them out; bf16 (WG_KSB k-rows a slab,
+    one a stage) or TF32 hi | lo (WG_KSF, two a stage)."""
+    *lead, L, N, K = B.shape
+    tiles = B.reshape(*lead, L, N // 128, 128, K)
+    if cdt == torch.float32:
+        return wg_slabs(tiles.float(), WG_KSF, True)
+    return wg_slabs(tiles.to(cdt), WG_KSB, False)
+
+
+def wide_fwd_weights(Wrff: Tensor, cdt) -> Tensor:
+    """The rFF weights [..., L, HC, HC] ([in][out]) as the wide forward
+    products' slabs: B = W^T, bf16 on the bf16 path, else TF32 hi | lo."""
+    return wide_slabs(Wrff.transpose(-1, -2), cdt)
+
+
+def wide_bwd_weights(Wrff: Tensor) -> Tensor:
+    """The wide backward's dp @ W^T slabs: B = W, TF32 hi | lo (the
+    unrounded f32 weights in both dtypes)."""
+    return wide_slabs(Wrff, torch.float32)
+
+
 def wg_weights(Wrff: Tensor, cdt):
     """K3a's slabs: the forward products' (:func:`wg_fwd_weights`) and the
     backward's dp @ W^T, B = W (TF32 hi | lo, WG_KSF a slab)."""
@@ -417,7 +484,7 @@ def fwd_kernel(HC: int, dtype) -> str:
     """Which K2 serves width HC in ``dtype`` on the card: 'wg' (the
     warpgroup K2 beside K3a in csrc/pma_epilogue_wg.cu: f32 at
     WG_FWD_WIDTHS), 'cluster' (csrc/pma_epilogue_cluster.cu, at
-    CLUSTER_FWD_WIDTHS), 'wide' (csrc/pma_epilogue_wide.cu, above 512) or
+    CLUSTER_FWD_WIDTHS), 'wide' (csrc/pma_epilogue_wide_wg.cu, above 512) or
     'tiled' (csrc/pma_epilogue_fwd.cu)."""
     if wide(HC):
         return "wide"
@@ -430,7 +497,7 @@ def bwd_kernel(HC: int, dtype) -> str:
     """Which K3 serves width HC in ``dtype`` on the card: 'wg' (the
     warpgroup K3a in csrc/pma_epilogue_wg.cu, at WG_WIDTHS), 'cluster'
     (csrc/pma_epilogue_cluster_bwd.cu, at CLUSTER_BWD_WIDTHS), 'wide'
-    (csrc/pma_epilogue_wide.cu, above 512) or 'tiled'
+    (csrc/pma_epilogue_wide_wg.cu, above 512) or 'tiled'
     (csrc/pma_epilogue.cu). The first two share K3b over the transposed
     scratch (:func:`wg_chunk_plan`)."""
     if wide(HC):
@@ -464,18 +531,25 @@ def wg_chunk_plan(M: int):
 
 def bwd_scratch_bytes(M: int, HC: int, L: int, itemsize: int) -> int:
     """Bytes of K3's scratch per run at M rows: the stored rFF inputs and
-    output gradients (transposed on the warpgroup and cluster routes; f32
-    in the wide pair), the small vectors' and dW's partials (the wide
-    pair: its tile buffers)."""
+    output gradients (transposed on the warpgroup and cluster routes), the
+    small vectors' and dW's partials. The wide route: zb (and h1) in the
+    dtype and dp_l in f32 (dp_0 in f32 over h1's table), tiled over M
+    rounded up to 128 rows, the f32 table of the last layer's p (then dz),
+    the partials per 128-row tile and dW chunk (:func:`wide_dw_plan`),
+    and its weight slabs."""
     route = bwd_kernel(HC, torch.float32 if itemsize == 4 else torch.bfloat16)
     if route in ("wg", "cluster"):
         Mp, _, nch = wg_chunk_plan(M)
         tables = L * HC * Mp * (itemsize + 4)
         blocks = (min(-(-M // WG_TILE), WG_BLOCKS) if route == "wg"
                   else 4 * cluster_bwd_entries(M))
-    elif wide(HC):
-        G = _wide_grid(M)
-        return L * HC * M * 8 + G * (WIDE_NBUF * WIDE_TR + 8) * HC * 4
+    elif route == "wide":
+        nch = wide_dw_plan(M, HC, L)[1]
+        Mp = wide_tiles(M) * WIDE_TR
+        tiled = itemsize + 4 + (itemsize + (4 if itemsize == 2 else 0) if L == 2 else 0)
+        slabs = L * HC * HC * ((2 if itemsize == 2 else 8) + 8)
+        return (HC * (Mp * tiled + M * 4) + 4 * (wide_tiles(M) * 8 * HC + nch * L * HC * HC)
+                + slabs)
     else:
         tables = L * HC * M * (itemsize + 4)
         nch = dw_chunk_plan(M)[1]
@@ -494,8 +568,10 @@ def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     agg = agg.contiguous()
     route = fwd_kernel(HC, agg.dtype)
     if route == "wide":
-        return _launch_wide_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
-                                M, WP, HC, L)
+        call, out = _wide_fwd_setup(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
+                                    M, WP, HC, L)
+        call()
+        return out
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
     out = torch.empty(M, runs * HC, dtype=agg.dtype, device=agg.device)
     if route in ("wg", "cluster"):
@@ -537,7 +613,8 @@ def _bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     order; returns (call, (dagg, dW, dsmall)). ``call()`` is one whole
     launch. Other masks serve timing only (chip_smoke.py,
     scripts/k3_parts.py): a single part, after a whole launch, times that
-    part alone. The wide pair takes the whole launch only."""
+    part alone. The wide route takes the whole launch only (its phases:
+    ``call(mark=f)``)."""
     M, WP, HC, L = _check_cuda_args(agg, seed, Wrff, H, R)
     runs = 1 if R is None else R
     lead = () if R is None else (R,)
@@ -623,58 +700,151 @@ def _wg_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead
     return call, (dagg, dW, dsmall)
 
 
-def _wide_grid(M: int) -> int:
-    return max(1, min(-(-M // WIDE_TR), WIDE_G))
+def _zero_pad_rows(t, M):
+    """Zeros in rows M.. of a tiled table [R, Mp, HC]'s last 128-row tile
+    (its 128-byte column blocks hold a tile's rows contiguous): the dW
+    kernel's bulk copies read them, and the kernels write rows below M
+    only."""
+    R, Mp, HC = t.shape
+    if M % WIDE_TR:
+        KA = 128 // t.element_size()
+        t.view(R, Mp // WIDE_TR, HC // KA, WIDE_TR, KA)[:, -1, :, M % WIDE_TR:] = 0
 
 
-def _launch_wide_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, M, WP, HC, L):
-    """K2/K2R above HC 512 (csrc/pma_epilogue_wide.cu): the weights as f32
-    holding their values rounded to the activation dtype."""
+def _wide_call(entry: str, what: str, *args) -> None:
+    _kernels.check(getattr(_kernels.lib(), entry)(*args), f"{what} (wide)")
+
+
+def _wide_products(zb, h1, pz, wf, brff, M, HC, L, runs, cdt, stream):
+    """The wide route's forward products: layer l's A is zb (l = 0) or h1,
+    its epilogue writes h1 = round(relu(p_l)) below the last layer and the
+    last layer's p (f32) into pz."""
+    dt = _kernels.dtype_code(zb)
+    for l in range(L):
+        last = l == L - 1
+        _wide_call("allset_pma_wide_gemm", "pma_epilogue products", EP_V if last else EP_H,
+                   (zb if l == 0 else h1).data_ptr(), wf.data_ptr(), brff.data_ptr(),
+                   _ptr(None if last else h1), pz.data_ptr() if last else 0, 0, M, HC, L, l,
+                   0, runs, dt, stream)
+
+
+def _wide_fwd_setup(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, M, WP, HC, L):
+    """K2/K2R above HC 512 (csrc/pma_epilogue_wide_wg.cu), in passes of
+    wide_fwd_rows rows: LN0 into zb, the L products (wide_fwd_weights'
+    slabs), LN1 into y; returns (call, y). ``call(mark=f)`` calls f(name)
+    after each phase (timing only: scripts/wide_phases.py)."""
     dev, cdt = agg.device, agg.dtype
-    Wf = Wrff.to(cdt).float().contiguous()
+    wf = wide_fwd_weights(Wrff, cdt)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
-    G = _wide_grid(M)
     out = torch.empty(M, runs * HC, dtype=cdt, device=dev)
-    tile = torch.empty(runs, G, WIDE_NBUF, WIDE_TR, HC, dtype=torch.float32, device=dev)
-    rc = _kernels.lib().allset_pma_wide_fwd(
-        agg.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(), Wf.data_ptr(),
-        brff.data_ptr(), g1.data_ptr(), b1.data_ptr(), out.data_ptr(), tile.data_ptr(),
-        M, WP, HC, H, L, runs, int(relu), _kernels.dtype_code(agg), G,
-        _kernels.stream_ptr(agg),
-    )
-    _kernels.check(rc, "pma_epilogue_fwd (wide)")
-    return out
+    step = wide_fwd_rows(M, HC, L, runs, agg.element_size())
+    # one pass's tables, each pass viewing [runs, rows, HC] at its rows
+    zb_buf = torch.empty(runs * step * HC, dtype=cdt, device=dev)
+    h1_buf = torch.empty(runs * step * HC, dtype=cdt, device=dev) if L == 2 else None
+    pz_buf = torch.empty(runs * step * HC, dtype=torch.float32, device=dev)
+    stream, dt = _kernels.stream_ptr(agg), _kernels.dtype_code(agg)
+
+    def call(mark=None):
+        mark = mark or (lambda name: None)
+        for m0 in range(0, M, step):
+            mc = min(step, M - m0)
+            mp = wide_tiles(mc) * WIDE_TR
+            zb = zb_buf[: runs * mp * HC].view(runs, mp, HC)
+            h1 = None if h1_buf is None else h1_buf[: runs * mp * HC].view(runs, mp, HC)
+            pz = pz_buf[: runs * mc * HC].view(runs, mc, HC)
+
+            def rows(mode):
+                _wide_call("allset_pma_wide_rows", "pma_epilogue_fwd rows", mode,
+                           agg[m0:].data_ptr(), 0, seed.data_ptr(), g0.data_ptr(),
+                           b0.data_ptr(), g1.data_ptr(), b1.data_ptr(), zb.data_ptr(),
+                           pz.data_ptr(), 0, out[m0:].data_ptr(), 0, mc, WP, HC, H, L, runs,
+                           int(relu), dt, stream)
+
+            rows(ROW_LN0)
+            mark("ln0")
+            _wide_products(zb, h1, pz, wf, brff, mc, HC, L, runs, cdt, stream)
+            mark("products")
+            rows(ROW_LN1)
+            mark("ln1")
+    return call, out
 
 
 def _wide_bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs, lead, M, WP,
                     HC, L):
-    """K3/K3R above HC 512 (_bwd_setup's contract): the row pass, dW =
-    hin^T dp and the small vectors' reduce. The products through W^T take
-    the f32 weights."""
+    """K3/K3R above HC 512 (_bwd_setup's contract; csrc/pma_epilogue_wide_wg.cu):
+    the forward recomputed (zb, h1, the last layer's p into pz), LN1's
+    backward (dz into pz in place, dp of the last layer), per layer from
+    the last: dW_l's chunk partials and dp_l @ W_l^T (wide_bwd_weights'
+    slabs, f32 W) with the relu mask of the layer below (dp_0: in f32 into
+    h1's table, which it replaces element for element) or dz += dh; LN0's
+    backward into dagg; K3c's reduce. ``call(mark=f)`` calls f(name) after
+    each phase (timing only: scripts/wide_phases.py)."""
     dev, cdt, f32 = agg.device, agg.dtype, torch.float32
-    Wf = Wrff.to(cdt).float().contiguous()
-    WT = Wrff.float().transpose(-1, -2).contiguous()
+    wb = wide_bwd_weights(Wrff)
     seed, g0, b0, brff, g1, b1 = _f32(seed, g0, b0, brff, g1, b1)
-    G = _wide_grid(M)
+    NP = wide_tiles(M)
+    chunk_rows, nch = wide_dw_plan(M, HC, L)
     dagg = torch.empty(M, runs * WP, dtype=cdt, device=dev)
     dW = torch.empty(lead + (L, HC, HC), dtype=f32, device=dev)
     dsmall = torch.empty(lead + (8, HC), dtype=f32, device=dev)
-    hin = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
-    dpbuf = torch.empty(runs, L, M, HC, dtype=f32, device=dev)
-    tile = torch.empty(runs, G, WIDE_NBUF, WIDE_TR, HC, dtype=f32, device=dev)
-    part = torch.empty(runs, G, 8, HC, dtype=f32, device=dev)
+    Mp = NP * WIDE_TR  # the products' A tables, tiled by 128 rows
+    zb = torch.empty(runs, Mp, HC, dtype=cdt, device=dev)
+    h1 = torch.empty(runs, Mp, HC, dtype=cdt, device=dev) if L == 2 else None
+    pz = torch.empty(runs, M, HC, dtype=f32, device=dev)
+    dpl = torch.empty(runs, Mp, HC, dtype=f32, device=dev)
+    if L == 1:
+        dp0 = dpl
+    else:
+        dp0 = h1 if cdt == f32 else torch.empty(runs, Mp, HC, dtype=f32, device=dev)
+    part_s = torch.empty(runs, NP, 8, HC, dtype=f32, device=dev)
+    part_w = torch.empty(runs, nch, L, HC, HC, dtype=f32, device=dev)
+    for t in {id(t): t for t in (zb, h1, dpl, dp0) if t is not None}.values():
+        _zero_pad_rows(t, M)
+    stream, dt = _kernels.stream_ptr(agg), _kernels.dtype_code(agg)
 
-    def call(parts=ALL_PARTS):
+    def rows(mode):
+        _wide_call("allset_pma_wide_rows", "pma_epilogue_bwd rows", mode, agg.data_ptr(),
+                   gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(), g1.data_ptr(),
+                   b1.data_ptr(), zb.data_ptr(), pz.data_ptr(), dpl.data_ptr(),
+                   dagg.data_ptr(), part_s.data_ptr(), M, WP, HC, H, L, runs, int(relu), dt,
+                   stream)
+
+    def dw(l, h, dp):
+        _wide_call("allset_pma_wide_dw", "pma_epilogue_bwd dW", h.data_ptr(), dp.data_ptr(),
+                   part_w.data_ptr(), M, HC, L, l, runs, nch, chunk_rows, dt, stream)
+
+    def dh(mode, l, dp, h, out):
+        _wide_call("allset_pma_wide_gemm", "pma_epilogue_bwd products", mode, dp.data_ptr(),
+                   wb.data_ptr(), 0, _ptr(h), out.data_ptr(), part_s.data_ptr(), M, HC, L, l,
+                   4 + l, runs, dt, stream)
+
+    def call(parts=ALL_PARTS, mark=None):
         if parts != ALL_PARTS:
-            raise ValueError(f"the wide pair launches whole, not parts {parts}")
-        rc = _kernels.lib().allset_pma_wide_bwd(
-            agg.data_ptr(), gy.data_ptr(), seed.data_ptr(), g0.data_ptr(), b0.data_ptr(),
-            Wf.data_ptr(), WT.data_ptr(), brff.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-            dagg.data_ptr(), dW.data_ptr(), dsmall.data_ptr(), hin.data_ptr(),
-            dpbuf.data_ptr(), tile.data_ptr(), part.data_ptr(), M, WP, HC, H, L, runs,
-            int(relu), _kernels.dtype_code(agg), G, _kernels.stream_ptr(agg),
-        )
-        _kernels.check(rc, "pma_epilogue_bwd (wide)")
+            raise ValueError(f"the wide route launches whole, not parts {parts}")
+        mark = mark or (lambda name: None)
+        rows(ROW_LN0)
+        mark("ln0")
+        # the forward slabs live only through the forward products
+        _wide_products(zb, h1, pz, wide_fwd_weights(Wrff, cdt), brff, M, HC, L, runs, cdt,
+                       stream)
+        mark("products")
+        rows(ROW_LN1_BWD)
+        mark("ln1_bwd")
+        if L == 2:
+            dw(1, h1, dpl)
+            mark("dw")
+            dh(EP_DP, 1, dpl, h1, dp0)  # dp_0 and dbrff[0]'s partials (row 5)
+            mark("dh")
+        dh(EP_DZ, 0, dp0, None, pz)
+        mark("dh")
+        dw(0, zb, dp0)
+        mark("dw")
+        rows(ROW_LN0_BWD)
+        mark("ln0_bwd")
+        _wide_call("allset_pma_wide_reduce", "pma_epilogue_bwd reduce", part_w.data_ptr(), nch,
+                   dW.data_ptr(), part_s.data_ptr(), NP, dsmall.data_ptr(), HC, L, runs,
+                   stream)
+        mark("reduce")
     return call, (dagg, dW, dsmall)
 
 

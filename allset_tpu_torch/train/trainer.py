@@ -313,7 +313,9 @@ class Trainer:
         1.745, 2.254, 1.751 and 1.129 GiB for AllSetTransformer (the preset,
         GPR, LearnMask, no self-loops) against measured peaks of 1.473,
         1.904, 1.388 and 1.034, 3.477 at --MLP_hidden 512 against 2.889,
-        and 3.740 for AllDeepSets against 3.405 (PERF.md §5). The conv zoo: :meth:`_zoo_bytes_per_run`."""
+        6.782 at --MLP_hidden 1024 (K3R's wide route: its tables over the
+        rows rounded up to 128, its partials and slabs) against 5.747, and
+        3.740 for AllDeepSets against 3.405 (PERF.md §5). The conv zoo: :meth:`_zoo_bytes_per_run`."""
         mc, inc = self.model_cfg, self.batch.inc
         if not isinstance(mc, SetGNNConfig):
             return self._zoo_bytes_per_run()

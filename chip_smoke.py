@@ -11,10 +11,11 @@ Phases (any failure raises and exits non-zero):
      bit for bit against the plain version in the kernel's order of
      additions, and at 4 and 20 runs x 264 run by run against launches
      on each run's slice), K2/K3 the PMA epilogue (HC in {64, 128, 192,
-     256, 384, 512} and, through the wide pair, 640, 768 and 1024; heads
+     256, 384, 512} and, through the wide route, 640, 768 and 1024; heads
      1 to HC, rows below one tile (64 rows up to HC 512, where K3 takes 32
-     above HC 256: 40 and 20 rows there; 16 above 512) and not a multiple
-     of it; the widest the JAX kernel takes, 1536 with 2 layers in f32 and
+     above HC 256: 40 and 20 rows there; 128 above 512: 80 rows) and not a
+     multiple of it; two K3 calls bit for bit at 384 and above; the widest
+     the JAX kernel takes, 1536 with 2 layers in f32 and
      2048 with 1 layer in bf16) and K2R/K3R its runs grids (HC 256, 384,
      512, 640, 768 and 1024, R in {2, 5}; L in {1, 2}, relu on/off; the
      widest two at R=2; each run of K2R/K3R also bit for bit against a
@@ -32,8 +33,8 @@ Phases (any failure raises and exits non-zero):
      bit against a launch on it alone), the epilogue's route by shape (an
      rFF of 3 layers and HC 96, which the JAX package composes too, on the
      plain version with no launch; HC 256, 512, 640, 1024 and 2048 (2
-     layers, f32: above the JAX kernel's VMEM cap, which binds no kernel of
-     the card) on K2/K3 and K2R/K3R, held to the plain version), B10 the
+     layers, f32: above the JAX kernel's VMEM cap, the widest the wide
+     route takes) on K2/K3 and K2R/K3R, held to the plain version), B10 the
      row gather (bit for bit: f32 and
      bf16, widths 1, 8, 256, 264, 5,280 and 20 x 264, int32 and int64 ids,
      clamped ids, narrow rows on an unaligned view), B9 the sorted gather
@@ -83,7 +84,8 @@ Phases (any failure raises and exits non-zero):
      bench step from the same state through the pair the gather inside K1
      replaced (B10 + K1) gives bit-identical losses, and two runs from
      one state give identical losses; the bench step also at hidden 384,
-     512 and 1024 (K2/K3 at those widths, timed at its shapes too); then
+     512, 640 and 1024 (K2/K3 at those widths, timed at its shapes too;
+     above 512 the wide route); then
      the conv zoo on the same graph (2 layers, hidden 256, bf16): HCHA,
      HGNN, HNHN, UniGCNII, MLP and UniGNN with each of its five convs
      (UniGAT at 8 heads of 32; UniGIN and UniSAGE with --UniGNN_use_norm,
@@ -115,7 +117,8 @@ Phases (any failure raises and exits non-zero):
      epochs: 4 K2R and 2 K3R at HC 512 per group and epoch, timed at its
      shapes too; the peak per run against the trainer's estimate; 2
      folded against 2 one by one); --MLP_hidden 1024 (2 runs x 1 epoch
-     through the wide pair, timed at its shapes); --method AllDeepSets
+     through the wide route, timed at its shapes; the peak per run
+     against the trainer's estimate); --method AllDeepSets
      with the same preset, 20 runs x 3 epochs (6 K1, 16 B12 and 8 B13 per
      group and epoch: 6 of the gather inside K1), then three warm runs of
      4 epochs, 20 runs x 2
@@ -158,8 +161,9 @@ K3, K4, K5 from phase 4's bench step and the gather inside K1 again,
 "_epoch", per 20-run epoch from phase 6's run; B12, B13 from phase 4's
 AllDeepSets step and again, "_epoch", per AllDeepSets 20-run epoch; K1
 and B10 from phase 4's UniGAT step, B9 ("gather_sorted") from its CEGAT
-step; K2 and K3 again at HC 384, 512 and 1024, K2R and K3R at 512 and
-1024, "_hc...", from the bench steps and CLI runs at those widths; the
+step; K2 and K3 again at HC 384, 512, 640 and 1024, K2R and K3R at 512
+and 1024, "_hc...", from the bench steps and CLI runs at those widths
+(above 512 the wide route, csrc/pma_epilogue_wide_wg.cu); the
 one-hot family ("segsum_onehot": B1; "_b2", "_b3", "_b4", "_b6": B2 at
 nbuf 2, B3 at nacc 1, B4's build A, B6's full mode) and the streaming
 probes (B5 "stream_flat", B7 "stream_dual", B8 "stream_fold", fold at
@@ -474,12 +478,13 @@ def relu_safe(agg, gy, params, H, margin=1e-4):
 # HC 192; at HC 256 the warpgroup K3 and, in f32, K2 take every head
 # count on a ring of 4, 3 or 2 weight slots; the cluster K2 and K3 at 384
 # and 512 read them from global memory at every head count, K3 once per
-# row, column pair or column as the heads fall on its warpgroups)
+# row, column pair or column as the heads fall on its warpgroups; the wide
+# route's row phases sum each head's columns through shared memory)
 EPI_SHAPES = ((256, 8, 264), (256, 32, 288), (256, 128, 384), (192, 8, 200), (192, 192, 384),
               (128, 4, 136),
               (64, 1, 72), (64, 64, 128), (384, 1, 392), (384, 8, 392), (384, 384, 768),
               (512, 1, 520), (512, 8, 520), (512, 512, 1024),
-              # the wide pair (csrc/pma_epilogue_wide.cu): HC above 512
+              # the wide route (csrc/pma_epilogue_wide_wg.cu): HC above 512
               (640, 8, 648), (768, 1, 776), (768, 768, 1536), (1024, 8, 1032),
               (1024, 64, 1088))
 # (HC, H, WP, dtype, L): wide shapes at which the JAX kernel's scoped VMEM
@@ -500,7 +505,7 @@ def check_epilogue(dev, gen):
                 f"HC={HC}, L={L}, {dtype} is not routed to the kernels")
         # below one tile: K2's and K3's 64 rows up to HC 512 (40 rows) and,
         # at 384 and 512, the 32 of the tiled K3 there before (20 rows), the
-        # wide pair's 16 above
+        # wide route's 128 above (80 rows)
         tiles = (cp.tile_rows(HC), *((32,) if HC in cp.CLUSTER_BWD_WIDTHS else ()))
         smalls = {t * 5 // 8 for t in tiles}
         for M in (1000, *sorted(smalls)):  # not a multiple of the tile; below one tile
@@ -515,7 +520,7 @@ def check_epilogue(dev, gen):
                         f"two K2 calls differ ({dtype}, HC={HC}, H={H}, M={M}, L={L})")
                 y_ref = cp.epilogue_fwd_plain(agg, seed, g0, b0, W, b, g1, b1, H, relu)
                 got = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
-                if HC in cp.CLUSTER_BWD_WIDTHS:
+                if HC in cp.CLUSTER_BWD_WIDTHS or cp.wide(HC):
                     again = cp.epilogue_bwd_cuda(agg, gy, seed, g0, b0, W, b, g1, b1, H, relu)
                     require(all(torch.equal(a, b) for a, b in zip(got, again)),
                             f"two K3 calls differ ({dtype}, HC={HC}, H={H}, M={M}, L={L})")
@@ -545,12 +550,12 @@ def runs_inputs(M, HC, H, WP, L, R, dtype, dev, gen, floor_rows=True):
 def check_runs_epilogue(dev, gen):
     """K2R/K3R against their plain versions (phase 3's tolerances) and, run
     by run, bit for bit against K2/K3 launched on the run's slice, at HC
-    256, 384 and 512, at 640, 768 and 1024 (the wide pair; R 2 and 5, L 1
+    256, 384 and 512, at 640, 768 and 1024 (the wide route; R 2 and 5, L 1
     and 2; 1000 rows), at WIDEST (R 2) and, at 384 and 512, on 5000 rows
     (R 2, L 2: more tiles than the cluster K3a has clusters)."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
-    cases = [(shape, dtype, R, L, 1000)  # 1000 rows: not a multiple of the 64- or 16-row tile
+    cases = [(shape, dtype, R, L, 1000)  # 1000 rows: not a multiple of the 64- or 128-row tile
              for shape in ((256, 8, 264), (384, 8, 392), (512, 8, 520), (640, 8, 648),
                            (768, 8, 776), (1024, 8, 1032))
              for dtype in (torch.float32, torch.bfloat16) for R in (2, 5) for L in (1, 2)]
@@ -760,7 +765,8 @@ def check_routes(dev, gen):
     layers and HC 96 (shapes the JAX package composes too) take the plain
     version and launch no kernel; HC 256 and 512 with 2 layers launch K2/K3
     (K2R/K3R with runs), and so do HC 640, 1024 and 2048 with 2 layers in
-    f32 (the wide pair; no TPU VMEM budget binds it), each held to its
+    f32 (the wide route, whose widest it is; no TPU VMEM budget binds
+    it), each held to its
     plain version with phase 3's tolerances."""
     from allset_tpu_torch.ops import _kernels, cuda_pma as cp
 
@@ -1574,16 +1580,22 @@ def hidden512_protocol(card, tmp, dev):
     return counts
 
 
-def wide_protocol(card, tmp):
+def wide_protocol(card, tmp, dev):
     """--MLP_hidden 1024 through the CLI at the walmart preset (8 heads,
-    f32): 2 runs x 1 epoch through K2R/K3R's wide pair (launches per group
-    and epoch as at 256), finite metrics. Returns the counts."""
-    res, counts = cli_run(["--dname", WALMART, "--preset", "--MLP_hidden", "1024", "--dtype",
-                           "float32", "--device", "cuda", "--runs", "2", "--epochs", "1",
-                           "--res_root", tmp], 1, off_wg(pma_group_epoch()))
+    f32): 2 runs x 1 epoch through K2R/K3R's wide route (launches per
+    group and epoch as at 256), finite metrics, the peak device memory per
+    folded run against the trainer's estimate (which must not be lower).
+    Returns the counts."""
+    res, counts, peak, est = cli_peak(
+        ["--dname", WALMART, "--preset", "--MLP_hidden", "1024", "--dtype", "float32",
+         "--device", "cuda", "--runs", "2", "--epochs", "1", "--res_root", tmp], 1,
+        off_wg(pma_group_epoch()), dev, mlp_hidden=1024)
     log(f"  --MLP_hidden 1024: {res.metrics.shape[0]} runs in groups {res.groups}; launches "
         f"{counts}; params {res.num_params}; {res.wall_time * 1e3:.1f} ms for the epoch "
         f"[{card}]")
+    log(f"  --MLP_hidden 1024: peak device memory per folded run {peak / 2**30:.3f} GiB; the "
+        f"trainer's estimate {est / 2**30:.3f} GiB [{card}]")
+    require(est >= peak, "--MLP_hidden 1024: the trainer's estimate is below the measured peak")
     return counts
 
 
@@ -3204,7 +3216,7 @@ def main() -> int:
                 "AllDeepSets bench step")
     counts, _ = main_path(batch, dev, card, PER_STEP, against_pair=True)
     wide_counts = {}
-    for HC in (384, 512, 1024):  # the cluster K2 and K3, and the wide pair
+    for HC in (384, 512, 640, 1024):  # the cluster K2 and K3, and the wide route
         suffix = f"_hc{HC}"
         timings.update(time_epilogue_step(batch, dev, gen, HC, suffix))
         log_tallies({k: v for k, v in timings.items() if k.endswith(suffix)},
@@ -3263,7 +3275,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         runs_counts, _ = runs_protocol(card, tmp, dev)
         runs512_counts = hidden512_protocol(card, tmp, dev)
-        runs1024_counts = wide_protocol(card, tmp)
+        runs1024_counts = wide_protocol(card, tmp, dev)
         deepsets_protocol(card, tmp, dev)
         ln_epoch, ln_epoch_counts = time_layer_norm_epoch(tmp, dev, gen)
         timings.update(ln_epoch)
@@ -3333,12 +3345,12 @@ def main() -> int:
                           "benchmarks/exp_fused_gather.py:76", ce_counts["CEGAT"]),
     }
     # the epilogue kernels at the other widths: the bench steps at hidden
-    # 384, 512 and 1024 (the wide pair), the CLI runs at 512 and 1024
-    wide = "allset_tpu_torch/csrc/pma_epilogue_wide.cu"
+    # 384, 512, 640 and 1024 (the wide route), the CLI runs at 512 and 1024
+    wide = "allset_tpu_torch/csrc/pma_epilogue_wide_wg.cu"
     k2 = "allset_tpu_torch/csrc/pma_epilogue_cluster.cu"
     narrow = {"pma_epilogue_fwd": k2, "pma_epilogue_bwd": k3_384_512,
               "pma_epilogue_fwd_runs": k2, "pma_epilogue_bwd_runs": k3_384_512}
-    for HC in (384, 512, 1024):
+    for HC in (384, 512, 640, 1024):
         for k in ("pma_epilogue_fwd", "pma_epilogue_bwd"):
             sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1],
                                       wide_counts[HC])
@@ -3360,7 +3372,7 @@ def main() -> int:
     # K2's kernels at the main path's shapes, with their registers and
     # spills: the tiled K2 (bf16 bench step), the warpgroup K2R (f32
     # epoch), the cluster K2 at hidden 384 and 512 (bf16 bench steps) and
-    # K2R at 512 (f32 epoch)
+    # K2R at 512 (f32 epoch); above 512 the wide route's product kernels
     ptxas_of = {"pma_epilogue_fwd": "pma_fwd_kernel<__nv_bfloat16, 256, false>",
                 "pma_epilogue_fwd_runs": "pma_fwd_wg_kernel<float, 256, 4>",
                 "pma_epilogue_fwd_hc384": "pma_fwd_cluster_kernel<__nv_bfloat16, 384>",
@@ -3369,7 +3381,15 @@ def main() -> int:
                 # and K3a on the cluster route (bf16 steps, f32 epoch)
                 "pma_bwd_rows_hc384": "pma_bwd_cluster_kernel<__nv_bfloat16, 384>",
                 "pma_bwd_rows_hc512": "pma_bwd_cluster_kernel<__nv_bfloat16, 512>",
-                "pma_bwd_rows_hc512_epoch": "pma_bwd_cluster_kernel<float, 512>"}
+                "pma_bwd_rows_hc512_epoch": "pma_bwd_cluster_kernel<float, 512>",
+                # the wide route's products: K2's (bf16 steps, f32 epoch) and
+                # K3's dp @ W^T (bf16 steps)
+                "pma_epilogue_fwd_hc640": "wide_gemm_kernel<__nv_bfloat16, __nv_bfloat16>",
+                "pma_epilogue_fwd_hc1024": "wide_gemm_kernel<__nv_bfloat16, __nv_bfloat16>",
+                "pma_epilogue_fwd_runs_hc1024": "wide_gemm_kernel<float, float>",
+                "pma_epilogue_bwd_hc640": "wide_gemm_kernel<float, __nv_bfloat16>",
+                "pma_epilogue_bwd_hc1024": "wide_gemm_kernel<float, __nv_bfloat16>",
+                "pma_epilogue_bwd_runs_hc1024": "wide_gemm_kernel<float, float>"}
     kernels = []
     for name, (src, rep, cnt) in sources.items():
         base = re.sub(r"(_(hc\d+|epoch|b\d+))+$", "", name)

@@ -23,7 +23,13 @@ never imports either), builds its own kernels and measures, on the card:
     88,860 rows, twice each);
   * the runs protocol (f32, synthetic-walmart preset, 20 runs folded) at
     hidden 256 and 512: a warm epoch through the CLI (one epoch to warm
-    up, then 6 timed at 256 and 4 at 512).
+    up, then 6 timed at 256 and 4 at 512);
+  * above HC 512 (the wide route): K2 and K3 at hidden 640 and 1024 in
+    bf16 per bench step, K2R and K3R at 1024 in f32 per 2-run epoch (K2R
+    twice and K3R once per row count), the bench step at hidden 1024
+    (main_path, as at 512), and the peak device memory per folded run of
+    ``--MLP_hidden 1024`` through the CLI (walmart preset, f32, 2 runs x 1
+    epoch; ``chip_smoke.cli_peak``).
 
 Each worker prints one JSON line; the script prints them and, per tree,
 the mean, lowest and highest reading of each number, with the card's name
@@ -44,10 +50,11 @@ BENCH_ROWS = (196_608, 131_072)  # a bench step's two half-layers (one K2 each)
 EPOCH_ROWS = (158_766, 88_860)  # the walmart preset's half-layers
 
 
-def _k2_ms(cs, HC, rows, R, dtype, dev):
+def _k2_ms(cs, HC, rows, R, dtype, dev, bwd=False):
     """K2 (R None: a launch per row count) or K2R (R runs: 2 launches per
     row count, train and eval) at width HC with 8 heads and 2 layers, in
-    ms summed over the launches; the inputs are made on the card."""
+    ms summed over the launches; with ``bwd`` K3 or K3R instead (one
+    launch per row count); the inputs are made on the card."""
     import torch
 
     from allset_tpu_torch.ops import cuda_pma as cp
@@ -63,12 +70,18 @@ def _k2_ms(cs, HC, rows, R, dtype, dev):
         r = lambda *s: torch.randn(runs, *s, device=dev, generator=g)
         p = [0.1 * r(HC), 1 + 0.1 * r(HC), 0.1 * r(HC), 0.05 * r(L, HC, HC), 0.1 * r(L, HC),
              1 + 0.1 * r(HC), 0.1 * r(HC)]
+        gy = torch.randn(M, runs * HC, device=dev, generator=g).to(dtype)
         if R is None:
             p = [t[0] for t in p]
-            total += cs.cuda_ms(lambda: cp.epilogue_fwd_cuda(agg, *p, H, True))
+            if bwd:
+                total += cs.cuda_ms(lambda: cp.epilogue_bwd_cuda(agg, gy, *p, H, True))
+            else:
+                total += cs.cuda_ms(lambda: cp.epilogue_fwd_cuda(agg, *p, H, True))
+        elif bwd:
+            total += cs.cuda_ms(lambda: cp.epilogue_bwd_runs_cuda(agg, gy, *p, H, True), iters=3)
         else:
             total += 2 * cs.cuda_ms(lambda: cp.epilogue_fwd_runs_cuda(agg, *p, H, True), iters=3)
-        del agg, p
+        del agg, gy, p
         torch.cuda.empty_cache()
     return total
 
@@ -115,6 +128,8 @@ def worker() -> None:
     parts512 = hasattr(cp, "bwd_kernel") and cp.bwd_kernel(512, torch.bfloat16) != "tiled"
     _, out["bench_step_hc512_ms"] = cs.main_path(
         batch, dev, card, cs.PER_STEP if parts512 else cs.off_wg(cs.PER_STEP), hidden=512)
+    _, out["bench_step_hc1024_ms"] = cs.main_path(batch, dev, card,
+                                                  cs.off_wg(cs.PER_STEP, 1024), hidden=1024)
     out["bench_final_loss"] = _last_loss(cs, batch, dev, 256)
     out["bench_final_loss_hc512"] = _last_loss(cs, batch, dev, 512)
     del batch
@@ -124,7 +139,19 @@ def worker() -> None:
                                                     dev)
         out[f"k2r_f32_hc{HC}_ms_per_epoch"] = _k2_ms(cs, HC, EPOCH_ROWS, 20, torch.float32,
                                                      dev)
+    for HC in (640, 1024):
+        for name, bwd in (("k2", False), ("k3", True)):
+            out[f"{name}_bf16_hc{HC}_ms_per_step"] = _k2_ms(cs, HC, BENCH_ROWS, None,
+                                                            torch.bfloat16, dev, bwd)
+    for name, bwd in (("k2r", False), ("k3r", True)):
+        out[f"{name}_f32_hc1024_ms_per_2run_epoch"] = _k2_ms(cs, 1024, EPOCH_ROWS, 2,
+                                                             torch.float32, dev, bwd)
     with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--dname", WALMART, "--preset", "--MLP_hidden", "1024", "--dtype", "float32",
+                "--device", "cuda", "--runs", "2", "--epochs", "1", "--res_root", tmp]
+        _, _, peak, _ = cs.cli_peak(argv, 1, cs.off_wg(cs.pma_group_epoch()), dev,
+                                    mlp_hidden=1024)
+        out["cli_hc1024_peak_gib_per_run"] = peak / 2**30
         out["epoch_ms"], out["final_loss"] = _warm_epoch(cli, tmp, 256, 6)
         out["epoch_hc512_ms"], out["final_loss_hc512"] = _warm_epoch(cli, tmp, 512, 4)
     print("PAIR " + json.dumps(out), flush=True)

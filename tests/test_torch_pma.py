@@ -213,7 +213,8 @@ def test_epilogue_supported_holds_the_kernels_limits():
     assert ok(512, 8, 2, 520) and ok(384, 384, 1, 768) and ok(512, 1, 2, 520, R=20)
     assert ok(640, 8, 2, 648) and ok(1024, 16, 1, 1040, R=20)  # above 512: the wide pair
     assert ok(1536, 8, 2, 1544) and ok(2048, 8, 1, 2056)
-    assert ok(2048, 8, 2, 2056)  # no TPU VMEM budget: the wide pair takes any width
+    assert ok(2048, 8, 2, 2056)  # no TPU VMEM budget: the wide route takes every width
+    assert not ok(2048 + 128, 8, 1, 2184)  # above the wide route's 2048
     assert not ok(640 + 64, 8, 2, 712)  # above 512, not a multiple of 128
     assert not ok(320, 8, 2, 328)  # HC between the kernels' widths
     assert not ok(96, 4, 2, 104)  # HC not a multiple of 64
