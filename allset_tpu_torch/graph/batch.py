@@ -3,8 +3,9 @@
 Counterpart of ``allset_tpu/graph/batch.py``: features, labels, the
 incidence (None for the structure-free MLP and HyperGCN's reapprox
 path; the V2V graph for CEGCN/CEGAT, the Laplacian for HyperGCN) and the
-per-model extras (HNHN's norm vectors, UniGNN's degrees), all tensors on
-one device; and ``split_masks``. The device is the card unless the caller
+per-model extras (HNHN's norm vectors, UniGNN's degrees as tensors;
+HAN's metapath graphs as whole Incidences), all on one device; and
+``split_masks``. The device is the card unless the caller
 names another; without a card that default raises, it never falls back
 to the CPU.
 """
@@ -12,7 +13,7 @@ to the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,7 +27,7 @@ class Batch:
     x: torch.Tensor  # [N, F] float32
     y: torch.Tensor  # [N] int64
     inc: Optional[Incidence]
-    extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    extras: Dict[str, Union[torch.Tensor, Incidence]] = dataclasses.field(default_factory=dict)
 
     @property
     def num_nodes(self) -> int:
@@ -45,15 +46,25 @@ class Batch:
                        device="cuda") -> "Batch":
         """``data``'s features, labels and extras with another structure
         ``inc`` (a V2V graph, a Laplacian, or None), all on ``device``."""
+        return cls(
+            x=torch.as_tensor(data.x, dtype=torch.float32),
+            y=torch.as_tensor(data.y, dtype=torch.int64),
+            inc=inc,
+            extras={k: torch.as_tensor(v) for k, v in data.extras.items()},
+        ).to(device)
+
+    def to(self, device) -> "Batch":
+        """Every tensor and Incidence of the batch, extras included, on
+        ``device`` (a CUDA device raises where there is none)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Batch: no CUDA device is available "
                                "(pass device='cpu' for the plain versions)")
-        return cls(
-            x=torch.as_tensor(data.x, dtype=torch.float32).to(device),
-            y=torch.as_tensor(data.y, dtype=torch.int64).to(device),
-            inc=None if inc is None else inc.to(device),
-            extras={k: torch.as_tensor(v).to(device) for k, v in data.extras.items()},
+        return Batch(
+            x=self.x.to(device),
+            y=self.y.to(device),
+            inc=None if self.inc is None else self.inc.to(device),
+            extras={k: v.to(device) for k, v in self.extras.items()},
         )
 
 

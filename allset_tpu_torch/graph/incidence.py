@@ -197,7 +197,9 @@ class Incidence:
     node_indptr: Tensor  # i32[num_nodes + 1]
     edge_plan: SegPlan
     node_plan: SegPlan
-    # node-sorted second order: node_perm maps canonical -> node order
+    # node-sorted second order: node_perm maps canonical -> node order (None
+    # on an Incidence built without its sorted orders, which HAN's
+    # DGLGATConv takes on its reference composition)
     node_perm: Tensor  # i64[nnz_pad]
     inv_node_perm: Tensor  # i64[nnz_pad]
     node_sorted: Tensor  # i64[nnz_pad] = node[node_perm]

@@ -7,7 +7,9 @@ zoo's ``conv{i}/weight``, ``conv{i}/W/kernel``, ``att_e``, ``eps``,
 negative_slope``...; CEGCN's and CEGAT's ``conv{i}/weight``,
 ``conv{i}/att_l``, ``conv{i}/att_r``, ``conv{i}/bias``; HyperGCN's
 ``layer{i}/W``, ``layer{i}/bias`` and, on the reapprox path, ``W{i}``,
-``bias{i}``), so a ``state_dict`` key is the flax path joined by dots. Kernels keep the flax
+``bias{i}``; HAN's and MetapathHAN's ``gat_l{i}_p{j}/fc``, ``attn_l``,
+``attn_r``, ``sem_l{i}/proj1``, ``proj2``, ``predict``, SampledHAN's
+``gat_p{j}``, ``sem``), so a ``state_dict`` key is the flax path joined by dots. Kernels keep the flax
 layout ``[in, out]``: nothing is transposed. The input is the flax
 ``params`` tree with its leaves converted to numpy arrays. A vmapped
 tree (a leading runs axis on every leaf, the same keys) gives the

@@ -95,7 +95,24 @@ Phases (any failure raises and exits non-zero):
      expansion (279,962 entries with the self-loops) and HyperGCN (its
      Laplacian with mediators, built once on the host), 8 steps each with
      the same checks (CEGAT's sorted narrow gathers on B9); 2 steps of
-     HyperGCN's reapprox path (f32), its host build time per step;
+     HyperGCN's reapprox path (f32), its host build time per step; the
+     bench step also at hidden 64 and 128 (the tiled K2/K3, the width of
+     four tuned presets), timed at its shapes too;
+  4e. (after 4d) HAN at benchmarks/han_bench.py's shape (65,536 nodes,
+     32,768 hyperedges of 12, 64 features, 8 classes, seed 0; 8 heads of
+     8, f32): the metapath build's host seconds and pairs (4,788,390 VEV,
+     2,387,764 EVE); one step through B10, B9 and K1 against the same
+     step through their plain versions on the card from the same
+     parameters (the loss without the rows a leaky_relu or ELU argument
+     within 1e-5 of 0 reaches: within 1e-5, gradients within 1e-3); 8
+     steps with the launches han_launches predicts (6 B10, 2 B9, 6 K1 a
+     step), finite falling losses, two runs from one state bit-identical,
+     the median step, M metapath-pairs/s and the peak memory; B10, B9 and
+     K1 timed at the step's shapes; train_han, 2 runs x 8 epochs (dropout
+     0.6), launches per epoch, finite falling losses; SampledHAN at B 32
+     and 4096 (steps/s, seeds/s, the host sampler's seeds/s; 3 B10 a step)
+     and a short train_han_minibatch; HeteroHAN's coalesce and one
+     forward and backward;
   5. a small f32 graph, as the bench step, with GPR, with LearnMask,
      AllDeepSets with and without LearnMask, and each zoo model (UniGIN
      and UniSAGE also without the norm; CEGCN, CEGAT, HyperGCN): one step
@@ -161,9 +178,10 @@ K3, K4, K5 from phase 4's bench step and the gather inside K1 again,
 "_epoch", per 20-run epoch from phase 6's run; B12, B13 from phase 4's
 AllDeepSets step and again, "_epoch", per AllDeepSets 20-run epoch; K1
 and B10 from phase 4's UniGAT step, B9 ("gather_sorted") from its CEGAT
-step; K2 and K3 again at HC 384, 512, 640 and 1024, K2R and K3R at 512
-and 1024, "_hc...", from the bench steps and CLI runs at those widths
-(above 512 the wide route, csrc/pma_epilogue_wide_wg.cu); the
+step; K2 and K3 again at HC 64, 128, 384, 512, 640 and 1024, K2R and
+K3R at 512 and 1024, "_hc...", from the bench steps and CLI runs at those
+widths (above 512 the wide route, csrc/pma_epilogue_wide_wg.cu); B10, B9
+and K1 again per HAN step ("_han", phase 4e); the
 one-hot family ("segsum_onehot": B1; "_b2", "_b3", "_b4", "_b6": B2 at
 nbuf 2, B3 at nacc 1, B4's build A, B6's full mode) and the streaming
 probes (B5 "stream_flat", B7 "stream_dual", B8 "stream_fold", fold at
@@ -186,9 +204,9 @@ hidden 384 and 512 and its K2R at 512) and the cluster K3a's (hidden 384
 and 512 steps, the 512 epoch) also name their kernel and its registers
 and spills from the build's ptxas output; K3's parts at hidden 384 and
 512 have rows of their own (per bench step, and per 20-run epoch at
-512); phase 6 also times K2R, K3R and K3R's parts at hidden 384 per
-20-run epoch (logged, not in the line: no CLI run there counts their
-launches).
+512); phase 6 also times K2R and K3R at hidden 64, 128 and 384 (and
+K3R's parts at 384) per 20-run epoch (logged, not in the line: no CLI
+run there counts their launches).
 """
 
 from __future__ import annotations
@@ -204,6 +222,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 TOL = {  # (forward, gradient) tolerance, scaled by the reference's max |.|
@@ -2476,41 +2495,81 @@ def time_gather_step(batches, dev):
     at its shape on random inputs, summed per step (K1 also held bit for
     bit to its plain version in its order, with torch.segment_reduce as
     its library call). Returns {"gather": Tally, "segment_sum": Tally}."""
-    from allset_tpu_torch.ops import _kernels, cuda_gather as cg, cuda_segment as cs
+    from allset_tpu_torch.ops import _kernels
 
     model, batch, mask = zoo_model(batches, dev, "UniGAT", dict(ZOO)["UniGAT"])
-    calls, sums = [], []
-    orig, orig_sum = cg.gather_fwd_cuda, cs.segment_sum_cuda
-
-    def record(table, ids):
-        calls.append((tuple(table.shape), table.dtype, ids))
-        return orig(table, ids)
-
-    def record_sum(msgs, indptr, nseg, plan):
-        sums.append((tuple(msgs.shape), msgs.dtype, indptr, nseg, plan))
-        return orig_sum(msgs, indptr, nseg, plan)
-
-    cg.gather_fwd_cuda, cs.segment_sum_cuda = record, record_sum
-    try:
-        run_steps(model, batch, mask, 1)
-    finally:
-        cg.gather_fwd_cuda, cs.segment_sum_cuda = orig, orig_sum
+    calls, _, sums = record_launches(lambda: run_steps(model, batch, mask, 1))
     want = zoo_launches("UniGAT")
     require(len(calls) == want["gather"],
             f"a UniGAT step gathered {len(calls)} times, expected {want['gather']}")
     require(len(sums) == want["segment_sum"],
             f"a UniGAT step summed {len(sums)} times, expected {want['segment_sum']}")
     del model
-    t = Tally()
+    out = {"gather": time_gathers(calls, dev, "step"),
+           "segment_sum": time_segment_sums(sums, dev, "step")}
+    _kernels.reset_launches()
+    return out
+
+
+def record_launches(step):
+    """Run ``step()`` with the B10, B9 and K1 wrappers recording their
+    calls -> (B10 calls, B9 calls, K1 calls): (table shape, dtype, ids) for
+    the gathers, (msgs shape, dtype, indptr, nseg, plan) for K1."""
+    from allset_tpu_torch.ops import cuda_gather as cg, cuda_segment as cs
+
+    calls = {"rows": [], "sorted": [], "sums": []}
+    orig = cg.gather_fwd_cuda, cg.gather_sorted_fwd_cuda, cs.segment_sum_cuda
+
+    def gathers(key, fn):
+        def record(table, ids):
+            calls[key].append((tuple(table.shape), table.dtype, ids))
+            return fn(table, ids)
+        return record
+
+    def record_sum(msgs, indptr, nseg, plan):
+        calls["sums"].append((tuple(msgs.shape), msgs.dtype, indptr, nseg, plan))
+        return orig[2](msgs, indptr, nseg, plan)
+
+    cg.gather_fwd_cuda = gathers("rows", orig[0])
+    cg.gather_sorted_fwd_cuda = gathers("sorted", orig[1])
+    cs.segment_sum_cuda = record_sum
+    try:
+        step()
+    finally:
+        cg.gather_fwd_cuda, cg.gather_sorted_fwd_cuda, cs.segment_sum_cuda = orig
+    return calls["rows"], calls["sorted"], calls["sums"]
+
+
+def group_calls(calls):
+    """Recorded gathers with the same ids and table shape, timed once:
+    [(shape, dtype, ids, count)]."""
     groups = {}
-    for shape, dtype, ids in calls:  # the same ids and table shape: timed once
+    for shape, dtype, ids in calls:
         key = (shape, dtype, ids.data_ptr(), ids.shape[0], ids.dtype)
         groups.setdefault(key, [shape, dtype, ids, 0])[3] += 1
-    for shape, dtype, ids, n in groups.values():
+    return list(groups.values())
+
+
+def time_gathers(calls, dev, per):
+    """B10 at each recorded gather's shape on a random table (time_gather),
+    summed per ``per`` -> Tally."""
+    t = Tally()
+    for shape, dtype, ids, n in group_calls(calls):
         table = torch.randn(shape, device=dev).to(dtype)
         k, lib = time_gather(t, table, ids, n)
         log(f"  B10 at [{ids.shape[0]}, {list(shape[1:])}] {str(dtype)[6:]} from {shape[0]} rows "
-            f"(x{n} per step): kernel {k:.4f} ms, index_select {lib:.4f} ms")
+            f"(x{n} per {per}): kernel {k:.4f} ms, index_select {lib:.4f} ms")
+        del table
+    return t
+
+
+def time_segment_sums(sums, dev, per):
+    """K1 at each recorded sum's shape on random rows: kernel, plain and
+    library times (torch.segment_reduce), held bit for bit to its plain
+    version in its order and to the plain version with phase 3's
+    tolerance, summed per ``per`` -> Tally."""
+    from allset_tpu_torch.ops import cuda_segment as cs
+
     k1 = Tally()
     groups = {}
     for shape, dtype, indptr, nseg, plan in sums:
@@ -2528,45 +2587,23 @@ def time_gather_step(batches, dev):
         e, rel = scaled_err(got, cs.segment_sum_plain(msgs, indptr, nseg))
         require(rel <= TOL[dtype][0], f"K1 disagrees at {list(shape)}: {rel}")
         k1.add(n, k, p, e, *seg_cost(int(indptr[-1]), nseg, shape[1], dtype), library_ms=lib)
-        log(f"  K1 at {list(shape)} {str(dtype)[6:]} -> {nseg} segments (x{n} per step): kernel "
-            f"{k:.4f} ms, plain {p:.3f} ms, {lib_name} {lib:.4f} ms; bit-equal to its order")
+        log(f"  K1 at {list(shape)} {str(dtype)[6:]} -> {nseg} segments (x{n} per {per}): "
+            f"kernel {k:.4f} ms, plain {p:.3f} ms, {lib_name} {lib:.4f} ms; bit-equal to its "
+            f"order")
         del msgs, got
-    _kernels.reset_launches()
-    return {"gather": t, "segment_sum": k1}
+    return k1
 
 
-def time_gather_sorted_step(batches, dev):
-    """B9 per CEGAT bench step: the sorted gathers of one training step
-    are recorded (table shape and dtype, the ids), as many as
-    ce_gat_launches predicts, then each is timed at its shape on a random
-    table with B9, B10 and index_select (on the ids clamped beforehand),
-    held bit for bit to the plain version, summed per step; the bound
-    counts each distinct row read once, each output row written once and
-    the ids. Returns {"gather_sorted": Tally} (B10's time at the same
-    shapes is logged)."""
-    from allset_tpu_torch.ops import _kernels, cuda_gather as cg
+def time_sorted_gathers(calls, dev, per):
+    """B9 at each recorded sorted gather's shape on a random table, with B10
+    and index_select (on the ids clamped beforehand), held bit for bit to
+    the plain version, summed per ``per``; the bound counts each distinct
+    row read once, each output row written once and the ids -> (Tally,
+    B10's summed ms at the same shapes)."""
+    from allset_tpu_torch.ops import cuda_gather as cg
 
-    model, batch, mask = zoo_model(batches, dev, "CEGAT", dict(CE)["CEGAT"])
-    calls, orig = [], cg.gather_sorted_fwd_cuda
-
-    def record(table, ids):
-        calls.append((tuple(table.shape), table.dtype, ids))
-        return orig(table, ids)
-
-    cg.gather_sorted_fwd_cuda = record
-    try:
-        run_steps(model, batch, mask, 1)
-    finally:
-        cg.gather_sorted_fwd_cuda = orig
-    want = zoo_launches("CEGAT")["gather_sorted"]
-    require(len(calls) == want, f"a CEGAT step gathered sorted {len(calls)} times, expected {want}")
-    del model
     t, b10_total = Tally(), 0.0
-    groups = {}
-    for shape, dtype, ids in calls:  # the same ids and table shape: timed once
-        key = (shape, dtype, ids.data_ptr(), ids.shape[0], ids.dtype)
-        groups.setdefault(key, [shape, dtype, ids, 0])[3] += 1
-    for shape, dtype, ids, n in groups.values():
+    for shape, dtype, ids, n in group_calls(calls):
         table = torch.randn(shape, device=dev).to(dtype)
         k = cuda_ms(lambda: cg.gather_sorted_fwd_cuda(table, ids), iters=20)
         b10 = cuda_ms(lambda: cg.gather_fwd_cuda(table, ids), iters=20)
@@ -2582,8 +2619,26 @@ def time_gather_sorted_step(batches, dev):
               [], library_ms=lib)
         b10_total += n * b10
         log(f"  B9 at [{ids.shape[0]}, {list(shape[1:])}] {str(dtype)[6:]} from {shape[0]} rows "
-            f"({distinct} distinct; x{n} per step): kernel {k:.4f} ms, B10 {b10:.4f} ms, "
+            f"({distinct} distinct; x{n} per {per}): kernel {k:.4f} ms, B10 {b10:.4f} ms, "
             f"index_select {lib:.4f} ms, plain {p:.4f} ms")
+        del table
+    return t, b10_total
+
+
+def time_gather_sorted_step(batches, dev):
+    """B9 per CEGAT bench step: the sorted gathers of one training step
+    are recorded (table shape and dtype, the ids), as many as
+    ce_gat_launches predicts, then each is timed at its shape
+    (time_sorted_gathers). Returns {"gather_sorted": Tally} (B10's time
+    at the same shapes is logged)."""
+    from allset_tpu_torch.ops import _kernels
+
+    model, batch, mask = zoo_model(batches, dev, "CEGAT", dict(CE)["CEGAT"])
+    _, calls, _ = record_launches(lambda: run_steps(model, batch, mask, 1))
+    want = zoo_launches("CEGAT")["gather_sorted"]
+    require(len(calls) == want, f"a CEGAT step gathered sorted {len(calls)} times, expected {want}")
+    del model
+    t, b10_total = time_sorted_gathers(calls, dev, "step")
     log(f"  B9's gathers per CEGAT step: B9 {t.ms:.4f} ms, B10 at the same shapes "
         f"{b10_total:.4f} ms")
     _kernels.reset_launches()
@@ -3156,6 +3211,403 @@ def time_layer_norm_epoch(tmp, dev, gen):
     return out, counts
 
 
+# --- phase 4e: the HAN vertical ----------------------------------------------------
+
+# benchmarks/han_bench.py's graph: a planted partition of 65,536 nodes and
+# 32,768 hyperedges of 12 members on average, 64 features, 8 classes, seed
+# 0, its metapath graphs built with bucket 1,024 (4,788,390 VEV and
+# 2,387,764 EVE pairs, BENCH_HAN_r05.json); HAN at the reference's DGL_HAN
+# defaults, 8 heads of 8 (a packed table 72 wide), f32
+HAN_SHAPE = dict(num_nodes=1 << 16, num_hyperedges=1 << 15, avg_edge_size=12, num_classes=8,
+                 feature_dim=64, seed=0)
+HAN_PAIRS = (4_788_390, 2_387_764)
+HAN_HEADS, HAN_HIDDEN = 8, 8
+
+
+def han_launches(epoch=False):
+    """HAN's launches per training step (forward, backward: one layer, the
+    VEV and EVE convs) or, with ``epoch``, per train_han epoch (the
+    evaluation forward too). Per conv, forward: B10 once (dir_gather of the
+    [T, HC+H] packed table), K1 once (the reduce by destination) and one
+    gather of the [T, H] f32 destination scores by the sorted destination
+    ids; backward: B10 once (the gather's cotangent into the src-sorted
+    order), K1 twice (the two gathers' transposes) and one gather of the
+    reduce's [T, HC+H] cotangent rows by the sorted destination ids (its
+    transpose). A gather by sorted ids takes B9 where its row is narrow
+    (sorted_route)."""
+    nf = 2 if epoch else 1
+    HC, H = HAN_HEADS * HAN_HIDDEN, HAN_HEADS
+    out = {"gather": 0, "gather_sorted": 0, "segment_sum": 0}
+    for _ in ("vev", "eve"):
+        out["gather"] += nf + 1
+        out["segment_sum"] += nf + 2
+        out[sorted_route(4 * H)] += nf
+        out[sorted_route(4 * (HC + H))] += 1
+    return out
+
+
+def han_config(dropout=0.0):
+    from allset_tpu_torch.models.han import HANConfig
+
+    return HANConfig(num_features=HAN_SHAPE["feature_dim"], num_classes=HAN_SHAPE["num_classes"],
+                     hidden_units=HAN_HIDDEN, num_heads=(HAN_HEADS,), dropout=dropout)
+
+
+def han_model(seed, dev):
+    from allset_tpu_torch.models.han import HAN
+
+    return HAN(han_config(), torch.Generator().manual_seed(seed)).to(dev)
+
+
+def han_graphs(dev):
+    """HAN's graph and its metapath graphs, the host build timed, and HAN's
+    batch on ``dev`` -> (HyperData, Batch)."""
+    from allset_tpu_torch.data import synthetic_hypergraph
+    from allset_tpu_torch.graph import Batch
+    from allset_tpu_torch.graph.metapath import build_metapath_graphs
+    from allset_tpu_torch.models.han import han_extras
+
+    t0 = time.perf_counter()
+    hd = synthetic_hypergraph(**HAN_SHAPE)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats, labels, vev, eve = build_metapath_graphs(hd, bucket=1024)
+    t_build = time.perf_counter() - t0
+    log(f"  HAN graph: {hd.num_nodes} nodes, {hd.num_hyperedges} hyperedges, nnz {hd.nnz} "
+        f"(generated on the host in {t_gen:.2f} s); metapath build (host scipy SpGEMM and the "
+        f"two Incidences): {t_build:.3f} s, VEV {vev.nnz} pairs, EVE {eve.nnz}")
+    require((vev.nnz, eve.nnz) == HAN_PAIRS,
+            f"metapath pairs {(vev.nnz, eve.nnz)}, expected {HAN_PAIRS}")
+    batch = Batch(x=torch.as_tensor(feats), y=torch.as_tensor(labels), inc=None,
+                  extras=han_extras(vev, eve)).to(dev)
+    return hd, batch
+
+
+def han_loss_mask(batch):
+    """The labelled rows: the nodes (the hyperedge rows carry -1)."""
+    return batch.y >= 0
+
+
+def han_path(batch, dev, card):
+    """8 HAN training steps (forward, backward, Adam; dropout 0) on the full
+    graph with every launch count set to 0 just before, checked against
+    han_launches; a finite, falling loss; two runs from one state
+    bit-identical; the median step (host clock to a synchronize), M
+    metapath-pairs/s and the peak device memory. Returns (counts, median
+    ms)."""
+    from allset_tpu_torch.ops import _kernels
+
+    steps = 8
+    mask = han_loss_mask(batch)
+    model = han_model(0, dev)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    run_steps(han_model(0, dev), batch, mask, 1)  # warm-up on a throwaway copy
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    losses, times = run_steps(model, batch, mask, steps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = dict(_kernels.launches)
+    per = han_launches()
+    for k in _kernels.KERNELS:
+        require(counts[k] == per.get(k, 0) * steps,
+                f"HAN: {k} launched {counts[k]} times, expected {per.get(k, 0) * steps}")
+    lo = losses.cpu()
+    log(f"  [HAN] launches over {steps} steps {counts}; losses "
+        f"{[round(v, 6) for v in lo.tolist()]}")
+    require(bool(torch.isfinite(lo).all()), "HAN: non-finite loss")
+    require(lo[-1] < lo[0], "HAN: loss did not fall")
+    model2 = han_model(1, dev)
+    model2.load_state_dict(state)
+    losses2, _ = run_steps(model2, batch, mask, steps)
+    require(torch.equal(losses, losses2), "HAN: two runs from one state differ")
+    ms = statistics.median(times) * 1e3
+    log(f"  [HAN] two runs from one state bit-identical; median step (fwd+bwd+Adam) {ms:.3f} ms "
+        f"[{min(times) * 1e3:.3f}, {max(times) * 1e3:.3f}]; "
+        f"{sum(HAN_PAIRS) / (ms / 1e3) / 1e6:.3f} M metapath-pairs/s; peak {peak / 2**30:.3f} "
+        f"GiB, {(peak - base) / 2**30:.3f} above the graphs and the model held before the step "
+        f"[{card}] (smoke, not a benchmark)")
+    del model, model2
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+@contextlib.contextmanager
+def han_plain_route():
+    """B10, B9 and K1 on their plain versions, also for CUDA tensors:
+    han_parity's comparison only (their launches are not counted)."""
+    from allset_tpu_torch.ops import cuda_gather as cg, cuda_segment as cs
+
+    orig = cg.gather_fwd_cuda, cg.gather_sorted_fwd_cuda, cs.segment_sum_cuda
+    cg.gather_fwd_cuda, cg.gather_sorted_fwd_cuda = cg.gather_fwd_plain, cg.gather_sorted_fwd_plain
+    cs.segment_sum_cuda = lambda msgs, indptr, nseg, plan: cs.segment_sum_plain(msgs, indptr, nseg)
+    try:
+        yield
+    finally:
+        cg.gather_fwd_cuda, cg.gather_sorted_fwd_cuda, cs.segment_sum_cuda = orig
+
+
+def tied_nodes_han(model, batch, margin=TIE_MARGIN):
+    """Rows whose loss reaches a leaky_relu or ELU argument within
+    ``margin`` of 0 in a HAN forward (see tied_nodes): a score's tie marks
+    its entry's destination row, an ELU tie its row where the conv's graph
+    has entries (a row without any is exactly 0 on both routes). The rows
+    of each conv's output are the rows the loss reads (the nodes, through
+    the VEV conv; EVE's populated rows are hyperedges, outside the loss).
+    The semantic attention mixes every row into the metapaths' weights, by
+    1/T a row, which the gradient tolerance covers."""
+    from allset_tpu_torch.models import han
+
+    rows = torch.zeros(batch.num_nodes, dtype=torch.bool, device=batch.x.device)
+    graphs = []
+    orig_leaky, orig_elu = han._leaky_relu, torch.nn.functional.elu
+
+    def near(t):
+        return (t.detach().abs() < margin).reshape(t.shape[0], -1).any(dim=1)
+
+    def leaky(x, slope):
+        g = graphs[-1]
+        if x.dim() == 2 and x.shape[0] == g.nnz_padded:  # the entries' scores
+            rows[g.edge[near(x) & g.mask]] = True
+        return orig_leaky(x, slope)
+
+    def elu(x, *a, **k):
+        rows.logical_or_(near(x) & (graphs[-1].edge_count > 0))
+        return orig_elu(x, *a, **k)
+
+    hooks = [m.register_forward_pre_hook(lambda m, args: graphs.append(args[0]))
+             for m in model.modules() if isinstance(m, han.DGLGATConv)]
+    han._leaky_relu, torch.nn.functional.elu = leaky, elu
+    try:
+        with torch.no_grad():
+            model(batch, False)
+    finally:
+        han._leaky_relu, torch.nn.functional.elu = orig_leaky, orig_elu
+        for h in hooks:
+            h.remove()
+    return rows
+
+
+def han_parity(batch, dev):
+    """One HAN step's loss and gradients through the kernels against the
+    same step through the plain versions on the card (han_plain_route),
+    from the same parameters, at full width, on the loss without the rows
+    tied_nodes_han finds on either route: the loss within 1e-5, every
+    gradient within 1e-3 of its tensor's max |.| (phase 5's rule)."""
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.train import masked_nll
+
+    model = han_model(3, dev)
+    tied = tied_nodes_han(model, batch)
+    with han_plain_route():
+        tied |= tied_nodes_han(model, batch)
+    real = han_loss_mask(batch)
+    mask = real & ~tied
+    out = {}
+    for route in ("kernels", "plain"):
+        model.zero_grad(set_to_none=True)
+        _kernels.reset_launches()
+        with han_plain_route() if route == "plain" else contextlib.nullcontext():
+            loss = masked_nll(model(batch, False), batch.y, mask)
+            loss.backward()
+        n = sum(_kernels.launches.values())
+        require((n == 0) == (route == "plain"), f"HAN parity: {n} launches on the {route} route")
+        out[route] = loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+    (l_k, g_k), (l_p, g_p) = out["kernels"], out["plain"]
+    rel = abs(l_k - l_p) / abs(l_p)
+    require(rel <= 1e-5, f"HAN: the loss through the kernels disagrees: {rel}")
+    worst = (0.0, "")
+    for k in g_p:
+        e = (g_k[k] - g_p[k]).abs().max().item() / max(g_p[k].abs().max().item(), 1e-6)
+        require(e <= 1e-3, f"HAN: gradient {k} disagrees: {e}")
+        worst = max(worst, (e, k))
+    log(f"  [HAN] one step through B10, B9, K1 against their plain versions on the card: "
+        f"{int((real & tied).sum())} of {int(real.sum())} loss rows left out (a tie within "
+        f"{TIE_MARGIN:g}); loss rel {rel:.2e} (tol 1e-5); worst scaled gradient error "
+        f"{worst[0]:.2e} ({worst[1]}; tol 1e-3)")
+    del model
+    _kernels.reset_launches()
+
+
+def time_han_kernels(batch, dev):
+    """B10, B9 and K1 per HAN step: the step's calls recorded, as many as
+    han_launches predicts, then each timed at its shape on random inputs
+    (time_gathers, time_sorted_gathers, time_segment_sums). Returns
+    {"gather_han", "gather_sorted_han", "segment_sum_han": Tally}."""
+    from allset_tpu_torch.ops import _kernels
+
+    model = han_model(0, dev)
+    rows, srt, sums = record_launches(lambda: run_steps(model, batch, han_loss_mask(batch), 1))
+    want = han_launches()
+    got = {"gather": len(rows), "gather_sorted": len(srt), "segment_sum": len(sums)}
+    require(got == want, f"a HAN step launched {got}, expected {want}")
+    del model
+    out = {"gather_han": time_gathers(rows, dev, "HAN step"),
+           "segment_sum_han": time_segment_sums(sums, dev, "HAN step")}
+    out["gather_sorted_han"], b10 = time_sorted_gathers(srt, dev, "HAN step")
+    log(f"  B9's gathers per HAN step: B9 {out['gather_sorted_han'].ms:.4f} ms, B10 at the same "
+        f"shapes {b10:.4f} ms")
+    _kernels.reset_launches()
+    return out
+
+
+def han_train_runs(batch, dev, card, runs=2, epochs=8):
+    """train_han on the full graph: ``runs`` runs of ``epochs`` epochs at the
+    reference's defaults (dropout 0.6, lr 0.005, weight decay 0.001;
+    patience above the epochs), with every launch count set to 0 just
+    before: each epoch's launches (han_launches(epoch=True)) and each run's
+    final prediction's (a forward); each run's training losses (recorded
+    from han_step) finite and falling; the metrics finite."""
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.train import han_trainer as ht
+
+    losses, orig = [], ht.han_step
+
+    def step(*a):
+        out = orig(*a)
+        losses.append(out[0])
+        return out
+
+    ht.han_step = step
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = ht.train_han(han_config(0.6), batch, ht.HANTrainConfig(num_epochs=epochs, runs=runs))
+    finally:
+        ht.han_step = orig
+    wall = time.perf_counter() - t0
+    counts = dict(_kernels.launches)
+    per, step_only = han_launches(epoch=True), han_launches()
+    for k in _kernels.KERNELS:
+        n = runs * (epochs * per.get(k, 0) + per.get(k, 0) - step_only.get(k, 0))
+        require(counts[k] == n, f"train_han: {k} launched {counts[k]} times, expected {n}")
+    lo = torch.stack(losses).cpu().view(runs, epochs)
+    require(bool(torch.isfinite(lo).all()), "train_han: non-finite loss")
+    for r in range(runs):
+        require(lo[r, -1] < lo[r, 0], f"train_han: run {r}'s loss did not fall")
+    require(all(math.isfinite(v) for v in res.values()), f"train_han: {res}")
+    log(f"  [train_han] {runs} runs x {epochs} epochs (dropout 0.6) in {wall:.2f} s; launches "
+        f"{counts}; losses {[[round(v, 5) for v in row] for row in lo.tolist()]}; "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in res.items())} [{card}]")
+
+
+def sampled_han_steps(hd, batch, dev, card):
+    """SampledHAN at B = 32 (the reference's batch) and 4096 on HAN's graph:
+    the host sampler's seeds/s (20 neighbours); 20 training steps
+    (sampled_step, dropout 0) on one batch's blocks with every launch count
+    set to 0 just before: three B10 launches a step (the seeds' rows and
+    each block's rows), finite losses; the median step (host clock to a
+    synchronize), steps/s and seeds/s. Then a short train_han_minibatch
+    (1 run, 2 epochs, B 4096) ends finite."""
+    from allset_tpu_torch.data.sampler import HANNeighborSampler
+    from allset_tpu_torch.models.han import SampledHAN
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.train import han_trainer as ht
+    from allset_tpu_torch.train.factory import make_optimizer
+
+    N, steps = hd.num_nodes, 20
+    sampler = HANNeighborSampler(hd, num_neighbors=20, seed=0)
+    for B in (32, 4096):
+        seeds = np.arange(B) % N
+        reps = max(1, 2048 // B)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            blocks_h = sampler.sample(seeds)
+        t_sample = (time.perf_counter() - t0) / reps
+        blocks = ht.block_tensors(blocks_h, dev)
+        sd, valid = torch.as_tensor(seeds).to(dev), torch.ones(B, dtype=torch.bool, device=dev)
+        model = SampledHAN(han_config(), torch.Generator().manual_seed(0)).to(dev)
+        opt = make_optimizer(model, 0.005, 0.001)
+        ht.sampled_step(model, opt, batch.x, batch.y, sd, blocks, valid, None)  # warm-up
+        _kernels.reset_launches()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(ht.sampled_step(model, opt, batch.x, batch.y, sd, blocks, valid, None))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = dict(_kernels.launches)
+        for k in _kernels.KERNELS:
+            n = 3 * steps if k == "gather" else 0
+            require(counts[k] == n, f"SampledHAN: {k} launched {counts[k]} times, expected {n}")
+        lo = torch.stack(losses).cpu()
+        require(bool(torch.isfinite(lo).all()), f"SampledHAN B={B}: non-finite loss")
+        ms = statistics.median(times) * 1e3
+        log(f"  [SampledHAN B={B}] median step {ms:.3f} ms ({1e3 / ms:.1f} steps/s, "
+            f"{B / ms:.1f} K seeds/s on the device); host sampler {t_sample * 1e3:.3f} ms a batch "
+            f"({B / t_sample / 1e3:.1f} K seeds/s); 3 B10 launches a step; losses "
+            f"{lo[0].item():.5f} -> {lo[-1].item():.5f} [{card}]")
+    t0 = time.perf_counter()
+    res = ht.train_han_minibatch(
+        han_config(0.6), batch.x, batch.y, sampler,
+        ht.HANSampleConfig(batch_size=4096, num_epochs=2, runs=1))
+    require(all(math.isfinite(v) for v in res.values()), f"train_han_minibatch: {res}")
+    log(f"  [train_han_minibatch] 1 run x 2 epochs, B 4096, in {time.perf_counter() - t0:.2f} s: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in res.items())}")
+    _kernels.reset_launches()
+
+
+def hetero_han_step(hd, dev, card):
+    """HeteroHAN on HAN's graph as a typed graph (V, E; relations Vs_E and
+    E_Vs) with the metapath V-E-V: the coalesce (host SpGEMM, cached)
+    timed, its pairs the VEV graph's; one forward and backward with every
+    launch count set to 0 just before: one conv's launches (half of
+    han_launches), a finite loss."""
+    from allset_tpu_torch.graph.hetero import HeteroGraph, HeteroHAN
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.train import masked_nll
+
+    g = HeteroGraph(num_nodes={"V": hd.num_nodes, "E": hd.num_hyperedges},
+                    edges={("V", "Vs_E", "E"): (hd.node, hd.edge),
+                           ("E", "E_Vs", "V"): (hd.edge, hd.node)})
+    model = HeteroHAN(han_config(), [["Vs_E", "E_Vs"]], torch.Generator().manual_seed(0),
+                      bucket=1024).to(dev)
+    x, y = torch.as_tensor(hd.x).to(dev), torch.as_tensor(hd.y).to(dev)
+    t0 = time.perf_counter()
+    graphs = model.coalesced(g, dev)
+    t_co = time.perf_counter() - t0
+    require(graphs[0].nnz == HAN_PAIRS[0], f"HeteroHAN: {graphs[0].nnz} V-E-V pairs")
+    ones = torch.ones(hd.num_nodes, dtype=torch.bool, device=dev)
+    masked_nll(model(g, x), y, ones).backward()  # warm-up
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = masked_nll(model(g, x), y, ones)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(_kernels.launches)
+    per = han_launches()
+    for k in _kernels.KERNELS:
+        require(counts[k] == per.get(k, 0) // 2,
+                f"HeteroHAN: {k} launched {counts[k]} times, expected {per.get(k, 0) // 2}")
+    require(math.isfinite(loss.item()), "HeteroHAN: non-finite loss")
+    log(f"  [HeteroHAN] coalesce (host SpGEMM, cached after) {t_co:.3f} s, {graphs[0].nnz} pairs; "
+        f"fwd+bwd {ms:.3f} ms ({graphs[0].nnz / (ms / 1e3) / 1e6:.3f} M metapath-pairs/s), "
+        f"launches {counts}, loss {loss.item():.5f} [{card}]")
+    _kernels.reset_launches()
+
+
+def han_phase(dev, card):
+    """Phase 4e. Returns (the HAN step's launch counts, the _han kernel
+    rows)."""
+    t_phase = time.perf_counter()
+    hd, batch = han_graphs(dev)
+    han_parity(batch, dev)
+    counts, _ = han_path(batch, dev, card)
+    rows = time_han_kernels(batch, dev)
+    log_tallies(rows, "HAN step")
+    han_train_runs(batch, dev, card)
+    sampled_han_steps(hd, batch, dev, card)
+    hetero_han_step(hd, dev, card)
+    log(f"  phase 4e took {time.perf_counter() - t_phase:.1f} s")
+    del batch
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3216,7 +3668,9 @@ def main() -> int:
                 "AllDeepSets bench step")
     counts, _ = main_path(batch, dev, card, PER_STEP, against_pair=True)
     wide_counts = {}
-    for HC in (384, 512, 640, 1024):  # the cluster K2 and K3, and the wide route
+    # the tiled K2 and K3 (HC 64 and 128, the width of four tuned presets),
+    # the cluster K2 and K3, and the wide route
+    for HC in (64, 128, 384, 512, 640, 1024):
         suffix = f"_hc{HC}"
         timings.update(time_epilogue_step(batch, dev, gen, HC, suffix))
         log_tallies({k: v for k, v in timings.items() if k.endswith(suffix)},
@@ -3243,6 +3697,9 @@ def main() -> int:
     log(f"  phase 4d took {time.perf_counter() - t0:.1f} s")
     del batches
     reapprox_steps(raw, dev, card)
+    log("phase 4e: HAN at benchmarks/han_bench.py's shape (f32, 8 heads of 8)")
+    han_counts, han_rows = han_phase(dev, card)
+    timings.update(han_rows)
     require("jax" not in sys.modules, "the port loaded jax")
 
     log("phase 5: small f32 graph, kernels against plain")
@@ -3263,9 +3720,11 @@ def main() -> int:
     timings.update(time_epilogue_epoch(wb, dev, gen, 20, 512, "_hc512"))
     log_tallies({k: v for k, v in timings.items() if k.endswith(("_hc512_epoch", "_runs_hc512"))},
                 "20-run epoch at hidden 512")
-    # no CLI run at hidden 384 counts their launches: logged, not in the line
-    log_tallies(time_epilogue_epoch(wb, dev, gen, 20, 384, "_hc384"),
-                "20-run epoch at hidden 384 (K2R, K3R and its parts)")
+    # no CLI run at hidden 64, 128 or 384 counts their launches: logged, not
+    # in the line
+    for HC in (64, 128, 384):
+        log_tallies(time_epilogue_epoch(wb, dev, gen, 20, HC, f"_hc{HC}"),
+                    f"20-run epoch at hidden {HC} (K2R, K3R and its parts)")
     timings.update(time_epilogue_epoch(wb, dev, gen, 2, 1024, "_hc1024"))
     log_tallies({k: timings[k] for k in ("pma_epilogue_fwd_runs_hc1024",
                                          "pma_epilogue_bwd_runs_hc1024")},
@@ -3344,16 +3803,22 @@ def main() -> int:
         "gather_sorted": ("allset_tpu_torch/csrc/gather_sorted.cu",
                           "benchmarks/exp_fused_gather.py:76", ce_counts["CEGAT"]),
     }
+    # B10, B9 and K1 per HAN step (phase 4e)
+    for k in ("gather", "gather_sorted", "segment_sum"):
+        sources[f"{k}_han"] = (*sources[k][:2], han_counts)
     # the epilogue kernels at the other widths: the bench steps at hidden
-    # 384, 512, 640 and 1024 (the wide route), the CLI runs at 512 and 1024
+    # 64, 128 (the tiled kernels), 384, 512 (the cluster kernels), 640 and
+    # 1024 (the wide route), the CLI runs at 512 and 1024
     wide = "allset_tpu_torch/csrc/pma_epilogue_wide_wg.cu"
     k2 = "allset_tpu_torch/csrc/pma_epilogue_cluster.cu"
     narrow = {"pma_epilogue_fwd": k2, "pma_epilogue_bwd": k3_384_512,
               "pma_epilogue_fwd_runs": k2, "pma_epilogue_bwd_runs": k3_384_512}
-    for HC in (384, 512, 640, 1024):
+    tiled = {"pma_epilogue_fwd": "allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
+             "pma_epilogue_bwd": "allset_tpu_torch/csrc/pma_epilogue.cu"}
+    for HC in (64, 128, 384, 512, 640, 1024):
         for k in ("pma_epilogue_fwd", "pma_epilogue_bwd"):
-            sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1],
-                                      wide_counts[HC])
+            src = wide if HC > 512 else narrow[k] if HC >= 384 else tiled[k]
+            sources[f"{k}_hc{HC}"] = (src, sources[k][1], wide_counts[HC])
     for HC, cnt in ((512, runs512_counts), (1024, runs1024_counts)):
         for k in ("pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs"):
             sources[f"{k}_hc{HC}"] = (wide if HC > 512 else narrow[k], sources[k][1], cnt)
@@ -3392,7 +3857,7 @@ def main() -> int:
                 "pma_epilogue_bwd_runs_hc1024": "wide_gemm_kernel<float, float>"}
     kernels = []
     for name, (src, rep, cnt) in sources.items():
-        base = re.sub(r"(_(hc\d+|epoch|b\d+))+$", "", name)
+        base = re.sub(r"(_(hc\d+|epoch|b\d+|han))+$", "", name)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": cnt[base], **timings[name].row()}
         if name in ptxas_of:
