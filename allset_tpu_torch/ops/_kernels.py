@@ -154,7 +154,10 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device, as the handle the C entries take:
+    straight from PyTorch's C++ side, with no Stream object built (a few
+    microseconds a call, which the narrow launches feel)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def dtype_code(t) -> int:

@@ -19,12 +19,13 @@ XLA's transpose of ``jnp.take`` is, returned in the table's dtype.
 B9 (``csrc/gather_sorted.cu``, counterpart of
 ``benchmarks/exp_fused_gather.py::vmem_gather``, the gather from a table
 held on chip) serves the same function for ids that come in runs of equal
-values: each block stages the distinct rows of its chunk of 1,024 ids in
-shared memory, reading each once, and writes the chunk's output rows from
-there; B10 reads a row again for every id. It is exact for any ids and
-takes rows of up to 32 KB. ``gather_route`` picks the kernel by what the
-caller knows and the row's bytes: B9 for sorted ids and a row of at most
-``NARROW_BYTES``, B10 otherwise; each kernel counts its own launches.
+values: each warp takes a span of consecutive ids, reads each run's row
+once into the registers of the lanes that write it and hands it to the
+run's other ids by warp shuffles; B10 reads a row again for every id. It
+is exact for any ids and takes any row. ``gather_route`` picks the kernel
+by what the caller knows and the row's bytes: B9 for sorted ids and a row
+of at most ``NARROW_BYTES``, B10 otherwise; each kernel counts its own
+launches.
 ``gather_sorted_fwd`` launches B9 for a CUDA tensor and takes the plain
 version (the same ``index_select`` after the clamp) for a CPU one.
 """
@@ -65,7 +66,7 @@ def gather_fwd_cuda(table: Tensor, ids: Tensor) -> Tensor:
 
 
 def _check_cuda_args(table: Tensor, ids: Tensor, name: str):
-    if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
+    if not (table.is_cuda and ids.is_cuda and table.get_device() == ids.get_device()):
         raise ValueError(f"{name} needs table and ids on one CUDA device")
     if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"ids must be 1-D int32 or int64, got {ids.dtype} {tuple(ids.shape)}")
@@ -78,9 +79,6 @@ def row_bytes(table: Tensor) -> int:
     return math.prod(table.shape[1:]) * table.element_size()
 
 
-# B9's shared-memory staging buffer (csrc/gather_sorted.cu): the widest row
-# it takes
-SORTED_STAGE_BYTES = 32 * 1024
 # the widest row that takes B9 when the ids are sorted: on an H100 (the
 # bench graph's V2V destination ids, scripts/gather_sorted_sweep.py) B9 was
 # within B10's spread for rows of 4 to 128 B and 6-11% slower from 256 B
@@ -88,14 +86,14 @@ NARROW_BYTES = 128
 
 
 def gather_sorted_fwd_cuda(table: Tensor, ids: Tensor) -> Tensor:
-    """Launch B9 on the current stream: table [rows, ...] (contiguous rows
-    of at most SORTED_STAGE_BYTES, rows < 2^31), ids [n] int32 or int64 on
-    the same device, in any order (sorted ids share their rows)."""
+    """Launch B9 on the current stream: table [rows, ...] (contiguous rows,
+    fewer than 2^31 of them and of fewer than 2^31 bytes), ids [n] int32 or
+    int64 on the same device, in any order (sorted ids share their rows)."""
     _check_cuda_args(table, ids, "gather_sorted_fwd_cuda")
     nbytes = row_bytes(table)
-    if nbytes > SORTED_STAGE_BYTES or table.shape[0] >= 2**31:
-        raise ValueError(f"B9 takes rows of at most {SORTED_STAGE_BYTES} bytes from fewer than "
-                         f"2^31 rows, got {tuple(table.shape)} {table.dtype}")
+    if nbytes >= 2**31 or table.shape[0] >= 2**31:
+        raise ValueError(f"B9 takes fewer than 2^31 rows of fewer than 2^31 bytes, got "
+                         f"{tuple(table.shape)} {table.dtype}")
     table, ids = table.contiguous(), ids.contiguous()
     out = torch.empty((ids.shape[0],) + tuple(table.shape[1:]), dtype=table.dtype,
                       device=table.device)

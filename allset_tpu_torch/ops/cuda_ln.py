@@ -11,7 +11,11 @@ layer's dtype), with the backward in B13's one-pass form
     dx = rstd * (g*gamma - mean(g*gamma) - xhat * mean(g*gamma * xhat))
 
 and dgamma, dbeta summed from per-block f32 partials in a fixed order (no
-atomics: the bits repeat).
+atomics: the bits repeat). The backward reads each row of x and g from
+memory once: up to F = 1024 a warp holds its row in registers and adds its
+columns' g * xhat and g over its rows, the warps of a block add theirs in
+shared memory, and the block writes one partial pair; ``bwd_plan`` gives
+the blocks' row ranges, from rows and F alone.
 
 Runs: ``x [rows, R, F]`` (or a ``[rows, F]`` shared by every run) with
 ``gamma``, ``beta [R, F]`` is one launch; run r's outputs equal a launch on
@@ -32,7 +36,25 @@ from allset_tpu_torch.ops import _kernels
 Tensor = torch.Tensor
 
 LN_EPS = 1e-5  # torch/flax LayerNorm default
-BWD_ROWS = 64  # rows per backward block: one dgamma/dbeta partial each
+# B13's plan (csrc/layer_norm.cu's rows_per_block): up to REG_F columns the
+# register path's blocks of 8 warps, about REG_BLOCKS of them (8 per SM of
+# the H100's 132) and at least a row per warp; wider rows one warp a block,
+# about WIDE_BLOCKS
+REG_F = 1024
+REG_BLOCKS, REG_MIN_ROWS = 1056, 8
+WIDE_BLOCKS, WIDE_MIN_ROWS = 4224, 16
+BWD_WARPS = 8  # warps of a register-path block
+
+
+def bwd_plan(rows: int, F: int):
+    """(rows per block, blocks) of B13's launch: each block owns a
+    contiguous range of rows and writes one dgamma/dbeta partial pair. By
+    rows and F alone, so a run folded with others is cut as a launch on it
+    alone."""
+    reg = F <= REG_F
+    blocks, least = (REG_BLOCKS, REG_MIN_ROWS) if reg else (WIDE_BLOCKS, WIDE_MIN_ROWS)
+    rpb = max(-(-rows // blocks), least)
+    return rpb, -(-rows // rpb)
 
 
 def _runs(x: Tensor, R: int) -> list:
@@ -129,8 +151,8 @@ def ln_fwd_cuda(x: Tensor, gamma: Tensor, beta: Tensor, out_dtype: torch.dtype) 
 
 
 def ln_bwd_cuda(g: Tensor, x: Tensor, gamma: Tensor, need_dx: bool = True):
-    """Launch B13 (row pass and partials, then the partials' sum) on the
-    current stream -> (dx in y's layout and x's dtype, or None without
+    """Launch B13 (the rows with their partials, then the partials' sum)
+    on the current stream -> (dx in y's layout and x's dtype, or None without
     ``need_dx``; dgamma, dbeta f32 shaped as gamma)."""
     _check_cuda(g, x, gamma)
     x, g = x.contiguous(), g.contiguous()
@@ -144,7 +166,7 @@ def ln_bwd_cuda(g: Tensor, x: Tensor, gamma: Tensor, need_dx: bool = True):
     if rows == 0 or F == 0:
         z = torch.zeros(gamma.shape, dtype=f32, device=dev)
         return dx, z, z.clone()
-    nblk = -(-rows // BWD_ROWS)
+    _, nblk = bwd_plan(rows, F)
     part = torch.empty(2, R, nblk, F, dtype=f32, device=dev)
     dgb = torch.empty((2,) + tuple(gamma.shape), dtype=f32, device=dev)
     rc = _kernels.lib().allset_layer_norm_bwd(

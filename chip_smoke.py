@@ -28,9 +28,11 @@ Phases (any failure raises and exits non-zero):
      20} (R = 20 with a NaN score in its last run), every run bit for bit
      against a single launch; the pack's forward in one call bit for bit
      against K4, then K5), B12/B13 the LayerNorm (f32, bf16, f32 ->
-     bf16; F in {7, 64, 256, 512}, rows not a multiple of the 64-row
-     block; R in {2, 5} and an input shared by the runs, each run bit for
-     bit against a launch on it alone), the epilogue's route by shape (an
+     bf16; F in {7, 64, 100, 256, 512, 1024} on B13's register path and
+     1100, 2048 on its wide path, at 37, 1,000 and 20,011 rows; rows one
+     element off vector alignment bit for bit against the aligned launch;
+     two launches bit for bit; R in {2, 5} and an input shared by the
+     runs, each run bit for bit against a launch on it alone), the epilogue's route by shape (an
      rFF of 3 layers and HC 96, which the JAX package composes too, on the
      plain version with no launch; HC 256, 512, 640, 1024 and 2048 (2
      layers, f32: above the JAX kernel's VMEM cap, the widest the wide
@@ -62,8 +64,8 @@ Phases (any failure raises and exits non-zero):
      R=20 on the walmart rows, each run bit for bit against K3; B12/B13 at
      the AllDeepSets step's [131072, 256] and [196608, 256] bf16 launches
      and at an AllDeepSets 20-run epoch's; B9 at a CEGAT step's, against
-     B10 as well), with the kernel, plain and library times and the
-     kernel's bound;
+     B10 as well, in event time and in device time from a CUDA graph),
+     with the kernel, plain and library times and the kernel's bound;
   3b. each experiment of allset_tpu_torch.experiments (the TPU round's
      B1-B8 and B11 scripts) through its main at its script's shapes, with
      every launch count set to 0 just before: B1, B2, B3 and B6 on the
@@ -269,6 +271,31 @@ def cuda_ms_spread(fn, iters: int = 20, repeats: int = 5):
     return statistics.median(ms), min(ms), max(ms)
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() in ms: ``launches`` calls captured in a CUDA
+    graph, the graph replayed between CUDA events (no host launch cost)."""
+    fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (replays * launches)
+
+
 def scaled_err(got, want):
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -289,9 +316,10 @@ class Tally:
     def __init__(self):
         self.ms = self.plain_ms = self.err = self.t_bytes = self.t_ops = 0.0
         self.library_ms = self.launch_ms = None  # launch_ms: K4's launch alone
+        self.device_ms = None  # B9: the kernel's time from a CUDA graph
         self.slabs = []  # the gather inside K1: each pass's slab count
 
-    def add(self, n, ms, plain_ms, err, nbytes, ops, library_ms=None):
+    def add(self, n, ms, plain_ms, err, nbytes, ops, library_ms=None, device_ms=None):
         """n launches of ms each; ops: [(flops, PEAK key)]."""
         self.ms += n * ms
         self.plain_ms += n * plain_ms
@@ -300,9 +328,13 @@ class Tally:
         self.t_ops += n * sum(f / PEAK[k] for f, k in ops) * 1e3
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + n * library_ms
+        if device_ms is not None:
+            self.device_ms = (self.device_ms or 0.0) + n * device_ms
 
     def row(self):
         extra = {} if self.launch_ms is None else {"launch_ms": self.launch_ms}
+        if self.device_ms is not None:
+            extra["device_ms"] = self.device_ms
         if self.slabs:
             extra["slabs"] = self.slabs
         return {"ms": self.ms, "plain_ms": self.plain_ms, "max_abs_err": self.err,
@@ -749,21 +781,47 @@ def check_ln_pair(x, gamma, beta, g, ydt, what):
     return (y, dx, dg, db), ", ".join(out)
 
 
+# B13's widths: the scalar chunks (7), 8-element chunks (64, 256, 512), the
+# register path's widest (1024), 4-element chunks (100: the walmart
+# features), and the wide path that re-reads rows (1100, 2048)
+LN_WIDTHS = (7, 64, 100, 256, 512, 1024, 1100, 2048)
+
+
+def misaligned(t):
+    """A copy of t as a contiguous view one element into a larger buffer:
+    its rows lose every vector alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_layer_norm(dev, gen):
     """B12/B13 against their plain versions in f32, bf16 and f32 -> bf16,
-    at F in {7, 64, 256, 512} (7: the scalar path), rows not a multiple of
-    the backward's 64-row block; runs R in {2, 5} (and an x shared by the
-    runs) bit for bit against launches on each run alone."""
+    at F in LN_WIDTHS (B13's register path up to 1024 with chunks of 1, 4
+    and 8 elements, the wide path above), at rows 37 (fewer than a block's
+    warps), 1000 and 20,011 (several rows a warp); on x and g one element
+    off every vector boundary, bit for bit against the aligned launch (the
+    same order of additions); runs R in {2, 5} (and an x shared by the
+    runs) at 20,011 rows bit for bit against launches on each run alone."""
     from allset_tpu_torch.ops import _kernels, cuda_ln as cl
 
     for xdt, ydt in LN_DTYPES:
-        for F in (7, 64, 256, 512):
-            for rows in (1000, 37):
+        for F in LN_WIDTHS:
+            for rows in (1000, 37, 20_011):
                 what = f"{str(xdt)[6:]}->{str(ydt)[6:]}, F={F}, rows={rows}"
-                _, msg = check_ln_pair(*ln_inputs(rows, F, xdt, ydt, dev, gen), ydt, what)
+                x, gamma, beta, g = ln_inputs(rows, F, xdt, ydt, dev, gen)
+                outs, msg = check_ln_pair(x, gamma, beta, g, ydt, what)
                 log(f"  B12/B13 {what}: scaled errors {msg} (tol {TOL[ydt]})")
+                if rows == 1000 and F in (100, 256, 1100):
+                    off, msg = check_ln_pair(misaligned(x), gamma, beta, misaligned(g), ydt,
+                                             what + ", misaligned")
+                    require(all(torch.equal(a, b) for a, b in zip(off, outs)),
+                            f"B12/B13 on misaligned rows differ from the aligned launch ({what})")
+                    log(f"  B12/B13 {what} on rows one element off alignment: scaled errors "
+                        f"{msg}; bit-equal to the aligned launch")
             for R, shared in ((2, False), (5, False), (5, True)):
-                x, gamma, beta, g = ln_inputs(1000, F, xdt, ydt, dev, gen, R=R, shared=shared)
+                x, gamma, beta, g = ln_inputs(20_011, F, xdt, ydt, dev, gen, R=R, shared=shared)
                 what = f"{str(xdt)[6:]}->{str(ydt)[6:]}, F={F}, R={R}{' shared' if shared else ''}"
                 (y, dx, dg, db), msg = check_ln_pair(x, gamma, beta, g, ydt, what)
                 for r in range(R):
@@ -776,6 +834,10 @@ def check_layer_norm(dev, gen):
                             f"B12/B13 run {r} differs from a launch on it alone ({what})")
                 log(f"  B12/B13 {what}: scaled errors {msg}; every run bit-identical to a "
                     f"launch on it alone")
+            x, gamma, beta, g = ln_inputs(20_011, F, xdt, ydt, dev, gen)
+            first = cl.ln_bwd_cuda(g, x, gamma)
+            require(all(torch.equal(a, b) for a, b in zip(first, cl.ln_bwd_cuda(g, x, gamma))),
+                    f"B13 differs between two launches (F={F})")
     _kernels.reset_launches()
 
 
@@ -2268,9 +2330,8 @@ def check_gather_sorted(dev, gen):
     """B9 against its plain version bit for bit (a gather is exact): f32
     and bf16 tables with rows of 4 B to 1 KiB (SORTED_ROW_BYTES; also 2 and
     6 B bf16 rows), sorted ids with gaps, a hub run of 10,000 equal ids and
-    ids past both ends, the same ids unsorted, int32 and int64 ids; a
-    chunk's rows over the 32 KB stage (1 KiB rows from unsorted ids) in
-    passes."""
+    ids past both ends, the same ids unsorted, int32 and int64 ids; 1 KiB
+    rows (64 16-byte vectors) in two column chunks of a warp."""
     from allset_tpu_torch.ops import _kernels, cuda_gather as cg
 
     rows, n = 5000, 60_013
@@ -2597,30 +2658,35 @@ def time_segment_sums(sums, dev, per):
 def time_sorted_gathers(calls, dev, per):
     """B9 at each recorded sorted gather's shape on a random table, with B10
     and index_select (on the ids clamped beforehand), held bit for bit to
-    the plain version, summed per ``per``; the bound counts each distinct
-    row read once, each output row written once and the ids -> (Tally,
-    B10's summed ms at the same shapes)."""
+    the plain version, summed per ``per``; each timed two ways: CUDA events
+    around 20 calls back to back (the wrapper's host work included where
+    it is longer than the kernel) and the device time from a CUDA graph of
+    20 calls (graph_ms). The bound counts each distinct row read once, each
+    output row written once and the ids -> (Tally, B10's summed event ms
+    at the same shapes)."""
     from allset_tpu_torch.ops import cuda_gather as cg
 
     t, b10_total = Tally(), 0.0
     for shape, dtype, ids, n in group_calls(calls):
         table = torch.randn(shape, device=dev).to(dtype)
-        k = cuda_ms(lambda: cg.gather_sorted_fwd_cuda(table, ids), iters=20)
-        b10 = cuda_ms(lambda: cg.gather_fwd_cuda(table, ids), iters=20)
-        p = cuda_ms(lambda: cg.gather_sorted_fwd_plain(table, ids), iters=5)
         clamped = ids.clamp(0, shape[0] - 1)
-        lib = cuda_ms(lambda: table.index_select(0, clamped), iters=20)
+        fns = (lambda: cg.gather_sorted_fwd_cuda(table, ids),
+               lambda: cg.gather_fwd_cuda(table, ids), lambda: table.index_select(0, clamped))
+        (k, b10, lib), (kd, b10d, libd) = ([cuda_ms(f, iters=20) for f in fns],
+                                           [graph_ms(f) for f in fns])
+        p = cuda_ms(lambda: cg.gather_sorted_fwd_plain(table, ids), iters=5)
         require(torch.equal(cg.gather_sorted_fwd_cuda(table, ids),
                             cg.gather_sorted_fwd_plain(table, ids)),
                 f"B9 differs at [{ids.shape[0]}, {list(shape[1:])}]")
         distinct = int(torch.unique(clamped).numel())
         nbytes = table[0].numel() * table.element_size()
         t.add(n, k, p, 0.0, (distinct + ids.shape[0]) * nbytes + ids.shape[0] * ids.element_size(),
-              [], library_ms=lib)
+              [], library_ms=lib, device_ms=kd)
         b10_total += n * b10
         log(f"  B9 at [{ids.shape[0]}, {list(shape[1:])}] {str(dtype)[6:]} from {shape[0]} rows "
-            f"({distinct} distinct; x{n} per {per}): kernel {k:.4f} ms, B10 {b10:.4f} ms, "
-            f"index_select {lib:.4f} ms, plain {p:.4f} ms")
+            f"({distinct} distinct; x{n} per {per}): events: kernel {k:.4f} ms, B10 {b10:.4f} ms, "
+            f"index_select {lib:.4f} ms; device (CUDA graph): kernel {kd:.4f} ms, B10 "
+            f"{b10d:.4f} ms, index_select {libd:.4f} ms; plain {p:.4f} ms")
         del table
     return t, b10_total
 
@@ -2639,8 +2705,8 @@ def time_gather_sorted_step(batches, dev):
     require(len(calls) == want, f"a CEGAT step gathered sorted {len(calls)} times, expected {want}")
     del model
     t, b10_total = time_sorted_gathers(calls, dev, "step")
-    log(f"  B9's gathers per CEGAT step: B9 {t.ms:.4f} ms, B10 at the same shapes "
-        f"{b10_total:.4f} ms")
+    log(f"  B9's gathers per CEGAT step: B9 {t.ms:.4f} ms (device {t.device_ms:.4f} ms), B10 "
+        f"at the same shapes {b10_total:.4f} ms")
     _kernels.reset_launches()
     return {"gather_sorted": t}
 

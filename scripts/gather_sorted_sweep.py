@@ -27,32 +27,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def graph_ms(fn, launches: int = 50) -> float:
-    """Device time of one fn() in ms: ``launches`` calls captured in a CUDA
-    graph, the graph replayed between CUDA events (no host launch cost)."""
-    import torch
-
-    fn()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(5):
-        graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / (5 * launches)
-
-
 def main() -> int:
     import torch
 
@@ -102,8 +76,8 @@ def sweep(cs, cg, card, dev, ids, rows, distinct):
                 b10.append(cs.cuda_ms(lambda: cg.gather_fwd_cuda(table, ids), iters=50))
                 b9.append(cs.cuda_ms(lambda: cg.gather_sorted_fwd_cuda(table, ids), iters=50))
             lib = cs.cuda_ms(lambda: table.index_select(0, clamped), iters=50)
-            dev9 = graph_ms(lambda: cg.gather_sorted_fwd_cuda(table, ids))
-            dev10 = graph_ms(lambda: cg.gather_fwd_cuda(table, ids))
+            dev9 = cs.graph_ms(lambda: cg.gather_sorted_fwd_cuda(table, ids), 50)
+            dev10 = cs.graph_ms(lambda: cg.gather_fwd_cuda(table, ids), 50)
             bound = ((distinct + ids.shape[0]) * nbytes + ids.shape[0] * 8) / cs.HBM * 1e3
             print(f"  {str(dtype)[6:]:8s} row {nbytes:5d} B: B9 {statistics.mean(b9):.4f} ms "
                   f"[{min(b9):.4f}, {max(b9):.4f}], B10 {statistics.mean(b10):.4f} ms "

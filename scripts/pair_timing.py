@@ -31,6 +31,20 @@ never imports either), builds its own kernels and measures, on the card:
     ``--MLP_hidden 1024`` through the CLI (walmart preset, f32, 2 runs x 1
     epoch; ``chip_smoke.cli_peak``).
 
+With ``--set narrow`` a worker measures instead B9 and B13 with
+``scripts/ln_gather_probe.py``'s functions (this tree's script, the
+worker's tree's package and ``chip_smoke.py``):
+
+  * B9 at each shape of a CEGAT bench step's and a HAN step's sorted
+    gathers, and per step: the event time of 20 calls back to back, the
+    device time from a CUDA graph and the host time of a call, beside B10
+    and index_select at the same shapes;
+  * B13 per AllDeepSets bench step (bf16) and per 20-run epoch (walmart
+    preset, f32), event and device times, and at ``[196608, 256]`` bf16;
+  * the AllDeepSets bench step and the CEGAT bench step end to end (the
+    median of 8 training steps, ``chip_smoke.main_path`` and
+    ``chip_smoke.zoo_path`` with their launch and repeatability checks).
+
 Each worker prints one JSON line; the script prints them and, per tree,
 the mean, lowest and highest reading of each number, with the card's name
 and power limit. Needs one CUDA card.
@@ -157,10 +171,61 @@ def worker() -> None:
     print("PAIR " + json.dumps(out), flush=True)
 
 
+def narrow_worker() -> None:
+    """B9 and B13 in the tree in the working directory (see the module
+    note, ``--set narrow``)."""
+    import importlib.util
+
+    tree = os.getcwd()
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    from allset_tpu_torch.graph import Batch
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.train.factory import v2v_incidence
+
+    spec = importlib.util.spec_from_file_location(
+        "ln_gather_probe", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "ln_gather_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    dev = torch.device("cuda", 0)
+    _kernels.build(force=True)
+    _kernels.lib()
+    card = cs.card_line()
+    out = {"tree": tree}
+    b9, b9_sums = probe.probe_b9(cs, dev, probe.sorted_gather_calls(cs, dev))
+    for key, r in b9.items():
+        for k in ("b9", "b10", "index_select"):
+            for t in ("event_ms", "device_ms", "host_us"):
+                out[f"{key} {k} {t}"] = r[f"{k}_{t}"]
+    for what, r in b9_sums.items():
+        for k, v in r.items():
+            out[f"{what} {k}"] = v
+    b13, b13_sums = probe.probe_b13(cs, dev, None, probe.step_shapes(cs))
+    for what, r in b13_sums.items():
+        for k, v in r.items():
+            out[f"b13 per {what} {k}"] = v
+    for key, r in b13.items():
+        for k in ("event_ms", "device_ms"):
+            out[f"b13 {key} {k}"] = r[k]
+    batch = cs.bench_batch(dev)
+    _, out["deepsets_step_ms"] = cs.main_path(batch, dev, card, cs.PER_STEP_DEEPSETS, pma=False,
+                                              aggregate="add")
+    del batch
+    raw = cs.bench_raw()
+    batches = {"CEGAT": Batch.from_incidence(raw, v2v_incidence(raw, "CEGAT", bucket=1024), dev)}
+    _, out["cegat_step_ms"] = cs.zoo_path(batches, dev, card, "CEGAT", dict(cs.CE)["CEGAT"])
+    print("PAIR " + json.dumps(out), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="another checkout of the repository")
     ap.add_argument("--pairs", type=int, default=1)
+    ap.add_argument("--set", choices=("full", "narrow"), default="full",
+                    help="what each worker measures (see the module note)")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     other = os.path.abspath(args.other)
@@ -172,7 +237,7 @@ def main(argv=None) -> int:
     rows = []
     for _ in range(args.pairs):
         for tree in (other, here, here, other):
-            r = subprocess.run([sys.executable, script, "--worker"], cwd=tree,
+            r = subprocess.run([sys.executable, script, f"--worker={args.set}"], cwd=tree,
                                capture_output=True, text=True)
             lines = [x for x in r.stdout.splitlines() if x.startswith("PAIR ")]
             if r.returncode != 0 or not lines:
@@ -191,8 +256,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--worker"]:
+    if sys.argv[1:2] in (["--worker=full"], ["--worker=narrow"]):
         sys.path.pop(0)  # this file's directory; the worker imports its own tree
-        worker()
+        narrow_worker() if sys.argv[1] == "--worker=narrow" else worker()
     else:
         sys.exit(main())

@@ -11,7 +11,8 @@ the kernel runs). B9's plain version (``gather_sorted_fwd`` on the CPU)
 and ``gather_rows``' sorted route (an order whose ids are sorted and a
 narrow row) against ``vmem_gather`` in interpret mode, bit for bit, on
 sorted ids in runs, a hub run and clamped ids; the route's choice by the
-row's bytes and the ids' order."""
+row's bytes and the ids' order; B9's warp algorithm (csrc/gather_sorted.cu)
+emulated lane by lane against the plain version, bit for bit."""
 
 import functools
 import importlib.util
@@ -250,3 +251,106 @@ def test_sorted_gather_kernel_is_its_plain_version_bit_for_bit():
                     got = cg.gather_sorted_fwd_cuda(table, i)
                     assert _kernels.launches["gather_sorted"] == 1
                     assert torch.equal(got, cg.gather_sorted_fwd_plain(table, i))
+
+
+# B9's warps of one wave (csrc/gather_sorted.cu's kWave: 24 per SM of 132)
+B9_WAVE = 132 * 24
+
+
+def _b9_plan(nbytes, n):
+    """B9's vector and warp plan for n ids and rows of ``nbytes`` on
+    aligned tables (csrc/gather_sorted.cu's launch): vector bytes vb,
+    vectors a row nv, lanes a row L (the least power of two >= nv, at most
+    32), ids a step P = 32 / L, steps a warp's span S (the fewest of 2, 4
+    and 8 that keep the grid within one wave)."""
+    vb = next(b for b in (16, 8, 4, 2, 1) if nbytes % b == 0)
+    nv = nbytes // vb
+    L = min(32, 1 << (nv - 1).bit_length())
+    P = 32 // L
+    warp_steps = -(-n // P)
+    return vb, nv, L, P, next((S for S in (2, 4) if warp_steps <= S * B9_WAVE), 8)
+
+
+def _b9_emulated(tab, ids, steps):
+    """B9's warp algorithm on the host, lane by lane, with spans of
+    ``steps`` steps: the span's ids clamped, the heads by shuffle-up (the
+    span's first id a head), each head's row read by the lanes of its
+    vectors, every other id taking its run's row from the nearest head
+    slot of its step (the ballot) or from the last slot of the step before
+    (the carry); rows of more than 32 vectors in chunks of 32. tab: [rows,
+    nbytes] uint8 -> (out [n, nbytes] uint8, row vectors read)."""
+    rows, nbytes = tab.shape
+    n = ids.shape[0]
+    vb, nv, L, P, _ = _b9_plan(nbytes, n)
+    span = steps * P
+    vecs = tab.reshape(rows, nv, vb)
+    lane = np.arange(32)
+    q, cl = lane // L, lane % L
+    last = (P - 1) * L + cl
+    upto = [((2 << int(a)) - 1) & 0xFFFFFFFF for a in q * L]
+    src_row = np.full((n, nv), -1)  # the row each output vector holds; -1: zeros
+    reads = 0
+    for base in range(0, n, span):
+        j = base + np.arange(8)[:, None] * P + q[None, :]
+        valid = (j < n) & (np.arange(8)[:, None] < steps)
+        row = np.where(valid, np.clip(ids[np.minimum(j, n - 1)], 0, rows - 1), -1)
+        head = np.zeros((8, 32), bool)
+        for u in range(8):
+            prev = np.where(lane >= L, row[u][np.maximum(lane - L, 0)], row[u])
+            prev = np.where(q == 0, row[u - 1][last] if u > 0 else -1, prev)
+            head[u] = (row[u] >= 0) & (row[u] != prev)
+        for c0 in range(0, nv, L):
+            c = c0 + cl
+            on = c < nv
+            v = np.where(head & on[None, :], row, -1)
+            reads += int((head & on[None, :]).sum())
+            carry = np.full(32, -1)
+            for u in range(8):
+                ballot = sum(1 << int(a) for a in lane if head[u][a] and cl[a] == 0)
+                heads = [ballot & m for m in upto]
+                src = np.array([h.bit_length() - 1 + cl[a] if h else a
+                                for a, h in enumerate(heads)])
+                v[u] = np.where(np.array(heads) != 0, v[u][src], carry)
+                carry = v[u][last]
+            for u in range(8):
+                ok = valid[u] & on
+                src_row[j[u][ok], c[ok]] = v[u][ok]
+    out = np.zeros((n, nv, vb), np.uint8)
+    hit = src_row >= 0
+    out[hit] = vecs[src_row[hit], np.nonzero(hit)[1]]
+    return out.reshape(n, nbytes), reads
+
+
+@pytest.mark.parametrize("dtype,W", [(torch.bfloat16, 1), (torch.bfloat16, 3), (torch.float32, 1),
+                                     (torch.float32, 6), (torch.float32, 8), (torch.bfloat16, 8),
+                                     (torch.float32, 32), (torch.float32, 256)])
+def test_sorted_gather_warp_algorithm_is_the_plain_version_bit_for_bit(dtype, W):
+    """B9's warp algorithm (_b9_emulated: heads, the ballot's head slot, the
+    carry across steps, column chunks) gives the plain version's rows bit
+    for bit at rows of 2 B (one 2-byte vector) to 1 KiB (64 16-byte vectors
+    in two chunks), with 3-vector rows that leave a lane of four idle, on
+    sorted ids in runs with a hub run and ids past both ends, and on the
+    same ids unsorted, with spans of 2, 4 and 8 steps; sorted ids read at
+    most one row a run and span, unsorted ones more. The plan takes 2 steps at 3,001 ids, 4 at
+    CEGAT's 280,576 one-vector rows and 8 at its two-vector rows."""
+    rows, n = 300, 3001
+    gen = torch.Generator().manual_seed(W)
+    table = torch.randn(rows, W, generator=gen).to(dtype)
+    tab = table.view(torch.uint8).numpy().reshape(rows, -1) if dtype == torch.float32 else \
+        table.view(torch.int16).numpy().view(np.uint8).reshape(rows, -1)
+    ids = _sorted_ids(rows, n, W, low=-3, high=rows + 3)
+    shuffled = np.random.default_rng(W).permutation(ids)
+    _, nv, _, P, steps = _b9_plan(tab.shape[1], n)
+    assert steps == 2 and _b9_plan(4, 280_576)[4] == 4 and _b9_plan(32, 280_576)[4] == 8
+    clamped = np.clip(ids, 0, rows - 1)
+    runs = 1 + int((clamped[1:] != clamped[:-1]).sum())
+    for steps in (2, 4, 8):
+        reads = {}
+        for order, what in ((ids, "sorted"), (shuffled, "unsorted")):
+            got, reads[what] = _b9_emulated(tab, order, steps)
+            want = cg.gather_sorted_fwd_plain(table, torch.from_numpy(order))
+            want = want.view(torch.uint8) if dtype == torch.float32 else want.view(torch.int16)
+            np.testing.assert_array_equal(got, want.numpy().view(np.uint8).reshape(n, -1),
+                                          f"{what}, {steps} steps")
+        assert runs * nv <= reads["sorted"] <= (runs + -(-n // (steps * P))) * nv
+        assert reads["unsorted"] > reads["sorted"]

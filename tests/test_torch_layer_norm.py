@@ -2,7 +2,9 @@
 CPU path of ops/cuda_ln.py) against the JAX package: ``jax.vjp`` of
 ``allset_tpu.nn.modules.NormLayer('ln')`` (flax LayerNorm, fast variance)
 and the fused Pallas experiment of ``benchmarks/exp_ln.py`` run in
-interpret mode (two-pass variance; the tolerance covers the formula)."""
+interpret mode (two-pass variance; the tolerance covers the formula);
+B13's row plan (``bwd_plan``) and its order of additions for dgamma and
+dbeta, emulated on the host."""
 
 import functools
 import importlib.util
@@ -167,3 +169,97 @@ def test_norm_layer_takes_the_layer_norm_function_and_launches_nothing_on_cpu():
     with pytest.raises(ValueError):
         cuda_ln.ln_fwd(torch.from_numpy(x).to("meta"), torch.from_numpy(gamma),
                        torch.from_numpy(beta), torch.float32)
+
+
+# B13's partials' sum (csrc/layer_norm.cu, ln_bwd_reduce_kernel): slot s of
+# 128 sums the blocks s, s + 128, ... in order, then groups of 8 slots, then
+# the 16 groups, each in order
+RED_SLOTS, RED_GROUP = 128, 8
+
+
+def _plan_blocks(rows, F):
+    rpb, nblk = cuda_ln.bwd_plan(rows, F)
+    return [(b * rpb, min(rows, (b + 1) * rpb)) for b in range(nblk)]
+
+
+@pytest.mark.parametrize("rows", [1, 7, 37, 1000, 8448, 8449, 88_860, 158_766, 196_608])
+@pytest.mark.parametrize("F", [7, 100, 256, 1024, 1100])
+def test_bwd_plan_covers_every_row_once(rows, F):
+    """B13's row ranges: contiguous, non-empty, every row in exactly one
+    block, at most about REG_BLOCKS blocks of at least a row per warp (the
+    register path) or WIDE_BLOCKS of at least WIDE_MIN_ROWS (wider rows).
+    The plan takes rows and F only: a run folded with others is cut as a
+    launch on it alone, whatever R is."""
+    rpb, nblk = cuda_ln.bwd_plan(rows, F)
+    blocks = _plan_blocks(rows, F)
+    assert len(blocks) == nblk and all(b > a for a, b in blocks)
+    np.testing.assert_array_equal(np.concatenate([np.arange(a, b) for a, b in blocks]),
+                                  np.arange(rows))
+    if F <= cuda_ln.REG_F:
+        assert rpb >= cuda_ln.REG_MIN_ROWS and nblk <= cuda_ln.REG_BLOCKS
+    else:
+        assert rpb >= cuda_ln.WIDE_MIN_ROWS and nblk <= cuda_ln.WIDE_BLOCKS
+
+
+def _ln_bwd_emulated(g, x, gamma):
+    """dgamma, dbeta of one run (x, g [rows, F] f32) added in B13's order:
+    per block of bwd_plan, warp w (of BWD_WARPS up to REG_F columns, one
+    above) adds g * xhat and g over its rows w, w + warps, ... in row
+    order; the block adds its warps' sums in warp order; the partials'
+    sum in the reduce kernel's order (RED_SLOTS, RED_GROUP). xhat from the
+    plain version's statistics."""
+    rows, F = x.shape
+    mu, rstd = cuda_ln._stats(x)
+    rpb, nblk = cuda_ln.bwd_plan(rows, F)
+    warps = cuda_ln.BWD_WARPS if F <= cuda_ln.REG_F else 1
+    out = []
+    for t in (g * ((x - mu) * rstd), g):
+        padded = torch.zeros(nblk * rpb, F)
+        padded[:rows] = t
+        blk = padded.view(nblk, rpb, F)
+        acc = torch.zeros(nblk, warps, F)
+        for i in range(rpb):  # row i of each block, to warp i % warps
+            acc[:, i % warps] += blk[:, i]
+        part = torch.zeros(nblk, F)
+        for w in range(warps):
+            part += acc[:, w]
+        slots = torch.zeros(RED_SLOTS, F)
+        for m in range(0, nblk, RED_SLOTS):
+            chunk = part[m:m + RED_SLOTS]
+            slots[:chunk.shape[0]] += chunk
+        groups = torch.zeros(RED_SLOTS // RED_GROUP, F)
+        for s in range(RED_GROUP):
+            groups += slots[s::RED_GROUP]
+        total = torch.zeros(F)
+        for grp in groups:
+            total += grp
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("F", [100, 256, 1100])
+@pytest.mark.parametrize("R", [1, 3])
+def test_bwd_partials_order_matches_plain_and_exp_ln(monkeypatch, F, R):
+    """dgamma and dbeta added in B13's order (the plan's blocks, warps in
+    row order, warps in order, the reduce's slots and groups) against the
+    plain version on the folded input and against exp_ln.py's B13 in
+    interpret mode run by run, within 1e-5 of each tensor's max |.|: at F
+    100 (4-element chunks) and 256 (8-element chunks) on the register path,
+    1100 on the wide path, 9,000 rows (several rows a warp)."""
+    exp_ln = _exp_ln(monkeypatch)
+    rows = 9000
+    x, gamma, _, g = _inputs(rows, F, seed=F + R, R=None if R == 1 else R)
+    xt, gt, gmt = torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(gamma)
+    _, dg_plain, db_plain = ln_bwd_plain(gt, xt, gmt)
+    for r in range(R):
+        xr = np.ascontiguousarray(x if R == 1 else x[:, r])
+        grr = np.ascontiguousarray(g if R == 1 else g[:, r])
+        gam = gamma if R == 1 else gamma[r]
+        dg, db = _ln_bwd_emulated(torch.from_numpy(grr), torch.from_numpy(xr),
+                                  torch.from_numpy(np.ascontiguousarray(gam)))
+        _, dg_ref, db_ref = exp_ln.pallas_ln_bwd(jnp.asarray(grr), jnp.asarray(xr),
+                                                 jnp.asarray(gam), blk=1000)
+        for got, plain, ref, what in ((dg, dg_plain, dg_ref, "dgamma"),
+                                      (db, db_plain, db_ref, "dbeta")):
+            _close(got.numpy(), (plain if R == 1 else plain[r]).numpy(), 1e-5, what)
+            _close(got.numpy(), np.asarray(ref), 1e-5, what + " (exp_ln)")
