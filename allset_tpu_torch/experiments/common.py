@@ -65,6 +65,32 @@ def timed(fn, dev: torch.device, iters: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, launches: int = 10, replays: int = 3):
+    """Device time of one fn() in ms on the card: ``launches`` calls
+    captured in a CUDA graph, the graph replayed between CUDA events (no
+    host launch cost)."""
+    fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (replays * launches)
+
+
 def bound_ms(nbytes: float, ops=()) -> tuple:
     """(ms, "bytes" or "operations"): the larger of the bytes at HBM and
     the operations at their peak; ops: [(count, PEAK key)]."""
@@ -147,7 +173,8 @@ def onehot_rows(msgs, dst, bip, nseg, s_blk, chunk, variants, dev, iters, nnz):
     bound of the mode's function (full, noonehot: every row of the blocks'
     chunks, its ids and the one-hot products; the surrogates: the first
     s_blk rows of each chunk), the streamed rate (every row of the chunks),
-    and, for the segment-sum, torch.segment_reduce over the nnz entries."""
+    and, for the segment-sum, torch.segment_reduce over the nnz entries;
+    on the card also the device time from a CUDA graph (device_ms)."""
     from allset_tpu_torch.ops import _kernels, cuda_onehot as co
 
     F, item = msgs.shape[1], msgs.element_size()
@@ -163,6 +190,7 @@ def onehot_rows(msgs, dst, bip, nseg, s_blk, chunk, variants, dev, iters, nnz):
         before = _kernels.launches["segsum_onehot"]
         ms = timed(fn, dev, iters)
         launches = _kernels.launches["segsum_onehot"] - before
+        dev_ms = device_ms(fn) if dev.type == "cuda" else None
         p_ms = timed(plain, dev, 2)
         got, want = fn(), plain()
         err = scaled_err(got, want)
@@ -182,11 +210,11 @@ def onehot_rows(msgs, dst, bip, nseg, s_blk, chunk, variants, dev, iters, nnz):
                                                       dtype=dst.dtype)).long()
             lib = lambda: torch.segment_reduce(msgs[:nnz], "sum", offsets=offsets, axis=0)
             lib_ms = timed(lib, dev, iters)
-        rows.append({"label": label, "ms": ms, "plain_ms": p_ms, "max_abs_err":
-                     (got - want).abs().max().item(), "scaled_err": err, "bound_ms": b,
-                     "bound_by": by, "stream_gbs": streamed * (F * item + 4 * ids) / ms / 1e6,
-                     "library_ms": lib_ms if mode == "full" else None,
-                     "launches": launches})
+        rows.append({"label": label, "ms": ms, "device_ms": dev_ms, "plain_ms": p_ms,
+                     "max_abs_err": (got - want).abs().max().item(), "scaled_err": err,
+                     "bound_ms": b, "bound_by": by,
+                     "stream_gbs": streamed * (F * item + 4 * ids) / ms / 1e6,
+                     "library_ms": lib_ms if mode == "full" else None, "launches": launches})
     return rows
 
 
@@ -215,13 +243,15 @@ def stream_row(label, name, fn, plain, library, need_bytes, streamed_bytes, dev,
     """One streaming probe (B5, B7, B8): the kernel's time (the plain
     version's on the CPU), the plain version's, the library call's (a sum
     over a view), the check against the plain version (1e-5 of its max
-    |.|: f32 sums in another order), the bound of the function's bytes and
-    the rate at which the probe streamed its bytes."""
+    |.|: f32 sums in another order), the bound of the function's bytes,
+    the rate at which the probe read its bytes and, on the card, the
+    device time from a CUDA graph (device_ms)."""
     from allset_tpu_torch.ops import _kernels
 
     before = _kernels.launches[name]
     ms = timed(fn, dev, iters)
     launches = _kernels.launches[name] - before
+    dev_ms = device_ms(fn) if dev.type == "cuda" else None
     p_ms = timed(plain, dev, 2)
     lib_ms = timed(library, dev, iters)
     got, want = fn(), plain()
@@ -229,6 +259,6 @@ def stream_row(label, name, fn, plain, library, need_bytes, streamed_bytes, dev,
     if not err <= 1e-5:
         raise AssertionError(f"{name} {label} disagrees with its plain version: {err}")
     b, by = bound_ms(need_bytes)
-    return {"label": label, "ms": ms, "plain_ms": p_ms, "library_ms": lib_ms,
+    return {"label": label, "ms": ms, "device_ms": dev_ms, "plain_ms": p_ms, "library_ms": lib_ms,
             "max_abs_err": (got - want).abs().max().item(), "scaled_err": err, "bound_ms": b,
             "bound_by": by, "stream_gbs": streamed_bytes / ms / 1e6, "launches": launches}

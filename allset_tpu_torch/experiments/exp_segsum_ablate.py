@@ -6,11 +6,11 @@ Port of ``benchmarks/exp_segsum_ablate.py``: the bench graph's node side
 (every entry's node id, self-loops included, ``common.node_side``), F
 384 bf16, blocks of 256 segments, chunks of 512 rows. B6's modes through
 ``ops/cuda_onehot.py``: full, noonehot, nomatmul, dmaonly, depth4, nodst,
-nodst4. Then ``flat`` (B5, ``ABLATE_ONLY=flat`` there): the same msgs
-as whole blocks of 8 chunks of 512 rows streamed by cp.async into a
-double buffer (``ops/cuda_stream.py``), and ``dual`` (B7,
-``ABLATE_ONLY=dual``): two [262,144, 384] bf16 arrays streamed together,
-blocks of 4 chunks.
+nodst4. Then ``flat`` (B5, ``ABLATE_ONLY=flat`` there): the first 16
+rows of each chunk of 512 rows of the same msgs, over whole blocks of 8
+chunks (``ops/cuda_stream.py``), and ``dual`` (B7, ``ABLATE_ONLY=dual``):
+the same over two [262,144, 384] bf16 arrays, blocks of 4 chunks. Their
+rate is over the rows they read, each chunk's first 16.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def main(argv=None, batch=None) -> dict:
     rows.append(common.stream_row(
         f"flat (B5) chunk={c}", "stream_flat", lambda: cst.stream_flat(msgs, seed, c),
         lambda: cst.stream_flat_plain(msgs, seed, c), _first16_view(msgs, n, c),
-        n * 16 * f * 2 + 2 * 16 * f * 4, n * c * f * 2, dev, args.iters))
+        n * 16 * f * 2 + 2 * 16 * f * 4, n * 16 * f * 2, dev, args.iters))
     r = 512 * c if dev.type == "cuda" else 16 * c  # B7
     a = common.normal((r, f), torch.bfloat16, dev, 1)
     b = common.normal((r, f), torch.bfloat16, dev, 2)
@@ -56,7 +56,7 @@ def main(argv=None, batch=None) -> dict:
     rows.append(common.stream_row(
         f"dual (B7) chunk={c}", "stream_dual", lambda: cst.stream_dual(a, b, seed, c),
         lambda: cst.stream_dual_plain(a, b, seed, c), lambda: fa() + fb(),
-        2 * n * 16 * f * 2 + 2 * 16 * f * 4, 2 * n * c * f * 2, dev, args.iters))
+        2 * n * 16 * f * 2 + 2 * 16 * f * 4, 2 * n * 16 * f * 2, dev, args.iters))
     return common.report("B6/B5/B7 exp_segsum_ablate", dev, rows)
 
 

@@ -76,7 +76,7 @@ _SIGNATURES = {
     "allset_gather_sorted": [P, P, I, P, LL, LL, LL, P],
     "allset_segment_sum_gather": [P, LL, P, I, P, I, I, I, P, P, I, P, I, P, P, I, I] + [I] * 7
                                  + [P],
-    "allset_segsum_onehot": [P, P, P, LL] + [I] * 9 + [P, I, P],
+    "allset_segsum_onehot": [P, P, P, LL] + [I] * 12 + [P, P, P, I, P],
     "allset_stream": [P, P, P] + [I] * 5 + [P, P, I, P],
 }
 

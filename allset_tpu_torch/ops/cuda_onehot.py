@@ -25,6 +25,15 @@ takes the surrogate too: its product runs only in ``full`` and
 for a CPU tensor; any other device raises. The plain version computes
 each mode's function whatever nbuf, nacc and build: they change how the
 kernel gets there, not what it computes.
+
+On the card a block's window is cut into work items of at most
+``item_rows`` rows (``work_plan``; the kernel's plan kernel counts the
+same items on the device), so that a hub block runs on many SMs. The
+grid is ``grid_bound`` items, from the row count, the block count and the
+chunk alone (no read from the device); the items of a split block each
+write a partial (``slots_bound`` of them at most), added in item order by
+a second pass. Chunk c of a block's window, counted from its
+start_al, goes into accumulator set c % nacc in every item.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ _MODE = {"full": (0, True, None), "noonehot": (1, True, None), "nomatmul": (2, T
          "dmaonly": (3, True, None), "depth4": (3, True, 4), "nodst": (3, False, 2),
          "nodst4": (3, False, 4)}
 ALIGN = 128  # a block's first row is its first entry rounded down to this
+ITEM_ROWS = 2048  # rows of a work item on the card (a multiple of the chunk, or one chunk)
+MAX_ITEM_ROWS = 4096  # the kernel stages an item's ids in shared memory
 
 
 def block_indptr(dst_sorted, num_segments: int, s_blk: int) -> Tensor:
@@ -83,6 +94,54 @@ def windows(bip: Tensor, chunk: int):
     start_al = b[:-1] // ALIGN * ALIGN
     nchunks = torch.clamp(b[1:] - start_al, min=0)
     return start_al, (nchunks + chunk - 1) // chunk
+
+
+def item_chunks(chunk: int, item_rows: int = ITEM_ROWS) -> int:
+    """Chunks in a work item: item_rows // chunk, at least one."""
+    return max(1, item_rows // chunk)
+
+
+def grid_bound(rows: int, num_blocks: int, chunk: int, item_rows: int = ITEM_ROWS) -> int:
+    """Work items at most, from the host's numbers alone: a block's window
+    (its entries, at most 127 rows before them, whole chunks, cut at
+    ``rows``) makes max(1, cdiv(window, item)) items, so at most
+    num_blocks + cdiv(rows + 128 num_blocks, item) over blocks whose
+    entries lie in [0, rows) in order."""
+    ir = item_chunks(chunk, item_rows) * chunk
+    return num_blocks + -(-(rows + ALIGN * num_blocks) // ir)
+
+
+def slots_bound(rows: int, num_blocks: int, chunk: int, item_rows: int = ITEM_ROWS) -> int:
+    """Items of split blocks (those with more than one item) at most: a
+    split block's window w exceeds an item (ir rows) and makes cdiv(w, ir)
+    < 2 w / ir items; its entries exceed ir - 127, so fewer than rows / (ir
+    - 127) blocks split, and their windows add up to at most rows plus 127
+    rows a split block."""
+    ir = item_chunks(chunk, item_rows) * chunk
+    split = min(num_blocks, -(-rows // (ir - ALIGN + 1)))
+    return 2 * (rows + (ALIGN - 1) * split) // ir + 1
+
+
+def work_plan(block_indptr: Tensor, chunk: int, item_rows: int = ITEM_ROWS, rows=None) -> dict:
+    """The kernel's work items, in the order its plan kernel lists them:
+    block b's window (``windows``, cut at ``rows`` where given, as the
+    kernel cuts it at the end of msgs) in max(1, cdiv(chunks, cpi)) items
+    of cpi = ``item_chunks`` chunks, item j holding chunks [j cpi, min((j +
+    1) cpi, chunks)). Returns int64 tensors: per item its ``block``, ``j``,
+    ``chunk_lo``, ``chunk_hi``; per block ``items`` and ``slot`` (the
+    first partial slot of a split block, -1 for a block of one item)."""
+    b = block_indptr.long().cpu()
+    start_al = b[:-1] // ALIGN * ALIGN
+    end = b[1:] if rows is None else torch.clamp(b[1:], max=rows)
+    nch = (torch.clamp(end - start_al, min=0) + chunk - 1) // chunk
+    cpi = item_chunks(chunk, item_rows)
+    items = torch.clamp((nch + cpi - 1) // cpi, min=1)
+    split = torch.where(items > 1, items, torch.zeros_like(items))
+    slot = torch.where(items > 1, torch.cumsum(split, 0) - split, torch.full_like(items, -1))
+    block, j = _rows_of_blocks(items)
+    lo = j * cpi
+    return {"block": block, "j": j, "chunk_lo": lo, "chunk_hi": torch.minimum(lo + cpi, nch[block]),
+            "items": items, "slot": slot, "chunks": nch}
 
 
 def _rows_of_blocks(counts: Tensor):
@@ -128,23 +187,36 @@ def segsum_onehot_plain(msgs: Tensor, dst: Tensor, block_indptr: Tensor, num_seg
 
 def segsum_onehot_cuda(msgs: Tensor, dst: Tensor, block_indptr: Tensor, num_segments: int,
                        s_blk: int, chunk: int, nbuf: int = 2, nacc: int = 1, build: str = "A",
-                       mode: str = "full") -> Tensor:
+                       mode: str = "full", item_rows: int = ITEM_ROWS) -> Tensor:
     """Launch the kernel on the current stream: msgs [rows, F] f32 or bf16
-    (F a multiple of 64), dst [rows] int32, block_indptr int32, all on one
-    CUDA device."""
+    (F a multiple of 64), dst [rows] int32, block_indptr int32 (in order,
+    within [0, rows], as ``block_indptr`` makes it), all on one CUDA
+    device; work items of ``item_rows`` rows (module doc)."""
     _check_args(msgs, dst, block_indptr, num_segments, s_blk, chunk, nbuf, nacc, build, mode)
     if not (msgs.is_cuda and dst.device == msgs.device == block_indptr.device):
         raise ValueError("segsum_onehot_cuda needs msgs, dst and block_indptr on one CUDA device")
     if msgs.shape[1] % 64 or dst.dtype != torch.int32 or block_indptr.dtype != torch.int32:
         raise ValueError("segsum_onehot_cuda takes F a multiple of 64 and int32 ids and indptr")
+    cpi = item_chunks(chunk, item_rows)
+    if cpi * chunk > MAX_ITEM_ROWS:
+        raise ValueError(f"segsum_onehot_cuda: a work item holds at most {MAX_ITEM_ROWS} rows, "
+                         f"got chunk {chunk}, item_rows {item_rows}")
     kind, load_ids, stages = _MODE[mode]
     msgs, dst, bip = msgs.contiguous(), dst.contiguous(), block_indptr.contiguous()
-    F = msgs.shape[1]
+    if msgs.data_ptr() % 16 or dst.data_ptr() % 16:
+        raise ValueError("segsum_onehot_cuda: msgs and dst must start 16-byte aligned")
+    rows, F, nb = msgs.shape[0], msgs.shape[1], num_segments // s_blk
+    cap, slots = grid_bound(rows, nb, chunk, item_rows), slots_bound(rows, nb, chunk, item_rows)
+    # [header, items, split blocks, each partial's span a column tile (at least 16 columns)]
+    ws = torch.empty(4 + 4 * cap + 4 * nb + slots * (F // 16), dtype=torch.int32,
+                     device=msgs.device)
+    part = torch.empty(slots, s_blk, F, dtype=torch.float32, device=msgs.device)
     out = torch.empty(num_segments, F, dtype=torch.float32, device=msgs.device)
     rc = _kernels.lib().allset_segsum_onehot(
-        msgs.data_ptr(), dst.data_ptr(), bip.data_ptr(), msgs.shape[0], num_segments // s_blk,
-        F, s_blk, chunk, nbuf if stages is None else stages, nacc, kind, BUILDS.index(build),
-        int(load_ids), out.data_ptr(), _kernels.dtype_code(msgs), _kernels.stream_ptr(msgs),
+        msgs.data_ptr(), dst.data_ptr(), bip.data_ptr(), rows, nb, F, s_blk, chunk,
+        nbuf if stages is None else stages, nacc, kind, BUILDS.index(build), int(load_ids), cpi,
+        cap, slots, ws.data_ptr(), part.data_ptr(), out.data_ptr(), _kernels.dtype_code(msgs),
+        _kernels.stream_ptr(msgs),
     )
     _kernels.check(rc, "segsum_onehot")
     _kernels.launches["segsum_onehot"] += 1

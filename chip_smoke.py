@@ -54,8 +54,11 @@ Phases (any failure raises and exits non-zero):
      3, 4, 6, B3 at nacc 1, 2, 4, B4's builds A, B, C, B6's seven modes;
      f32 and bf16 within 1e-5 of the plain versions, rows not a multiple of
      the chunk, segments padded to the block, msgs with and without the
-     spare chunk), the streaming probes (B5 stream_flat, B7 stream_dual,
-     B8 stream_fold with both bodies, within 1e-5), and at the main
+     spare chunk; hub-skewed ids, one block holding 92% of 200,003
+     entries, split into work items, two launches bit-equal), the
+     streaming probes (B5 stream_flat, B7 stream_dual, B8 stream_fold with
+     both bodies, within 1e-5; B5 and B7 also with NaN past each chunk's
+     row 16), and at the main
      paths' shapes (the gather inside K1 on _Spmm's passes of a bench step
      and a 20-run epoch, bit for bit against B10 + K1, with each pass's
      slab count: the epoch's 1.9 GB tables are far above the L2 budget;
@@ -73,7 +76,8 @@ Phases (any failure raises and exits non-zero):
      B9 and index_select on the identity CSR and _Spmm's passes, the gather
      inside K1 against B10 + K1 in alternating pairs (the route's
      measurement); each new kernel must launch, each held to its plain
-     version;
+     version; each experiment's row also carries its device time, from a
+     CUDA graph of 10 calls (device_ms);
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
@@ -187,7 +191,7 @@ and K1 again per HAN step ("_han", phase 4e); the
 one-hot family ("segsum_onehot": B1; "_b2", "_b3", "_b4", "_b6": B2 at
 nbuf 2, B3 at nacc 1, B4's build A, B6's full mode) and the streaming
 probes (B5 "stream_flat", B7 "stream_dual", B8 "stream_fold", fold at
-chunk 512) from phase 3b, with its launches): launches, the kernel's
+chunk 512) from phase 3b, with its launches and device_ms): launches, the kernel's
 time and its plain version's summed over a bench step or an epoch (phase
 3b: one call at the script's shapes), the bound (the larger of the bytes
 over 3.35 TB/s and the products over the tensor cores: bf16 at 989
@@ -1243,7 +1247,7 @@ class Measured:
     """A kernels-line row measured by an experiment's main (its keys as
     Tally.row() gives them)."""
 
-    KEYS = ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "library_ms")
+    KEYS = ("ms", "device_ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "library_ms")
 
     def __init__(self, rec):
         self.rec = {k: rec.get(k) for k in self.KEYS}
@@ -2462,12 +2466,36 @@ def onehot_variants():
             + [(f"B6 {m}", 256, {"mode": m}) for m in co.MODES])
 
 
+def onehot_skewed_case(nnz, nseg, s_blk, chunk, F, dtype, dev, gen):
+    """Sorted ids over nseg segments with 92% of the entries in block 1
+    (five hub segments take 60% of those, the rest of the block uniform),
+    the other 8% uniform over all; padded as onehot_case pads them."""
+    from allset_tpu_torch.ops import cuda_onehot as co
+
+    n_hub = int(nnz * 0.92)
+    hubs = s_blk + torch.randperm(s_blk, generator=gen)[:5]
+    heavy = hubs[torch.randint(0, 5, (int(n_hub * 0.6),), generator=gen)]
+    rest = torch.randint(s_blk, 2 * s_blk, (n_hub - heavy.shape[0],), generator=gen)
+    spread = torch.randint(0, nseg, (nnz - n_hub,), generator=gen)
+    ids = torch.cat([heavy, rest, spread]).sort().values.to(torch.int32)
+    m_pad = -(-nseg // s_blk) * s_blk
+    dst = torch.full((co.pad_for_kernel(nnz, chunk),), m_pad + 7, dtype=torch.int32)
+    dst[:nnz] = ids
+    msgs = torch.randn(dst.shape[0], F, generator=gen).to(dtype)
+    bip = co.block_indptr(ids, m_pad, s_blk)
+    require(int((bip[1:] - bip[:-1]).max()) >= 0.9 * nnz, "the skewed case has no hub block")
+    return (msgs.to(dev), dst.to(dev), bip.to(dev), m_pad)
+
+
 def check_segsum_onehot(dev, gen):
     """Every B1-family variant against its plain version (ONEHOT_TOL):
-    f32 and bf16, 30,011 entries over 1,000 segments (padded to the
-    block), chunks of 512 rows; msgs with the spare chunk and, for the
-    first variant of each block size, ending at the last entry (rows past
-    it read as zeros with no id)."""
+    f32 at F 192 and bf16 at F 384, chunks of 512 rows; uniform ids
+    (30,011 entries over 1,000 segments, padded to the block; msgs with
+    the spare chunk and, for the first variant of each block size, ending
+    at the last entry: rows past it read as zeros with no id) and hub-
+    skewed ids (200,003 entries, one block holding 92%: split into work
+    items; every variant's two launches bit-equal, B3 and B6 full also at
+    work items of 512 and 4,096 rows)."""
     from allset_tpu_torch.experiments.common import ONEHOT_TOL
     from allset_tpu_torch.ops import _kernels, cuda_onehot as co
 
@@ -2487,16 +2515,40 @@ def check_segsum_onehot(dev, gen):
                 require(rel <= ONEHOT_TOL, f"segsum_onehot {label} disagrees ({dtype}, "
                         f"{'padded' if padded else 'unpadded'}): {rel}")
                 worst = max(worst, rel)
+        skewed = {}
+        for label, s_blk, kw in onehot_variants():
+            if s_blk not in skewed:
+                skewed[s_blk] = onehot_skewed_case(200_003, 1000, s_blk, 512, F, dtype, dev, gen)
+            msgs, dst, bip, m_pad = skewed[s_blk]
+            want = co.segsum_onehot_plain(msgs, dst, bip, m_pad, s_blk, 512, **kw)
+            sizes = (co.ITEM_ROWS, 512, 4096) if label in ("B3 nacc=2", "B6 full") else (
+                co.ITEM_ROWS,)
+            for item_rows in sizes:
+                got = co.segsum_onehot_cuda(msgs, dst, bip, m_pad, s_blk, 512, **kw,
+                                            item_rows=item_rows)
+                again = co.segsum_onehot_cuda(msgs, dst, bip, m_pad, s_blk, 512, **kw,
+                                              item_rows=item_rows)
+                torch.cuda.synchronize()
+                _, rel = scaled_err(got, want)
+                require(rel <= ONEHOT_TOL, f"segsum_onehot {label} disagrees on the skewed ids "
+                        f"({dtype}, items of {item_rows} rows): {rel}")
+                require(torch.equal(got, again), f"segsum_onehot {label}: two launches differ "
+                        f"on the skewed ids ({dtype}, items of {item_rows} rows)")
+                worst = max(worst, rel)
         log(f"  segsum_onehot {str(dtype)[6:]:8s} F={F}: {len(onehot_variants())} variants (B1, "
             f"B2 nbuf {co.NBUFS}, B3 nacc {co.NACCS}, B4 builds {co.BUILDS}, B6 {co.MODES}) "
-            f"within {worst:.2e} of the plain versions (tol {ONEHOT_TOL:g})")
+            f"on uniform and hub-skewed ids within {worst:.2e} of the plain versions (tol "
+            f"{ONEHOT_TOL:g}); two launches bit-equal on the skewed ids")
+        del cases, skewed
     _kernels.reset_launches()
 
 
 def check_stream(dev, gen):
     """B5, B7 and B8 (fold and first 16 rows) against their plain
     versions within 1e-5 scaled: f32 and bf16, [70 x 512 + 3, 384] rows
-    (a ragged tail past the whole blocks), chunks of 512 and 1,024."""
+    (a ragged tail past the whole blocks), chunks of 512 and 1,024; B5 and
+    B7 also with NaN in every chunk's rows 16 and up (they read only the
+    first 16 rows: finite outputs, within 1e-5)."""
     from allset_tpu_torch.ops import _kernels, cuda_stream as cst
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -2505,11 +2557,18 @@ def check_stream(dev, gen):
         seed = torch.randn(16, 384, generator=gen).to(dev)
         worst = 0.0
         for c in (512, 1024):
+            xn, yn = x[: 70 * 512].clone(), y[: 70 * 512].clone()
+            for t in (xn, yn):
+                t.view(-1, c, 384)[:, 16:] = float("nan")
             for name, fn, plain in (
                     ("B5", lambda: cst.stream_flat(x, seed, c),
                      lambda: cst.stream_flat_plain(x, seed, c)),
                     ("B7", lambda: cst.stream_dual(x, y, seed, c),
                      lambda: cst.stream_dual_plain(x, y, seed, c)),
+                    ("B5 NaN past row 16", lambda: cst.stream_flat(xn, seed, c),
+                     lambda: cst.stream_flat_plain(xn, seed, c)),
+                    ("B7 NaN past row 16", lambda: cst.stream_dual(xn, yn, seed, c),
+                     lambda: cst.stream_dual_plain(xn, yn, seed, c)),
                     ("B8 fold", lambda: cst.stream_fold(x, seed, c),
                      lambda: cst.stream_fold_plain(x, seed, c)),
                     ("B8 first16", lambda: cst.stream_fold(x, seed, c, "first16"),
@@ -2519,8 +2578,9 @@ def check_stream(dev, gen):
                 _, rel = scaled_err(got, want)
                 require(rel <= 1e-5, f"{name} disagrees ({dtype}, chunk {c}): {rel}")
                 worst = max(worst, rel)
-        log(f"  stream {str(dtype)[6:]:8s}: B5, B7, B8 fold and first16 at chunks 512 and 1024 "
-            f"within {worst:.2e} of the plain versions (tol 1e-5)")
+        log(f"  stream {str(dtype)[6:]:8s}: B5, B7 (also with NaN past each chunk's row 16), B8 "
+            f"fold and first16 at chunks 512 and 1024 within {worst:.2e} of the plain versions "
+            f"(tol 1e-5)")
     _kernels.reset_launches()
 
 

@@ -7,7 +7,9 @@ are not changed): B5 ``benchmarks/exp_segsum_ablate.py::run_flat`` and B7
 ``benchmarks/exp_autopipe.py::run`` on random input, both bodies. Also
 the plain surrogates on random input against numpy, and the routing (a
 CPU tensor takes the plain version with no launch counted). f32 at 1e-5
-of the reference's max |.|."""
+of the reference's max |.|. B5 and B7 read only each chunk's first 16
+rows: NaN past them changes nothing; B8's thread blocks' chunk runs cover
+every chunk once."""
 
 import functools
 import importlib.util
@@ -92,6 +94,35 @@ def test_plain_surrogates_on_random_input():
     _check(cst.stream_fold(X, S, CHUNK, "first16"), seed + first16(x, 21))
     _check(cst.stream_fold(X, S, CHUNK),
            seed + x[: 21 * CHUNK].reshape(-1, 16, F).astype(np.float64).sum(0))
+
+
+def test_b5_b7_plain_ignores_rows_past_16():
+    """B5 and B7 sum only each chunk's first 16 rows: NaN in every chunk's
+    rows 16 and up leaves the plain outputs finite and equal to those on
+    the clean input (the kernels read only those rows too)."""
+    x, y, seed = _tiled(5, 2 * cst.FLAT_CHUNKS), _tiled(6, 2 * cst.FLAT_CHUNKS), _seed()
+    X, Y, S = torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(seed)
+    Xn, Yn = X.clone(), Y.clone()
+    for t in (Xn, Yn):
+        t.view(-1, CHUNK, F)[:, 16:] = float("nan")
+    for got, want in ((cst.stream_flat(Xn, S, CHUNK), cst.stream_flat(X, S, CHUNK)),
+                      (cst.stream_dual(Xn, Yn, S, CHUNK), cst.stream_dual(X, Y, S, CHUNK))):
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nchunks", [0, 1, 7, 263, 264, 265, 512, 1136, 5000])
+def test_chunk_runs_cover_every_chunk_once(nchunks):
+    """B8's thread blocks' runs of consecutive chunks cover [0, nchunks)
+    once, none empty, at most FOLD_BLOCKS of them."""
+    cpb, grid = cst.chunk_runs(nchunks)
+    assert grid <= cst.FOLD_BLOCKS and cpb >= 1
+    seen = torch.zeros(nchunks, dtype=torch.long)
+    for g in range(grid):
+        lo, hi = g * cpb, min((g + 1) * cpb, nchunks)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert torch.equal(seen, torch.ones(nchunks, dtype=torch.long))
 
 
 def test_cpu_takes_the_plain_version_and_counts_no_launch():
