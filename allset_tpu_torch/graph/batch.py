@@ -4,7 +4,9 @@ Counterpart of ``allset_tpu/graph/batch.py``: features, labels, the
 incidence (None for the structure-free MLP and HyperGCN's reapprox
 path; the V2V graph for CEGCN/CEGAT, the Laplacian for HyperGCN) and the
 per-model extras (HNHN's norm vectors, UniGNN's degrees as tensors;
-HAN's metapath graphs as whole Incidences), all on one device; and
+HAN's metapath graphs as whole Incidences), all on one device; the
+edge-partitioned exchange ``shex`` (``parallel/sharded.py``), through
+which SetGNN, HCHA and UniGNN route their exchanges when it is set; and
 ``split_masks``. The device is the card unless the caller
 names another; without a card that default raises, it never falls back
 to the CPU.
@@ -28,6 +30,9 @@ class Batch:
     y: torch.Tensor  # [N] int64
     inc: Optional[Incidence]
     extras: Dict[str, Union[torch.Tensor, Incidence]] = dataclasses.field(default_factory=dict)
+    # a placed parallel.sharded.ShardedExchange (ShardedExchange.shard),
+    # on its Comm's device
+    shex: Optional[object] = None
 
     @property
     def num_nodes(self) -> int:
@@ -55,7 +60,8 @@ class Batch:
 
     def to(self, device) -> "Batch":
         """Every tensor and Incidence of the batch, extras included, on
-        ``device`` (a CUDA device raises where there is none)."""
+        ``device`` (a CUDA device raises where there is none). A ``shex``
+        is kept as it is: it was placed on its Comm's device."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Batch: no CUDA device is available "
@@ -65,6 +71,7 @@ class Batch:
             y=self.y.to(device),
             inc=None if self.inc is None else self.inc.to(device),
             extras={k: v.to(device) for k, v in self.extras.items()},
+            shex=self.shex,
         )
 
 

@@ -9,7 +9,9 @@ Counterpart of ``allset_tpu/models/hcha.py`` (reference
 Without attention (the CLI's path) both passes are the sorted exchange
 ``dir_spmm`` with the destination norms B^-1 and D^-* pulled out of the
 reduces as row scalings; on the self-loop split the V->E output is the
-N-slot layout, scaled by [1/|e| of the real edges | sl_mask]. With
+N-slot layout, scaled by [1/|e| of the real edges | sl_mask]; a batch
+with an edge-partitioned exchange ``shex`` (``parallel/sharded.py``,
+split or unsplit) runs both passes through it. With
 attention each incidence entry is scored att . [x_i || x_e], softmaxed
 over the node's entries (``segment_softmax``), and both passes gather
 (B10) and reduce per entry, by K1 over the incidence's sorted orders (the
@@ -115,11 +117,15 @@ class HypergraphConv(nn.Module):
             out = prop(fold(x, R), inc.node, by_v, inc.edge, by_e, inc.num_edges, Binv)
             out = unfold(prop(out, inc.edge, by_e, inc.node, by_v, n, Dinv), R)
         else:
-            if inc.real is not None:
+            if batch.shex is not None:  # the edge-partitioned exchange, split or unsplit
+                dv, de = batch.shex.v2e, batch.shex.e2v
+            elif inc.real is not None:
                 dv, de = inc.v2e_split(), inc.e2v_split()
-                scale_e = torch.cat([_safe_inv(inc.real.edge_count), inc.sl_mask])
             else:
                 dv, de = inc.v2e(), inc.e2v()
+            if dv.sl_mode == "append":
+                scale_e = torch.cat([_safe_inv(inc.real.edge_count), inc.sl_mask])
+            else:
                 scale_e = Binv
             out = row_scale(dir_spmm(fold(x, R), dv), scale_e)
             out = unfold(row_scale(dir_spmm(out, de), Dinv), R)

@@ -15,6 +15,12 @@ version runs is decided by the device of the batch alone.
     ``normalization='bn'``: the split layout's hole rows would enter the
     batch statistics of the Deep Sets half-layer's f_dec, as in the JAX
     gate (``allset_tpu/models/setgnn.py:143-155``).
+  * A batch with an edge-partitioned exchange ``shex``
+    (``parallel/sharded.py``) routes both directions through it, except
+    under 'bn', and under ``learn_mask`` unless it was built unsplit
+    (``split=False``), which LearnMask's canonical-order norm needs to
+    cover the self-loop entries (``allset_tpu/models/setgnn.py:137-150``).
+    LearnMask's norm then travels on the Directions (``norm_canon``).
   * Without GPR the fixed input dropout 0.2 of the reference is kept; it
     is the identity when ``train=False``.
   * ``gpr`` (reference ``src/models.py:389-397,457-471``): the relu'd
@@ -150,12 +156,24 @@ class SetGNN(nn.Module):
         p = cfg.dropout
         if cfg.all_num_layers == 0:
             return self.classifier(batch.x, train, generator).float()
-        if cfg.learn_mask or cfg.normalization == "bn" or inc.real is None:
+        shex = batch.shex
+        if shex is not None and (cfg.normalization == "bn" or (
+                cfg.learn_mask and shex.v2e.sl_mode != "none")):
+            shex = None  # the JAX gate: these take the single-device exchange
+        if shex is not None:
+            d_v2e, d_e2v = shex.v2e, shex.e2v
+        elif cfg.learn_mask or cfg.normalization == "bn" or inc.real is None:
             d_v2e, d_e2v = inc.v2e(), inc.e2v()
         else:
             d_v2e, d_e2v = inc.v2e_split(), inc.e2v_split()
         n_v2e = n_e2v = None  # the Deep Sets reduce's weights (execution order)
-        if not cfg.pma and cfg.learn_mask:
+        if cfg.learn_mask and shex is not None:
+            # canonical order on both Directions; the shards gather it
+            n = self.importance * inc.norm
+            d_v2e = dataclasses.replace(d_v2e, norm_canon=n)
+            d_e2v = dataclasses.replace(d_e2v, norm_canon=n)
+            n_v2e = n_e2v = None if cfg.pma else n
+        elif not cfg.pma and cfg.learn_mask:
             n = self.importance * inc.norm  # canonical order, [(R,) nnz_padded]
             n_v2e, n_e2v = n, n[..., inc.node_perm]
         elif not cfg.pma:

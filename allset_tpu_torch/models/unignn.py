@@ -48,17 +48,24 @@ def _two_stage(x: Tensor, batch: Batch, first_aggregate: str, second_aggregate: 
                R: Optional[int] = None):
     """(Xv, Xe) of the two-stage idiom through dir_spmm; 'mean' before a
     degE scaling folds its divisor into the scaling (one [E, F] pass).
+    A batch's edge-partitioned exchange ``shex`` serves both passes when
+    it was built unsplit (``allset_tpu/models/unignn.py:58-74``).
     scale_e, scale_v: [rows, 1] columns."""
     inc = batch.inc
+    shex = batch.shex
+    if shex is not None and shex.v2e.sl_mode != "none":
+        shex = None  # UniGNN reads every entry alike: only an unsplit build applies
+    dv = inc.v2e() if shex is None else shex.v2e
+    de = inc.e2v() if shex is None else shex.e2v
     agg1 = {"sum": "add"}.get(first_aggregate, first_aggregate)
     agg2 = {"sum": "add"}.get(second_aggregate, second_aggregate)
     if agg1 == "mean" and scale_e is not None:
         scale_e = (scale_e.reshape(-1) / inc.edge_count.clamp_min(1.0))[:, None]
         agg1 = "add"
-    xe = dir_spmm(fold(x, R), inc.v2e(), reduce=agg1)
+    xe = dir_spmm(fold(x, R), dv, reduce=agg1)
     if scale_e is not None:
         xe = row_scale(xe, scale_e[:, 0])
-    xv = dir_spmm(xe, inc.e2v(), reduce=agg2)
+    xv = dir_spmm(xe, de, reduce=agg2)
     if scale_v is not None:
         xv = row_scale(xv, scale_v[:, 0])
     return unfold(xv, R), unfold(xe, R)

@@ -45,6 +45,8 @@ from allset_tpu_torch.ops.cuda_pack import NEGATIVE_SLOPE, pma_pack
 from allset_tpu_torch.ops.cuda_pma import DEN_FLOOR, pma_epilogue, pma_epilogue_runs
 from allset_tpu_torch.ops.exchange import dir_gather, dir_reduce, dir_spmm
 from allset_tpu_torch.ops.segment import gather_rows, segment_softmax
+from allset_tpu_torch.parallel.sharded import (ShardedDirection, sharded_epilogue_active,
+                                               sharded_pma_epilogue)
 
 
 def runs_of(generator: Generators) -> Optional[int]:
@@ -415,6 +417,13 @@ class PMA(nn.Module):
     [rows, R, WP]; K4/K5 fold them to [rows, R*WP] for the exchange and the
     fused epilogue (K2R/K3R); the output is [M, R, out].
 
+    On an edge-partitioned Direction (``parallel/sharded.py``) whose
+    shapes the epilogue's kernels take (``sharded_epilogue_active``, the
+    same shape predicate) the epilogue runs per shard inside the exchange
+    (``sharded_pma_epilogue``); on any other the sharded exchange feeds the
+    epilogue above, as in the JAX module (``allset_tpu/nn/modules.py:308-320,
+    391-404``).
+
     The JAX module's parity options (``allset_tpu/nn/modules.py:241-247``)
     take its routes: neither uses the score+pack, and both compose the
     epilogue (LayerNorms through B12/B13, the rFF as GEMMs) in place of
@@ -517,6 +526,9 @@ class PMA(nn.Module):
     def forward(self, x: torch.Tensor, d: Direction):
         R = self.runs
         if self.softmax_mode == "segment" or self.return_attention:
+            if isinstance(d, ShardedDirection):
+                raise NotImplementedError("PMA's softmax_mode='segment' and return_attention "
+                                          "need a single-device Direction")
             p = self._params()
             if R is None:
                 out, attn = self._composed(x, d, p)
@@ -533,15 +545,24 @@ class PMA(nn.Module):
         Wrff, brff = self.rFF.stacked()
         epi = (att_flat, self.ln0.scale, self.ln0.bias, Wrff, brff, self.ln1.scale,
                self.ln1.bias, self.heads, self.fold_relu)
+        # an edge-partitioned Direction whose shapes the epilogue's kernels
+        # take runs the epilogue per shard, inside the exchange
+        sharded = isinstance(d, ShardedDirection) and sharded_epilogue_active(
+            d, HC, self.heads, Wrff.shape[-3], self.ln1.scale.shape[-1], R or 1)
         if R is None:
             yf, ba = self._scores(x, *params)
-            return pma_epilogue(dir_spmm(pma_pack(yf, self.lin_V.bias, ba, self.heads), d),
-                                *epi)
+            w = pma_pack(yf, self.lin_V.bias, ba, self.heads)
+            if sharded:
+                return sharded_pma_epilogue(w, d, *epi)
+            return pma_epilogue(dir_spmm(w, d), *epi)
         outs = [self._scores(x_r, *p) for x_r, *p in
                 zip(per_run(x, R), *(t.unbind(0) for t in params))]
         yf = torch.stack([o[0] for o in outs], dim=1)  # [N, R, WP]
         ba = torch.stack([o[1] for o in outs])  # [R, H]
         w = pma_pack(yf, self.lin_V.bias, ba, self.heads)  # runs folded: [N, R*WP]
+        if sharded:
+            out = sharded_pma_epilogue(w, d, *epi, runs=True)
+            return out.view(out.shape[0], R, -1)
         agg = dir_spmm(w, d)
         return pma_epilogue_runs(agg, *epi).view(agg.shape[0], R, -1)
 

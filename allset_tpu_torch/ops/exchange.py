@@ -60,6 +60,7 @@ import torch
 from allset_tpu_torch.graph.incidence import Direction, SegOrder
 from allset_tpu_torch.ops.cuda_segment import gather_segment_sum, scale_rows
 from allset_tpu_torch.ops.segment import gather_rows, segment_reduce
+from allset_tpu_torch.parallel.sharded import ShardedDirection, sharded_spmm
 
 Tensor = torch.Tensor
 
@@ -132,11 +133,27 @@ def dir_spmm(w: Tensor, d: Direction, norm=None, reduce: str = "add",
     source table's tail ``num_nodes`` rows scaled by ``sl_norm`` when
     weighted and by ``sl_mask`` (zero at holes) when not; under 'max' the
     tail rows enter the max where a self-loop exists. 'mean' divides by
-    ``dst_count`` (the full destination degree) clamped at 1."""
+    ``dst_count`` (the full destination degree) clamped at 1.
+
+    On a ShardedDirection ``norm`` only says whether the reduce is
+    weighted: by the norms baked into the shards, or by ``d.norm_canon``
+    where the model set one (then ``norm_grad`` applies to it)."""
     if reduce == "sum":
         reduce = "add"
     if reduce not in ("add", "mean", "max"):
         raise ValueError(f"unknown reduce {reduce!r}")
+    if isinstance(d, ShardedDirection):
+        traced = d.norm_canon if norm is not None else None
+        if norm is not None and norm_grad and traced is None:
+            raise NotImplementedError(
+                "norm gradients through a ShardedDirection need the traced norm on "
+                "d.norm_canon; refusing to drop the gradient")
+        out = sharded_spmm(w, d, use_norm=norm is not None and traced is None,
+                           reduce="max" if reduce == "max" else "add", norm=traced,
+                           norm_grad=norm_grad and traced is not None)
+        if reduce == "mean":
+            out = out / d.dst_count.clamp_min(1.0)[:, None].to(out.dtype)
+        return out
     core_reduce = "max" if reduce == "max" else "add"
     if d.sl_mode == "none":
         out = _core(w, d, norm, core_reduce, norm_grad)

@@ -7,6 +7,13 @@ backward, Adam) and an evaluation forward; per run the epoch with the
 best validation accuracy gives the reported test accuracy, and the runs
 aggregate as mean +- std (ddof=1), as the reference Logger does.
 
+A Batch with an edge-partitioned exchange (``shex``,
+``parallel/sharded.py``) trains the same way on every rank: each rank
+holds the same replicated parameters and seeds the same generators, so
+its dropout masks agree, and the exchange's own collectives (the ``dw``
+all-reduce) give every rank the same gradients; no DDP and no other
+all-reduce.
+
 Any ported model trains here (``models.build_model``): SetGNN
 (AllSetTransformer, AllDeepSets) and the conv zoo (HCHA, HNHN, UniGNN,
 UniGCNII, MLP, CEGCN, CEGAT, HyperGCN). The JAX package vmaps the runs;
@@ -315,7 +322,13 @@ class Trainer:
         1.904, 1.388 and 1.034, 3.477 at --MLP_hidden 512 against 2.889,
         6.782 at --MLP_hidden 1024 (K3R's wide route: its tables over the
         rows rounded up to 128, its partials and slabs) against 5.747, and
-        3.740 for AllDeepSets against 3.405 (PERF.md §5). The conv zoo: :meth:`_zoo_bytes_per_run`."""
+        3.740 for AllDeepSets against 3.405 (PERF.md §5). With an
+        edge-partitioned exchange (``batch.shex``) AllSetTransformer counts
+        half of the SETGNN_TABLES over the replicated rows (the pack's
+        table, the output) and half over this process's shards' rows (the
+        aggregate and its gradient), and K3R's scratch at a shard's rows
+        (an estimate not yet held to a measured peak). The conv zoo:
+        :meth:`_zoo_bytes_per_run`."""
         mc, inc = self.model_cfg, self.batch.inc
         if not isinstance(mc, SetGNNConfig):
             return self._zoo_bytes_per_run()
@@ -329,7 +342,20 @@ class Trainer:
             nnz, rows_v2e = inc.real.nnz, inc.real.num_edges + N
         rows = rows_v2e + N
         total = 4 * N * (mc.classifier_hidden + mc.num_classes)
-        if L > 0 and mc.pma:
+        shex = self.batch.shex
+        if L > 0 and mc.pma and shex is not None and mc.normalization != "bn" and (
+                not mc.learn_mask or shex.v2e.sl_mode == "none"):
+            # the edge-partitioned exchange: the aggregate and its gradient
+            # over this process's shards' rows, the rest replicated
+            v, e = shex.v2e, shex.e2v
+            shard_v, shard_e = ((v.rows_per_shard + v.rows_sl) * len(v.local),
+                                e.rows_per_shard * len(e.local))
+            half = SETGNN_TABLES // 2
+            total += item * WP * (half * (rows + shard_v + shard_e)
+                                  + SETGNN_NODE_TABLES * N) * L
+            total += cuda_pma.bwd_scratch_bytes(max(shard_v, shard_e), HC, mc.mlp_num_layers,
+                                                item)  # K3R on one shard at a time
+        elif L > 0 and mc.pma:
             total += item * WP * (SETGNN_TABLES * rows + SETGNN_NODE_TABLES * N) * L  # tables
             total += cuda_pma.bwd_scratch_bytes(max(rows_v2e, N), HC, mc.mlp_num_layers,
                                                 item)  # K3R

@@ -119,6 +119,18 @@ Phases (any failure raises and exits non-zero):
      and 4096 (steps/s, seeds/s, the host sampler's seeds/s; 3 B10 a step)
      and a short train_han_minibatch; HeteroHAN's coalesce and one
      forward and backward;
+  4f. (after 4e) the edge-partitioned step (allset_tpu_torch.parallel):
+     (a) world size 1 over NCCL at the bench step (bf16, HC 256, the fused
+     sharded epilogue in both directions) and (b) 4 shard bodies in turn
+     on the card (scale_free_hypergraph(32768 nodes, 16384 edges), f32, HC
+     256, the unsplit exchange with balanced cuts; AllSetTransformer and
+     AllDeepSets with LearnMask), each one step against the single-device
+     step from the same parameters (the loss and every gradient; (b) on a
+     loss without tied nodes), its launches per step (the gather inside
+     K1 4 a shard, K2, K3 and K3's parts 2 a shard, K4/K5 2, B10 at least
+     once; AllDeepSets B12/B13), its collectives and bytes as
+     sharded_comm_stats counts them, the per-shard entries, and the
+     sharded and single-device step times beside the card;
   5. a small f32 graph, as the bench step, with GPR, with LearnMask,
      AllDeepSets with and without LearnMask, and each zoo model (UniGIN
      and UniSAGE also without the norm; CEGCN, CEGAT, HyperGCN): one step
@@ -204,7 +216,9 @@ torch.sum over both partial tables, dW's and the small vectors'; K1 and the
 B1 family: torch.segment_reduce; the gather inside K1: index_select then
 torch.segment_reduce; B12/B13: F.layer_norm and its autograd backward;
 B10, B9: index_select; B5, B7, B8: a sum over a view); the last line is
-{"ok": true, "device": {...}}. K2's rows at the main path's shapes (the
+{"ok": true, "device": {...}}. The rows of kernels phase 4f launched
+carry its launches per sharded step ("launches_sharded" at world 1,
+"launches_sharded_4_bodies"). K2's rows at the main path's shapes (the
 bench step's tiled K2, the epoch's warpgroup K2R, the cluster K2 at
 hidden 384 and 512 and its K2R at 512) and the cluster K3a's (hidden 384
 and 512 steps, the 512 epoch) also name their kernel and its registers
@@ -3734,6 +3748,218 @@ def han_phase(dev, card):
     return counts, rows
 
 
+# --- phase 4f: the edge-partitioned step -------------------------------------
+#
+# The sharded exchange's launches per AllSetTransformer step over D shards:
+# the gather inside K1 once a direction and shard forward (B11's role) and
+# once backward (K1's reduce by src), K2 and K3 (with K3's parts, K3c the
+# reduce among them) once a direction and shard, K4 and K5 on the
+# replicated tables once a direction; B10 for the self-loop rows and, on
+# balanced cuts, the reasm and dist_idx gathers.
+def sharded_per_step(D):
+    return {"segment_sum_gather": 4 * D, "pma_epilogue_fwd": 2 * D, "pma_epilogue_bwd": 2 * D,
+            "pma_bwd_rows": 2 * D, "pma_bwd_dw": 2 * D, "pma_bwd_reduce": 2 * D,
+            "pma_gmax": 2, "pma_pack": 2}
+
+
+def grad_step(model, batch, mask):
+    """One forward and backward (no optimizer step) -> (loss, gradients,
+    launches, collectives, collective bytes), each count set to 0 just
+    before."""
+    from allset_tpu_torch.ops import _kernels
+    from allset_tpu_torch.parallel import distributed
+    from allset_tpu_torch.train import masked_nll
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    distributed.reset_collectives()
+    loss = masked_nll(model(batch, False), batch.y, mask)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    return (loss.item(), grads, dict(_kernels.launches), dict(distributed.collectives),
+            dict(distributed.collective_bytes))
+
+
+def hold_sharded(label, single, sharded, tol):
+    """The sharded step's loss and every gradient against the single-device
+    step's: the loss within tol[0] relative, each gradient within tol[1]
+    of its tensor's max |.|."""
+    (l1, g1), (l2, g2) = single[:2], sharded[:2]
+    rel = abs(l2 - l1) / max(abs(l1), 1e-12)
+    require(math.isfinite(l2) and rel <= tol[0], f"{label}: loss {l2} against {l1}")
+    require(set(g1) == set(g2), f"{label}: gradients of other parameters")
+    worst = (0.0, "")
+    for k in g1:
+        scale = max(g1[k].float().abs().max().item(), 1e-6)
+        e = (g2[k].float() - g1[k].float()).abs().max().item() / scale
+        require(e <= tol[1], f"{label}: gradient {k} disagrees: {e}")
+        worst = max(worst, (e, k))
+    log(f"  [{label}] loss sharded {l2:.7f} single {l1:.7f} rel {rel:.2e} (tol {tol[0]:g}); "
+        f"worst scaled gradient error {worst[0]:.2e} ({worst[1]}; tol {tol[1]:g})")
+
+
+def check_sharded_launches(label, launches, want, extra=()):
+    """Exactly ``want`` launches of its kernels and each of ``extra`` at
+    least once."""
+    for k, n in want.items():
+        require(launches[k] == n, f"{label}: {k} launched {launches[k]}, expected {n}")
+    for k in extra:
+        require(launches.get(k, 0) > 0, f"{label}: {k} never launched")
+
+
+def check_census(label, shex, coll, nbytes, width, item, hc=None, learn_mask=False):
+    from allset_tpu_torch.parallel.sharded import sharded_comm_stats
+
+    st = sharded_comm_stats(shex, width, item, learn_mask=learn_mask, epilogue_hc=hc)
+    want = {"all_gather": st["reassembly_fwd"] + st["allgathers_bwd"],
+            "all_reduce": st["psums_bwd"]}
+    want_b = {"all_gather": st["fwd_bytes"] + st["bwd_ag_bytes"],
+              "all_reduce": st["bwd_bytes"]}
+    require(coll == want and nbytes == want_b,
+            f"{label}: collectives {coll} {nbytes}, sharded_comm_stats {want} {want_b}")
+    log(f"  [{label}] collectives per step {coll}, bytes {nbytes}: as sharded_comm_stats "
+        f"counts them (no all-to-all)")
+
+
+def step_ms(model, batch, mask, steps=5):
+    """Median host-clock time of a training step (forward, backward, Adam)
+    in ms, after one warm-up step."""
+    _, times = run_steps(model, batch, mask, steps + 1)
+    return statistics.median(times[1:]) * 1e3
+
+
+def entry_line(shex):
+    from allset_tpu_torch.parallel.step import skew
+
+    return "; ".join(f"{d}: entries per shard {list(getattr(shex, d).shard_nnz)} (skew "
+                     f"{skew(getattr(shex, d).shard_nnz):.3f}, balanced cuts "
+                     f"{getattr(shex, d).reasm is not None})" for d in ("v2e", "e2v"))
+
+
+def sharded_world1(batch, dev, card, tmp):
+    """(a) world size 1 over NCCL at the bench graph's size and width
+    (bf16, HC 256, 8 heads): one AllSetTransformer step through the fused
+    sharded epilogue in both directions against the single-device step,
+    launches and census; the step times. Returns the sharded step's
+    launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from allset_tpu_torch.parallel import distributed
+    from allset_tpu_torch.parallel.sharded import ShardedExchange, sharded_epilogue_active
+
+    distributed.init_process_group("nccl", rank=0, world_size=1, device=dev, timeout_s=120,
+                                   init_method="file://" + os.path.join(tmp, "nccl_store"))
+    try:
+        comm = distributed.edge_comm(dev)
+        t0 = time.perf_counter()
+        shex = ShardedExchange.build(batch.inc, comm.num_shards).shard(comm)
+        log(f"  (a) {distributed.comm_summary(comm)}; partition built and placed in "
+            f"{time.perf_counter() - t0:.1f} s; {entry_line(shex)}")
+        bs = dataclasses.replace(batch, shex=shex)
+        model = bench_model(0, batch.inc.nnz_padded).to(dev)
+        require(sharded_epilogue_active(shex.v2e, 256, 8, 2, 256), "(a) fused epilogue inactive")
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        mask = torch.arange(batch.num_nodes, device=dev) % 2 == 0
+        single = grad_step(model, batch, mask)
+        sharded = grad_step(model, bs, mask)
+        label = "world 1, NCCL, bench step"
+        hold_sharded(label, single, sharded, TOL[torch.bfloat16])
+        launches = sharded[2]
+        log(f"  [{label}] launches per sharded step: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check_sharded_launches(label, launches, sharded_per_step(1), extra=("gather",))
+        check_census(label, shex, sharded[3], sharded[4], 264, 2, hc=256)
+        times = {}
+        for name, b in (("single", batch), ("sharded", bs)):
+            m = bench_model(0, batch.inc.nnz_padded).to(dev)
+            m.load_state_dict(state)
+            times[name] = step_ms(m, b, mask)
+        log(f"  [{label}] step {times['sharded']:.3f} ms sharded (NCCL world 1) against "
+            f"{times['single']:.3f} ms on one device (median of 5, host clock) [{card}]")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_bodies(dev, card, D=4):
+    """(b) D shard bodies one after another on the card, on a skewed
+    scale-free graph (balanced cuts) with the unsplit exchange LearnMask
+    needs, f32, HC 256, 8 heads: AllSetTransformer with LearnMask and
+    AllDeepSets with LearnMask (the SDDMM, B12/B13) against the
+    single-device step. Returns the AllSetTransformer step's launches."""
+    import dataclasses
+
+    from allset_tpu_torch.data import scale_free_hypergraph
+    from allset_tpu_torch.graph import Batch, add_self_loops, norm_construction
+    from allset_tpu_torch.models import SetGNN, SetGNNConfig
+    from allset_tpu_torch.parallel import distributed
+    from allset_tpu_torch.parallel.sharded import ShardedExchange
+
+    hd = norm_construction(add_self_loops(scale_free_hypergraph(
+        num_nodes=32768, num_hyperedges=16384, avg_edge_size=12, feature_dim=256, seed=1)),
+        "all_one")
+    batch = Batch.from_hyperdata(hd, device=dev, bucket=1024)
+    comm = distributed.local_comm(D, dev)
+    shex = ShardedExchange.build(batch.inc, D, split=False).shard(comm)
+    require(shex.e2v.reasm is not None, "(b) the skewed graph took equal row blocks")
+    log(f"  (b) {distributed.comm_summary(comm)}; nnz {batch.inc.nnz}; {entry_line(shex)}")
+    bs = dataclasses.replace(batch, shex=shex)
+    even = torch.arange(batch.num_nodes, device=dev) % 2 == 0
+    out = None
+    for label, mode in ((f"{D} bodies, AllSetTransformer, LearnMask", dict(learn_mask=True)),
+                        (f"{D} bodies, AllDeepSets, LearnMask",
+                         dict(pma=False, aggregate="add", learn_mask=True))):
+        cfg = SetGNNConfig(num_features=256, num_classes=8, all_num_layers=1, mlp_hidden=256,
+                           classifier_num_layers=1, heads=8, dropout=0.0,
+                           nnz_padded=batch.inc.nnz_padded, **mode)
+        model = SetGNN(cfg, torch.Generator().manual_seed(7)).to(dev)
+        pma = mode.get("pma", True)
+        tied = (tied_nodes if pma else tied_nodes_deepsets)(model, batch)
+        mask = even & ~tied
+        single = grad_step(model, batch, mask)
+        sharded = grad_step(model, bs, mask)
+        hold_sharded(label, single, sharded, (1e-5, 1e-3))
+        launches = sharded[2]
+        log(f"  [{label}] launches per sharded step: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if pma:
+            check_sharded_launches(label, launches, sharded_per_step(D), extra=("gather",))
+            check_census(label, shex, sharded[3], sharded[4], 264, 4, hc=256)
+            out = launches
+        else:
+            check_sharded_launches(label, launches, {"segment_sum_gather": 4 * D},
+                                   extra=("gather", "layer_norm_fwd", "layer_norm_bwd"))
+            check_census(label, shex, sharded[3], sharded[4], 256, 4, learn_mask=True)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        times = {}
+        for name, b in (("single", batch), ("sharded", bs)):
+            model.load_state_dict(state)
+            times[name] = step_ms(model, b, even)
+        log(f"  [{label}] step {times['sharded']:.3f} ms as {D} shard bodies in turn against "
+            f"{times['single']:.3f} ms on one device (median of 5, host clock) [{card}]")
+    return out
+
+
+def sharded_phase(batch, dev, card):
+    """Phase 4f: (a) and (b); returns the launches per sharded bench step
+    of (a), and of (b)'s AllSetTransformer step."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        world1 = sharded_world1(batch, dev, card, tmp)
+    bodies = sharded_bodies(dev, card)
+    seen = {k for c in (world1, bodies) for k, v in c.items() if v}
+    for k in ("segment_sum_gather", "pma_epilogue_fwd", "pma_epilogue_bwd", "pma_bwd_reduce",
+              "pma_gmax", "pma_pack", "gather"):
+        require(k in seen, f"phase 4f: {k} never launched")
+    log(f"  phase 4f took {time.perf_counter() - t0:.1f} s")
+    return world1, bodies
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3826,6 +4052,8 @@ def main() -> int:
     log("phase 4e: HAN at benchmarks/han_bench.py's shape (f32, 8 heads of 8)")
     han_counts, han_rows = han_phase(dev, card)
     timings.update(han_rows)
+    log("phase 4f: the edge-partitioned step (NCCL world 1 at bench size; 4 shard bodies)")
+    sharded_counts, bodies_counts = sharded_phase(batch, dev, card)
     require("jax" not in sys.modules, "the port loaded jax")
 
     log("phase 5: small f32 graph, kernels against plain")
@@ -3986,6 +4214,11 @@ def main() -> int:
         base = re.sub(r"(_(hc\d+|epoch|b\d+|han))+$", "", name)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": cnt[base], **timings[name].row()}
+        if name == base and sharded_counts.get(base):
+            # per step of phase 4f's edge-partitioned bench step (world 1)
+            # and of its 4 shard bodies (the AllSetTransformer step)
+            row.update(launches_sharded=sharded_counts[base],
+                       launches_sharded_4_bodies=bodies_counts.get(base, 0))
         if name in ptxas_of:
             regs, st, ld = next((p[1:] for p in ptxas if ptxas_of[name] in p[0]),
                                 (None, None, None))
