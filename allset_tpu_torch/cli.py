@@ -26,9 +26,12 @@ Differences from the JAX CLI:
     JAX CLI saves the final epoch's parameters (and with
     ``--no_vmap_runs`` the last run's only).
   * ``--plot`` needs matplotlib, which only it imports.
-  * ``--profile`` is not ported yet and raises (ROADMAP Queue 1 item 1,
-    the port's benchmark with the profiler); ``--epoch_chunk`` is accepted
-    and ignored. ``--method``
+  * ``--profile DIR`` wraps the training in ``utils/profiling.py::trace``
+    (torch.profiler in place of jax.profiler): on the card a trace of CPU
+    and CUDA activity, the port's kernels included (it raises rather than
+    write a trace without them), on the CPU of CPU activity, written into
+    DIR as a ``*.pt.trace.json`` file for Perfetto or TensorBoard.
+    ``--epoch_chunk`` is accepted and ignored. ``--method``
     takes every method of the JAX CLI: AllSetTransformer, AllDeepSets,
     CEGCN, CEGAT (``--heads``, ``--output_heads``), HyperGCN
     (``--HyperGCN_mediators``, ``--HyperGCN_fast false`` for the reapprox
@@ -115,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save each run's parameters and running statistics at its "
                         "best-valid epoch (a torch state_dict, leading runs axis)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="not ported yet (ROADMAP Queue 1 item 1)")
+                   help="write a torch.profiler trace of the training into DIR (CPU and, "
+                        "on the card, CUDA activity; Chrome/Perfetto JSON)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p
@@ -147,9 +151,6 @@ def run(argv=None):
     parser = build_parser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    if args.profile is not None:
-        raise NotImplementedError("--profile is not ported yet: it comes with the port's "
-                                  "benchmark and its profiler (ROADMAP Queue 1 item 1)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
@@ -204,7 +205,14 @@ def run(argv=None):
         display_step=args.display_step, seed=cfg.seed, remat=args.remat,
         keep_params=args.save_params is not None,
     ))
-    res = trainer.fit()
+    if args.profile:
+        from allset_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile, device):
+            res = trainer.fit()
+        print(f"Saved profiler trace to {args.profile}")
+    else:
+        res = trainer.fit()
     print(res.summary())
     if args.plot:
         print(f"Saved accuracy curves to {res.plot(args.plot)}")

@@ -9,30 +9,39 @@
 //   B8 benchmarks/exp_autopipe.py::_kernel: one chunk a block through
 //      Mosaic's automatic pipeline, each block folded 16 rows at a time
 //      into acc[16, F] (kind 2, "fold") or its first 16 rows only (kind 3).
-// out = seed + the sum, [16, F] f32.
+// out = seed + the sum, [16, F] f32. All are bound by bytes.
 //
-// B5 and B7 read only what their sums use: each chunk's first 16 rows (a
-// contiguous 16 F span), 16-byte vector loads straight into registers, no
-// shared-memory stage, one launch: a thread block owns a few vectors of
-// the span over every chunk, its threads sum runs of consecutive chunks in
-// chunk order and add the runs in order (deterministic; no partials). The
-// TPU probes streamed every row because they compared DMA mechanisms; the
-// card's streaming rate is B8's fold to measure, whose function reads
-// every row. B8 streams every byte of its chunks into shared memory: TMA
-// bulk copies (cp.async.bulk, one per stage, issued by one thread) on a
-// ring of 4 stages, each completing on its mbarrier, the card's
-// counterpart of Mosaic's automatic pipeline (a stage is SR consecutive
-// rows of a chunk: a 384-column bf16 chunk of 512 rows, 384 KB, fits no
-// SM). All three are bound by bytes.
+// B5, B7 and B8's first16 read only what their sums use: each chunk's
+// first 16 rows (a contiguous 16 F span), 16-byte vector loads straight
+// into registers, no shared-memory stage, one launch (stream_rows_kernel):
+// a thread block owns a few vectors of the span over every chunk, its
+// threads sum runs of consecutive chunks in chunk order and add the runs
+// in order (deterministic; no partials). The TPU probes streamed every
+// row because they compared DMA mechanisms; the card's streaming rate is
+// B8's fold to measure, whose function reads every row.
 //
-// B8's thread blocks each take a run of consecutive chunks (chunks /
-// thread blocks of them, so the partials stay few beside the bytes read)
-// and write a [16, F] f32 partial; a second pass adds the partials in
-// block order to the seed: deterministic (on the TPU the sum was carried
-// across the sequential grid). B5's and B7's TPU kernels read a static
-// slot 0 (`msc[0, :16]`), whose contents depend on when each DMA lands;
-// these read each chunk's own rows. On input whose chunks all hold the
-// same rows the two agree.
+// B8's fold (stream_fold_kernel) streams every byte into shared memory by
+// TMA bulk copies (cp.async.bulk) on a ring of kFoldStages slots, the
+// card's counterpart of Mosaic's automatic pipeline, with the roles split:
+// one producer warp keeps a copy in flight on every free slot (each slot a
+// `full` mbarrier that the copy completes and an `empty` one that each
+// consumer warp arrives on when done with it), and 8 consumer warps, no
+// block-wide barrier per stage. Each consumer thread owns fixed 16-byte
+// column vectors of the [16, F] span (thread t vectors t, t + 256, ...),
+// reads them from each 16-row group of a stage with 16-byte shared loads
+// and sums them in f32 registers (24 floats a thread at F 384). The fold's
+// function depends on chunks only through the row count, so the grid is
+// persistent (one block an SM) and block b of nb folds the 16-row groups
+// [G b / nb, G (b + 1) / nb) of the G whole groups
+// (ops/cuda_stream.py::fold_spans). Each block writes a [16, F] f32
+// partial; stream_combine_kernel adds them to the seed in a fixed tree (32
+// contiguous runs of partials a column, each in order, then the runs
+// pairwise): the same bits from run to run. It bounds the fold by bytes:
+// the whole of x once (0.120 ms at [524,288, 384] bf16 on an H100).
+//
+// B5's and B7's TPU kernels read a static slot 0 (`msc[0, :16]`), whose
+// contents depend on when each DMA lands; these read each chunk's own
+// rows. On input whose chunks all hold the same rows the two agree.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,9 +50,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTmaStages = 4;
 constexpr int kVB = 4, kUnroll = 8;  // B5, B7: vectors a block, chunks of loads in flight
-constexpr size_t kSmemBudget = 200 * 1024;
+// B8 fold: consumer threads, the ring's slots, the bytes a stage aims at
+// (whole 16-row groups, one group at least), the most 16-byte vectors a
+// consumer thread owns (a row of at most kFoldMaxV * 256 bytes)
+constexpr int kFoldConsumers = 256, kFoldThreads = kFoldConsumers + 32;
+constexpr int kFoldStages = 4;
+constexpr unsigned kStageBytes = 24 * 1024;
+constexpr int kFoldMaxV = 10;
+constexpr int kCombCols = 8, kCombRuns = 32;  // combine: float4 columns a block, runs a column
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -67,6 +82,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "memory");
   }
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
                                           uint64_t* bar) {
   asm volatile(
@@ -80,22 +98,23 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 struct Args {
   const void* src[2];
-  int nsrc, F, chunk, nchunks, cpb, sr, fold;  // cpb: chunks a thread block; sr: rows a stage
-  float* part;  // [gridDim.x][16][F]
+  int F, chunk, nchunks;
 };
 
-// acc (shared, [16][F] f32; thread i owns elements i, i + kThreads, ...)
-// += the stage's rows (fold: every row r into acc[r % 16]; else rows 0-15)
+struct FoldArgs {
+  const void* x;
+  long long groups;  // whole 16-row groups to fold
+  int rowb;          // bytes a row (F * itemsize, a multiple of 16)
+  int sg;            // 16-row groups a stage
+  float* part;       // [gridDim.x][16 F]
+};
+
+// acc += the 16 bytes of raw as floats
 template <typename T>
-__device__ __forceinline__ void consume(float* acc, const T* stage, int F, int rows, bool fold) {
-  for (int e = threadIdx.x; e < 16 * F; e += kThreads) {
-    float v = acc[e];
-    if (fold)
-      for (int i = e; i < rows * F; i += 16 * F) v += to_f(stage[i]);
-    else
-      v += to_f(stage[e]);
-    acc[e] = v;
-  }
+__device__ __forceinline__ void add16(float* acc, const uint4& raw) {
+  const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 16 / (int)sizeof(T); ++e) acc[e] += to_f(x[e]);
 }
 
 // B5, B7: out = seed + the first 16 rows of every chunk of nsrc sources,
@@ -161,92 +180,175 @@ __global__ void __launch_bounds__(kThreads) stream_rows_kernel(Args a, const flo
   }
 }
 
-// B8: TMA bulk copies on a ring of kTmaStages stages
-template <typename T>
-__global__ void __launch_bounds__(kThreads) stream_tma_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kTmaStages];
-  const size_t stage_elems = (size_t)a.sr * a.F;
-  const unsigned stage_bytes = (unsigned)(stage_elems * sizeof(T));
-  T* buf = reinterpret_cast<T*>(smem);  // [kTmaStages][sr][F]
-  float* acc = reinterpret_cast<float*>(smem + kTmaStages * (size_t)stage_bytes);
-  for (int e = threadIdx.x; e < 16 * a.F; e += kThreads) acc[e] = 0.f;
-  const int c0 = blockIdx.x * a.cpb, c1 = min(c0 + a.cpb, a.nchunks);
-  const int spc = a.chunk / a.sr, nst = (c1 - c0) * spc;
-  const T* x = static_cast<const T*>(a.src[0]);
-  auto issue = [&](int q) {
-    const long long row0 = (long long)(c0 + q / spc) * a.chunk + (long long)(q % spc) * a.sr;
-    uint64_t* bar = &full[q % kTmaStages];
-    mbar_expect(bar, stage_bytes);
-    bulk_copy(buf + (size_t)(q % kTmaStages) * stage_elems, x + row0 * a.F, stage_bytes, bar);
-  };
+// B8 fold: block b folds the 16-row groups [G b / nb, G (b + 1) / nb)
+// into its [16, F] f32 partial. Warp 8 is the producer: its lane 0 issues
+// stage q's bulk copy into slot q % kFoldStages once the consumers have
+// released the slot's previous stage; warps 0-7 consume. MV: the most
+// 16-byte vectors a consumer thread owns (rowb <= MV * kFoldConsumers).
+template <typename T, int MV>
+__global__ void __launch_bounds__(kFoldThreads) stream_fold_kernel(FoldArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kFoldStages], empty[kFoldStages];
+  constexpr int EV = 16 / sizeof(T);
+  const int gvec = a.rowb;  // 16-byte vectors in a 16-row group
+  const size_t gbytes = 16 * (size_t)a.rowb;
+  const long long g0 = a.groups * blockIdx.x / gridDim.x;
+  const long long g1 = a.groups * (blockIdx.x + 1) / gridDim.x;
+  const int nst = (int)((g1 - g0 + a.sg - 1) / a.sg);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kTmaStages; ++i) mbar_init(&full[i], 1);
+    for (int i = 0; i < kFoldStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kFoldConsumers / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int q = 0; q < kTmaStages && q < nst; ++q) issue(q);
   }
   __syncthreads();
-  for (int q = 0; q < nst; ++q) {
-    mbar_wait(&full[q % kTmaStages], (q / kTmaStages) & 1);
-    if (a.fold || q % spc == 0)
-      consume(acc, buf + (size_t)(q % kTmaStages) * stage_elems, a.F, a.sr, a.fold);
-    __syncthreads();  // every thread is done with the slot
-    if (threadIdx.x == 0 && q + kTmaStages < nst) issue(q + kTmaStages);
+  if (warp == kFoldConsumers / 32) {  // the producer
+    if (lane == 0) {
+      const unsigned char* x = static_cast<const unsigned char*>(a.x);
+      for (int q = 0; q < nst; ++q) {
+        const int s = q % kFoldStages;
+        if (q >= kFoldStages) mbar_wait(&empty[s], ((q / kFoldStages) - 1) & 1);
+        const long long ga = g0 + (long long)q * a.sg;
+        const unsigned bytes = (unsigned)(min((long long)a.sg, g1 - ga) * gbytes);
+        mbar_expect(&full[s], bytes);
+        bulk_copy(smem + s * a.sg * gbytes, x + ga * gbytes, bytes, &full[s]);
+      }
+    }
+    return;
   }
-  float* out = a.part + (size_t)blockIdx.x * 16 * a.F;
-  for (int e = threadIdx.x; e < 16 * a.F; e += kThreads) out[e] = acc[e];
+  float acc[MV][EV];
+#pragma unroll
+  for (int k = 0; k < MV; ++k)
+#pragma unroll
+    for (int e = 0; e < EV; ++e) acc[k][e] = 0.f;
+  for (int q = 0; q < nst; ++q) {
+    const int s = q % kFoldStages;
+    mbar_wait(&full[s], (q / kFoldStages) & 1);
+    const int ng = (int)min((long long)a.sg, g1 - (g0 + (long long)q * a.sg));
+    const uint4* st = reinterpret_cast<const uint4*>(smem + s * a.sg * gbytes);
+    for (int g = 0; g < ng; ++g) {
+#pragma unroll
+      for (int k = 0; k < MV; ++k) {
+        const int v = threadIdx.x + k * kFoldConsumers;
+        if (v < gvec) add16<T>(acc[k], st[g * gvec + v]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the slot
+  }
+  float* out = a.part + (size_t)blockIdx.x * 16 * (a.rowb / sizeof(T));
+#pragma unroll
+  for (int k = 0; k < MV; ++k) {
+    const int v = threadIdx.x + k * kFoldConsumers;
+    if (v < gvec)
+#pragma unroll
+      for (int e = 0; e < EV; e += 4)
+        *reinterpret_cast<float4*>(out + (size_t)v * EV + e) =
+            make_float4(acc[k][e], acc[k][e + 1], acc[k][e + 2], acc[k][e + 3]);
+  }
 }
 
-// out[e] = seed[e] + sum over the partials in block order
-__global__ void __launch_bounds__(kThreads)
-    stream_combine_kernel(const float* __restrict__ part, int nparts, int n,
-                          const float* __restrict__ seed, float* __restrict__ out) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  float v = seed[e];
-  for (int j = 0; j < nparts; ++j) v += part[(size_t)j * n + e];
-  out[e] = v;
+// out = seed + the nparts partials [nparts][n4] (float4 columns): block
+// column c's kCombRuns threads each add a contiguous run of partials in
+// order, then the runs are added pairwise in a fixed tree (the same bits
+// from run to run)
+__global__ void __launch_bounds__(kCombCols * kCombRuns)
+    stream_combine_kernel(const float4* __restrict__ part, int nparts, int n4,
+                          const float4* __restrict__ seed, float4* __restrict__ out) {
+  __shared__ float4 red[kCombRuns][kCombCols];
+  const int c = threadIdx.x % kCombCols, r = threadIdx.x / kCombCols;
+  const int col = blockIdx.x * kCombCols + c;
+  const int j0 = (int)((long long)nparts * r / kCombRuns);
+  const int j1 = (int)((long long)nparts * (r + 1) / kCombRuns);
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < n4) {
+#pragma unroll 8
+    for (int j = j0; j < j1; ++j) {
+      const float4 v = __ldcg(part + (size_t)j * n4 + col);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+  }
+  red[r][c] = sum;
+#pragma unroll
+  for (int h = kCombRuns / 2; h > 0; h /= 2) {
+    __syncthreads();
+    if (r < h) {
+      const float4 v = red[r + h][c];
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+      red[r][c] = sum;
+    }
+  }
+  if (r == 0 && col < n4) {
+    const float4 s = seed[col];
+    out[col] = make_float4(s.x + sum.x, s.y + sum.y, s.z + sum.z, s.w + sum.w);
+  }
 }
 
-// B8: the widest stage of whole rows, a power of two of at least 16 rows
-// dividing the chunk, whose nstage copies (x nsrc) and the [16, F] f32
-// accumulator fit the shared-memory budget; 0 if none
-int stage_rows(int F, int chunk, int nstage, int nsrc, size_t item) {
-  const size_t acc = 16 * (size_t)F * 4;
-  int sr = 0;
-  for (int r = 16; r <= chunk && chunk % r == 0; r *= 2)
-    if (acc + (size_t)nstage * nsrc * r * F * item <= kSmemBudget) sr = r;
-  return sr;
+// B8 fold's launch shape for rows of rowb bytes: 16-row groups a stage,
+// dynamic shared bytes and the kernel instance (null if the row is wider
+// than kFoldMaxV * 256 bytes)
+struct FoldCfg {
+  int sg;
+  size_t smem;
+  const void* fn;
+};
+
+template <typename T>
+FoldCfg fold_cfg(int rowb) {
+  const size_t gbytes = 16 * (size_t)rowb;
+  FoldCfg c{(int)(kStageBytes / gbytes > 0 ? kStageBytes / gbytes : 1), 0, nullptr};
+  c.smem = (size_t)kFoldStages * c.sg * gbytes;
+  const int v = (rowb + kFoldConsumers - 1) / kFoldConsumers;
+  if (v <= 3)
+    c.fn = (const void*)stream_fold_kernel<T, 3>;
+  else if (v <= 6)
+    c.fn = (const void*)stream_fold_kernel<T, 6>;
+  else if (v <= kFoldMaxV)
+    c.fn = (const void*)stream_fold_kernel<T, kFoldMaxV>;
+  return c;
 }
 
 template <typename T>
-int launch(Args a, int kind, const float* seed, float* out, cudaStream_t s) {
-  const int grid = (a.nchunks + a.cpb - 1) / a.cpb;
+int launch_fold(const void* x, long long groups, int F, int blocks, float* part,
+                const float* seed, float* out, cudaStream_t s) {
+  const int rowb = F * (int)sizeof(T);
+  const FoldCfg c = fold_cfg<T>(rowb);
+  if (c.fn == nullptr || blocks < 0 || (groups > 0 && (blocks == 0 || blocks > groups)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if (kind >= 2) {
-    a.sr = stage_rows(a.F, a.chunk, kTmaStages, 1, sizeof(T));
-    if (a.sr == 0) return (int)cudaErrorInvalidValue;
-    a.fold = kind == 2;
-    const size_t bytes = (size_t)kTmaStages * a.sr * a.F * sizeof(T) + 16 * (size_t)a.F * 4;
-    e = cudaFuncSetAttribute(stream_tma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+  if (groups > 0) {
+    e = cudaFuncSetAttribute(c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
     if (e != cudaSuccess) return (int)e;
-    if (grid > 0) stream_tma_kernel<T><<<grid, kThreads, bytes, s>>>(a);
-  } else {  // B5, B7: one launch, no partials
-    if (a.chunk < 16) return (int)cudaErrorInvalidValue;
-    const long long nvec = (long long)a.F * sizeof(T);
-    const unsigned g = (unsigned)((nvec + kVB - 1) / kVB);
-    if (a.nsrc == 1)
-      stream_rows_kernel<T, 1><<<g, kThreads, 0, s>>>(a, seed, out);
-    else
-      stream_rows_kernel<T, 2><<<g, kThreads, 0, s>>>(a, seed, out);
-    return (int)cudaGetLastError();
+    FoldArgs fa{x, groups, rowb, c.sg, part};
+    void* args[] = {&fa};
+    e = cudaLaunchKernel(c.fn, dim3(blocks), dim3(kFoldThreads), args, c.smem, s);
+    if (e != cudaSuccess) return (int)e;
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n = 16 * a.F;
-  stream_combine_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a.part, grid, n, seed,
-                                                                          out);
+  const int n4 = 4 * F;  // [16, F] f32 in float4 columns
+  stream_combine_kernel<<<(n4 + kCombCols - 1) / kCombCols, kCombCols * kCombRuns, 0, s>>>(
+      reinterpret_cast<const float4*>(part), groups > 0 ? blocks : 0, n4,
+      reinterpret_cast<const float4*>(seed), reinterpret_cast<float4*>(out));
+  return (int)cudaGetLastError();
+}
+
+// B5, B7, B8's first16: one launch of stream_rows_kernel, no partials
+template <typename T>
+int launch_rows(Args a, int nsrc, const float* seed, float* out, cudaStream_t s) {
+  if (a.chunk < 16) return (int)cudaErrorInvalidValue;
+  const long long nvec = (long long)a.F * sizeof(T);
+  const unsigned g = (unsigned)((nvec + kVB - 1) / kVB);
+  if (nsrc == 1)
+    stream_rows_kernel<T, 1><<<g, kThreads, 0, s>>>(a, seed, out);
+  else
+    stream_rows_kernel<T, 2><<<g, kThreads, 0, s>>>(a, seed, out);
   return (int)cudaGetLastError();
 }
 
@@ -254,24 +356,32 @@ int launch(Args a, int kind, const float* seed, float* out, cudaStream_t s) {
 
 extern "C" {
 
-// kind 0: B5 (a), 1: B7 (a and b), 2: B8 fold (a), 3: B8 first 16 rows (a).
-// a, b: [rows, F] (dtype 0 = f32, 1 = bf16), read over nchunks chunks of
-// `chunk` rows (at least 16); seed, out [16, F] f32; B8: cpb chunks a
-// thread block, part [ceil(nchunks / cpb), 16, F] f32 scratch (B5 and B7
-// take neither). F * itemsize a multiple of 16. Returns cudaGetLastError()
-// after the launches.
+// kind 0: B5 (a), 1: B7 (a and b), 2: B8 fold (a), 3: B8 first 16 rows
+// (a). a, b: [rows, F] (dtype 0 = f32, 1 = bf16), read over nchunks
+// chunks of `chunk` rows (a multiple of 16); seed, out [16, F] f32. Kinds
+// 0, 1, 3: one launch. Kind 2: `blocks` fold blocks (one an SM,
+// at most the nchunks * chunk / 16 groups), part [blocks, 16, F] f32
+// scratch. F * itemsize a multiple of 16. Returns cudaGetLastError() after
+// the launches.
 int allset_stream(const void* a, const void* b, const void* seed, int F, int chunk, int nchunks,
-                  int cpb, int kind, void* part, void* out, int dtype, void* stream) {
+                  int blocks, int kind, void* part, void* out, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const size_t item = dtype == 0 ? 4 : 2;
-  if (F <= 0 || (F * item) % 16 || chunk <= 0 || nchunks < 0 || cpb <= 0 || kind < 0 ||
+  if (F <= 0 || (F * item) % 16 || chunk <= 0 || chunk % 16 || nchunks < 0 || kind < 0 ||
       kind > 3 || (kind == 1 && b == nullptr))
     return (int)cudaErrorInvalidValue;
-  Args args{{a, b}, kind == 1 ? 2 : 1, F, chunk, nchunks, cpb, 0, 0, static_cast<float*>(part)};
   const float* sd = static_cast<const float*>(seed);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return launch<float>(args, kind, sd, o, s);
-  return launch<__nv_bfloat16>(args, kind, sd, o, s);
+  if (kind == 2) {
+    const long long groups = (long long)nchunks * (chunk / 16);
+    float* p = static_cast<float*>(part);
+    if (dtype == 0) return launch_fold<float>(a, groups, F, blocks, p, sd, o, s);
+    return launch_fold<__nv_bfloat16>(a, groups, F, blocks, p, sd, o, s);
+  }
+  Args args{{a, b}, F, chunk, nchunks};
+  const int nsrc = kind == 1 ? 2 : 1;
+  if (dtype == 0) return launch_rows<float>(args, nsrc, sd, o, s);
+  return launch_rows<__nv_bfloat16>(args, nsrc, sd, o, s);
 }
 
 }  // extern "C"

@@ -245,7 +245,9 @@ def stream_row(label, name, fn, plain, library, need_bytes, streamed_bytes, dev,
     over a view), the check against the plain version (1e-5 of its max
     |.|: f32 sums in another order), the bound of the function's bytes,
     the rate at which the probe read its bytes and, on the card, the
-    device time from a CUDA graph (device_ms)."""
+    device times of the kernel and of the library call from a CUDA graph
+    (device_ms, library_device_ms) and the kernel's share of its bound
+    (bound / device_ms)."""
     from allset_tpu_torch.ops import _kernels
 
     before = _kernels.launches[name]
@@ -254,11 +256,14 @@ def stream_row(label, name, fn, plain, library, need_bytes, streamed_bytes, dev,
     dev_ms = device_ms(fn) if dev.type == "cuda" else None
     p_ms = timed(plain, dev, 2)
     lib_ms = timed(library, dev, iters)
+    lib_dev = device_ms(library) if dev.type == "cuda" else None
     got, want = fn(), plain()
     err = scaled_err(got, want)
     if not err <= 1e-5:
         raise AssertionError(f"{name} {label} disagrees with its plain version: {err}")
     b, by = bound_ms(need_bytes)
     return {"label": label, "ms": ms, "device_ms": dev_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "max_abs_err": (got - want).abs().max().item(), "scaled_err": err, "bound_ms": b,
-            "bound_by": by, "stream_gbs": streamed_bytes / ms / 1e6, "launches": launches}
+            "library_device_ms": lib_dev, "max_abs_err": (got - want).abs().max().item(),
+            "scaled_err": err, "bound_ms": b, "bound_by": by,
+            "share": None if dev_ms is None else b / dev_ms,
+            "stream_gbs": streamed_bytes / ms / 1e6, "launches": launches}

@@ -1,13 +1,15 @@
-"""B8: streaming through TMA bulk copies on an mbarrier ring, on the card.
+"""B8: streaming through a warp-specialised TMA ring, on the card.
 
     python -m allset_tpu_torch.experiments.exp_autopipe [--device cpu] [--body fold|first16]
 
 Port of ``benchmarks/exp_autopipe.py``'s main: x [524,288, 384] bf16,
 chunks of 512, 1,024 and 2,048 rows, each folded 16 rows at a time into a
 [16, 384] f32 accumulator (``--body fold``; ``first16``: each chunk's
-first 16 rows, the script's other ``AUTOPIPE_BODY``). The card's
-counterpart of Mosaic's automatic pipeline is the TMA ring of
-``ops/cuda_stream.py``; its read rate beside the nominal 3.35 TB/s.
+first 16 rows, the script's other ``AUTOPIPE_BODY``, which reads only
+those rows). The card's counterpart of Mosaic's automatic pipeline is the
+fold's TMA ring (``ops/cuda_stream.py``); per chunk size the kernel's
+event and device times, its bound, its share of it, and the library
+call's (a sum over a view) event and device times.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def main(argv=None) -> dict:
             f"{args.body} chunk={chunk}", "stream_fold",
             lambda: cst.stream_fold(x, seed, chunk, args.body),
             lambda: cst.stream_fold_plain(x, seed, chunk, args.body), lib,
-            need + 2 * 16 * f * 4, n * chunk * f * 2, dev, args.iters))
+            need + 2 * 16 * f * 4, need, dev, args.iters))
     return common.report(f"B8 exp_autopipe ({args.body})", dev, rows)
 
 

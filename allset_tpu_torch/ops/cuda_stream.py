@@ -14,19 +14,22 @@ an mbarrier ring here, the card's automatic pipeline). Each returns
                                   into acc[r % 16]; "first16": each
                                   chunk's first 16 rows.
 
-B5 and B7 read only what their sums use, each chunk's first 16 rows, as
-vectors into registers. The TPU probes streamed every row of their
-chunks because they compared DMA mechanisms; on the card the streaming
-rate is B8's to measure (its fold reads every row, and it streams whole
-chunks for "first16" too). The TPU kernels of B5 and B7 read a static
+B5, B7 and B8's "first16" read only what their sums use, each chunk's
+first 16 rows, as vectors into registers, in one launch: a thread block
+owns a few 16-byte vectors of the [16, F] span over every chunk, its
+threads sum runs of consecutive chunks and add the runs in order. The TPU
+probes streamed every row of their chunks because they compared DMA
+mechanisms; on the card the streaming rate is B8's fold to measure (its
+function reads every row). The TPU kernels of B5 and B7 read a static
 slot 0 whose contents depend on when each DMA lands; these read each
 chunk's own rows (the two agree on input whose chunks are all alike).
-B5 and B7 are one launch: a thread block owns a few 16-byte vectors of
-the [16, F] span over every chunk, its threads sum runs of consecutive
-chunks and add the runs in order. B8's thread blocks each take a run of
-consecutive chunks (``chunk_runs``, at most ``FOLD_BLOCKS`` runs) and
-write a partial; a second pass adds the partials to the seed in block
-order.
+
+B8's fold is a persistent grid (``fold_blocks``: one block an SM) of
+warp-specialised TMA rings: block b folds the 16-row
+groups of its span (``fold_spans``: equal spans, 16-row aligned; the
+fold's function depends on chunks only through the row count) into f32
+registers and writes a partial; a second pass adds the partials to the
+seed in a fixed tree (the same bits from run to run).
 
 The ``stream_*`` functions launch the kernel for a CUDA tensor (counters
 ``stream_flat``, ``stream_dual``, ``stream_fold``) and take the plain
@@ -42,16 +45,26 @@ from allset_tpu_torch.ops import _kernels
 Tensor = torch.Tensor
 
 FLAT_CHUNKS, DUAL_CHUNKS = 8, 4  # chunks in a TPU grid block
-FOLD_BLOCKS = 264  # B8's thread blocks at most (two waves of an H100's 132 SMs)
 BODIES = ("fold", "first16")
 
 
-def chunk_runs(nchunks: int, blocks: int = FOLD_BLOCKS) -> tuple:
-    """B8's (chunks a thread block, thread blocks): runs of consecutive
-    chunks, run g holding chunks [g * cpb, min((g + 1) * cpb, nchunks)), at
-    most ``blocks`` of them."""
-    cpb = max(1, -(-nchunks // blocks))
-    return cpb, -(-nchunks // cpb)
+def fold_spans(rows: int, blocks: int) -> list:
+    """B8 fold's row span of each thread block, as ``stream_fold_kernel``
+    computes it: of the G = rows // 16 whole 16-row groups, block b of
+    min(blocks, G) folds groups [G b / nb, G (b + 1) / nb); returns the
+    [row0, row1) of each block."""
+    groups = rows // 16
+    nb = min(blocks, groups)
+    return [(16 * (groups * b // nb), 16 * (groups * (b + 1) // nb)) for b in range(nb)]
+
+
+def fold_blocks(x: Tensor) -> int:
+    """B8 fold's persistent grid on x's device: one block an SM (an SM
+    holds two at F 384, but on an H100 at 700 W 132 blocks fold x [524,288,
+    384] bf16 in 0.1381-0.1394 ms of device time against 0.1410-0.1432 for
+    264, and leave half the partials to add; ``scripts/stream_phases.py
+    --blocks``). A block that fits no SM fails at its launch."""
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _first16(x: Tensor, nchunks: int, chunk: int) -> Tensor:
@@ -94,13 +107,13 @@ def _launch(kind: int, name: str, a: Tensor, b, seed: Tensor, chunk: int, nchunk
         raise ValueError(f"{name}: [rows, F] arrays of one dtype, 16-byte aligned, with F * "
                          f"itemsize a multiple of 16, chunk a multiple of 16, seed [16, F] f32")
     out = torch.empty(16, F, dtype=torch.float32, device=a.device)
-    part, cpb = None, 1  # B5, B7: one launch, no partials
-    if kind >= 2:
-        cpb, grid = chunk_runs(nchunks)
-        part = torch.empty(max(grid, 1), 16, F, dtype=torch.float32, device=a.device)
+    part, blocks = None, 0  # B5, B7, B8's first16: one launch, no partials
+    if kind == 2:
+        blocks = min(fold_blocks(a), nchunks * chunk // 16)
+        part = torch.empty(max(blocks, 1), 16, F, dtype=torch.float32, device=a.device)
     rc = _kernels.lib().allset_stream(
         arrays[0].data_ptr(), None if b is None else arrays[1].data_ptr(), seed.data_ptr(), F,
-        chunk, nchunks, cpb, kind, None if part is None else part.data_ptr(), out.data_ptr(),
+        chunk, nchunks, blocks, kind, None if part is None else part.data_ptr(), out.data_ptr(),
         _kernels.dtype_code(a),
         _kernels.stream_ptr(a),
     )

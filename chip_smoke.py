@@ -57,8 +57,8 @@ Phases (any failure raises and exits non-zero):
      spare chunk; hub-skewed ids, one block holding 92% of 200,003
      entries, split into work items, two launches bit-equal), the
      streaming probes (B5 stream_flat, B7 stream_dual, B8 stream_fold with
-     both bodies, within 1e-5; B5 and B7 also with NaN past each chunk's
-     row 16), and at the main
+     both bodies at chunks up to 2,048, two calls bit for bit, within 1e-5;
+     B5 and B7 also with NaN past each chunk's row 16), and at the main
      paths' shapes (the gather inside K1 on _Spmm's passes of a bench step
      and a 20-run epoch, bit for bit against B10 + K1, with each pass's
      slab count: the epoch's 1.9 GB tables are far above the L2 budget;
@@ -77,7 +77,9 @@ Phases (any failure raises and exits non-zero):
      inside K1 against B10 + K1 in alternating pairs (the route's
      measurement); each new kernel must launch, each held to its plain
      version; each experiment's row also carries its device time, from a
-     CUDA graph of 10 calls (device_ms);
+     CUDA graph of 10 calls (device_ms); B8's rows (both bodies, chunks
+     512, 1,024, 2,048) logged with the device times of the kernel and of
+     the library call, the bound and the share of it;
   4. the benchmark step at its size and width (bf16): the
      AllSetTransformer training step on scale_free_hypergraph(131072
      nodes, 65536 edges, edge size 12, 256 features), 8 Adam steps, as
@@ -170,6 +172,11 @@ Phases (any failure raises and exits non-zero):
      the same way (CEGAT's routes by each group's folded width), CEGAT's 2
      runs folded against 2 one by one, and --HyperGCN_fast false on
      synthetic (2 runs x 2 epochs, each run on its own structures);
+  6c. (after the CLI runs of phase 6, before the zoo's) --profile DIR on
+     the walmart preset (f32, 2 runs x 3 epochs): the trace names the
+     path's kernels (the gather inside K1, K2R, K3R's parts, K4, K5), the
+     summary and metrics equal the run's without --profile; logs the
+     trace's ten largest device ops and the device's busy share;
   4d. (after 4c) 'bn' at the bench step, bf16, training steps (batch
      statistics): AllSetTransformer, AllDeepSets and CEGCN, 8 steps each,
      launches as predicted (no B12/B13), finite falling losses, two runs
@@ -203,7 +210,8 @@ and K1 again per HAN step ("_han", phase 4e); the
 one-hot family ("segsum_onehot": B1; "_b2", "_b3", "_b4", "_b6": B2 at
 nbuf 2, B3 at nacc 1, B4's build A, B6's full mode) and the streaming
 probes (B5 "stream_flat", B7 "stream_dual", B8 "stream_fold", fold at
-chunk 512) from phase 3b, with its launches and device_ms): launches, the kernel's
+chunk 512, and "stream_fold_first16", first16 at chunk 512) from phase
+3b, with its launches, device_ms and library_device_ms): launches, the kernel's
 time and its plain version's summed over a bench step or an epoch (phase
 3b: one call at the script's shapes), the bound (the larger of the bytes
 over 3.35 TB/s and the products over the tensor cores: bf16 at 989
@@ -1261,7 +1269,8 @@ class Measured:
     """A kernels-line row measured by an experiment's main (its keys as
     Tally.row() gives them)."""
 
-    KEYS = ("ms", "device_ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "library_ms")
+    KEYS = ("ms", "device_ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
 
     def __init__(self, rec):
         self.rec = {k: rec.get(k) for k in self.KEYS}
@@ -1297,9 +1306,61 @@ def run_experiments(bench, walmart):
     out = {"segsum_onehot": first["B1"], "segsum_onehot_b2": first["B2"],
            "segsum_onehot_b3": first["B3"], "segsum_onehot_b4": first["B4"],
            "segsum_onehot_b6": b6["full"], "stream_flat": b6["flat"],
-           "stream_dual": b6["dual"], "stream_fold": first["B8"]}
+           "stream_dual": b6["dual"], "stream_fold": first["B8"],
+           "stream_fold_first16": first["B8 first16"]}
+    for body in ("B8", "B8 first16"):
+        for r in rec[body]["variants"]:
+            log(f"  {r['label']}: device {r['device_ms']:.4f} ms (event {r['ms']:.4f}), bound "
+                f"{r['bound_ms']:.4f} ms ({r['share']:.1%} of it), library {r['library_device_ms']:.4f}"
+                f" ms (event {r['library_ms']:.4f}), launches {r['launches']}")
     _kernels.reset_launches()
     return {k: Measured(v) for k, v in out.items()}, counts
+
+
+# the port's kernels on the walmart preset's path (f32, HC 256) by the
+# names a trace gives them: the gather inside K1, K2R, K3R's parts
+# K3a/K3b/K3c, K4, K5
+PROFILE_KERNELS = ("segment_gather_kernel", "pma_fwd_wg_kernel", "pma_bwd_wg_kernel",
+                   "dw_wg_kernel", "reduce_partials_kernel", "gmax_kernel", "pack_kernel")
+
+
+def profile_phase(card, tmp):
+    """Phase 6c: --profile DIR on the card (synthetic-walmart preset, f32,
+    2 runs x 3 epochs): the trace holds the path's kernels by name
+    (PROFILE_KERNELS), the run prints the summary the run without
+    --profile prints and the same metrics, the launches per group and
+    epoch are the preset's; logs the trace's ten largest device ops and
+    the device's busy share of the traced window."""
+    import contextlib
+    import io
+
+    from allset_tpu_torch.utils import profiling
+
+    base = ["--dname", WALMART, "--preset", "--dtype", "float32", "--device", "cuda",
+            "--res_root", tmp, "--runs", "2", "--epochs", "3"]
+    d = os.path.join(tmp, "profile")
+    got = []
+    for extra in ([], ["--profile", d]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res, _ = cli_run(base + extra, 3)
+        got.append((res.summary().splitlines()[:-1], res.metrics, buf.getvalue(),
+                    time.perf_counter() - t0))
+    require(f"Saved profiler trace to {d}" in got[1][2], "--profile: no 'Saved profiler trace'")
+    require(got[0][0] == got[1][0], f"--profile changed the summary: {got[0][0]} {got[1][0]}")
+    require(bool(np.array_equal(got[0][1], got[1][1])), "--profile changed the metrics")
+    path = profiling.latest_trace(d)
+    summ = profiling.trace_summary(path)
+    missing = [k for k in PROFILE_KERNELS if not any(k in n for n in summ["kernels"])]
+    require(not missing, f"--profile: the trace lacks the port's kernels {missing}")
+    log(f"  --profile: {os.path.getsize(path) / 2**20:.1f} MiB trace; {len(summ['kernels'])} "
+        f"kernels, the port's {list(PROFILE_KERNELS)} among them; the same summary and metrics "
+        f"as without it; {got[0][3]:.1f} s without, {got[1][3]:.1f} s with the profiler")
+    for name, ms, n in summ["ops"]:
+        log(f"    {ms:10.3f} ms  x{n:<6d} {name[:110]}")
+    log(f"  device busy {summ['busy_ms']:.1f} of {summ['span_ms']:.1f} ms traced "
+        f"({summ['busy_share']:.1%}) [{card}]")
 
 
 def log_tallies(out, per):
@@ -2560,9 +2621,10 @@ def check_segsum_onehot(dev, gen):
 def check_stream(dev, gen):
     """B5, B7 and B8 (fold and first 16 rows) against their plain
     versions within 1e-5 scaled: f32 and bf16, [70 x 512 + 3, 384] rows
-    (a ragged tail past the whole blocks), chunks of 512 and 1,024; B5 and
-    B7 also with NaN in every chunk's rows 16 and up (they read only the
-    first 16 rows: finite outputs, within 1e-5)."""
+    (a ragged tail past the whole blocks), chunks of 512 and 1,024 (B8 also
+    2,048; two calls bit for bit); B5 and B7 also with NaN in every chunk's
+    rows 16 and up (they read only the first 16 rows: finite outputs,
+    within 1e-5)."""
     from allset_tpu_torch.ops import _kernels, cuda_stream as cst
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -2570,31 +2632,35 @@ def check_stream(dev, gen):
         y = torch.randn(70 * 512 + 3, 384, generator=gen).to(dtype).to(dev)
         seed = torch.randn(16, 384, generator=gen).to(dev)
         worst = 0.0
-        for c in (512, 1024):
-            xn, yn = x[: 70 * 512].clone(), y[: 70 * 512].clone()
+        for c in (512, 1024, 2048):
+            xn, yn = x[: 70 * 512 // c * c].clone(), y[: 70 * 512 // c * c].clone()
             for t in (xn, yn):
                 t.view(-1, c, 384)[:, 16:] = float("nan")
-            for name, fn, plain in (
-                    ("B5", lambda: cst.stream_flat(x, seed, c),
-                     lambda: cst.stream_flat_plain(x, seed, c)),
-                    ("B7", lambda: cst.stream_dual(x, y, seed, c),
-                     lambda: cst.stream_dual_plain(x, y, seed, c)),
-                    ("B5 NaN past row 16", lambda: cst.stream_flat(xn, seed, c),
-                     lambda: cst.stream_flat_plain(xn, seed, c)),
-                    ("B7 NaN past row 16", lambda: cst.stream_dual(xn, yn, seed, c),
-                     lambda: cst.stream_dual_plain(xn, yn, seed, c)),
-                    ("B8 fold", lambda: cst.stream_fold(x, seed, c),
-                     lambda: cst.stream_fold_plain(x, seed, c)),
-                    ("B8 first16", lambda: cst.stream_fold(x, seed, c, "first16"),
-                     lambda: cst.stream_fold_plain(x, seed, c, "first16"))):
+            cases = [("B8 fold", lambda: cst.stream_fold(x, seed, c),
+                      lambda: cst.stream_fold_plain(x, seed, c)),
+                     ("B8 first16", lambda: cst.stream_fold(x, seed, c, "first16"),
+                      lambda: cst.stream_fold_plain(x, seed, c, "first16"))]
+            if c < 2048:
+                cases += [("B5", lambda: cst.stream_flat(x, seed, c),
+                           lambda: cst.stream_flat_plain(x, seed, c)),
+                          ("B7", lambda: cst.stream_dual(x, y, seed, c),
+                           lambda: cst.stream_dual_plain(x, y, seed, c)),
+                          ("B5 NaN past row 16", lambda: cst.stream_flat(xn, seed, c),
+                           lambda: cst.stream_flat_plain(xn, seed, c)),
+                          ("B7 NaN past row 16", lambda: cst.stream_dual(xn, yn, seed, c),
+                           lambda: cst.stream_dual_plain(xn, yn, seed, c))]
+            for name, fn, plain in cases:
                 got, want = fn(), plain()
                 torch.cuda.synchronize()
                 _, rel = scaled_err(got, want)
                 require(rel <= 1e-5, f"{name} disagrees ({dtype}, chunk {c}): {rel}")
+                if name.startswith("B8"):
+                    require(torch.equal(got, fn()), f"{name}: two calls differ ({dtype}, "
+                            f"chunk {c})")
                 worst = max(worst, rel)
-        log(f"  stream {str(dtype)[6:]:8s}: B5, B7 (also with NaN past each chunk's row 16), B8 "
-            f"fold and first16 at chunks 512 and 1024 within {worst:.2e} of the plain versions "
-            f"(tol 1e-5)")
+        log(f"  stream {str(dtype)[6:]:8s}: B5, B7 (also with NaN past each chunk's row 16) at "
+            f"chunks 512 and 1024, B8 fold and first16 at chunks 512, 1024 and 2048 (two calls "
+            f"bit for bit) within {worst:.2e} of the plain versions (tol 1e-5)")
     _kernels.reset_launches()
 
 
@@ -4094,6 +4160,10 @@ def main() -> int:
         timings.update(ln_epoch)
         log_tallies(ln_epoch, "AllDeepSets 20-run epoch")
         route_runs(card, tmp)
+        log("phase 6c: --profile on the card (walmart preset, 2 runs x 3 epochs)")
+        t0 = time.perf_counter()
+        profile_phase(card, tmp)
+        log(f"  phase 6c took {time.perf_counter() - t0:.1f} s")
         zoo_cli_counts = zoo_protocol(card, tmp, dev)
         ce_cli_counts = ce_protocol(card, tmp, dev)
         log("phase 6b: real dataset names, --normalization bn, --save_params, --remat")
@@ -4130,6 +4200,7 @@ def main() -> int:
         "stream_flat": (stream, "benchmarks/exp_segsum_ablate.py:35", exp_counts),
         "stream_dual": (stream, "benchmarks/exp_segsum_ablate.py:326", exp_counts),
         "stream_fold": (stream, "benchmarks/exp_autopipe.py:28", exp_counts),
+        "stream_fold_first16": (stream, "benchmarks/exp_autopipe.py:28", exp_counts),
         "pma_epilogue_fwd": ("allset_tpu_torch/csrc/pma_epilogue_fwd.cu",
                              "allset_tpu/ops/pallas_pma.py:170", counts),
         "pma_epilogue_bwd": ("allset_tpu_torch/csrc/pma_epilogue_wg.cu",
@@ -4211,7 +4282,7 @@ def main() -> int:
                 "pma_epilogue_bwd_runs_hc1024": "wide_gemm_kernel<float, float>"}
     kernels = []
     for name, (src, rep, cnt) in sources.items():
-        base = re.sub(r"(_(hc\d+|epoch|b\d+|han))+$", "", name)
+        base = re.sub(r"(_(hc\d+|epoch|b\d+|han|first16))+$", "", name)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": cnt[base], **timings[name].row()}
         if name == base and sharded_counts.get(base):

@@ -8,8 +8,8 @@ are not changed): B5 ``benchmarks/exp_segsum_ablate.py::run_flat`` and B7
 the plain surrogates on random input against numpy, and the routing (a
 CPU tensor takes the plain version with no launch counted). f32 at 1e-5
 of the reference's max |.|. B5 and B7 read only each chunk's first 16
-rows: NaN past them changes nothing; B8's thread blocks' chunk runs cover
-every chunk once."""
+rows: NaN past them changes nothing; B8's fold spans cover every row of
+the whole chunks once, 16-row aligned and even."""
 
 import functools
 import importlib.util
@@ -113,22 +113,62 @@ def test_b5_b7_plain_ignores_rows_past_16():
 
 @pytest.mark.parametrize("nchunks", [0, 1, 7, 263, 264, 265, 512, 1136, 5000])
 def test_chunk_runs_cover_every_chunk_once(nchunks):
-    """B8's thread blocks' runs of consecutive chunks cover [0, nchunks)
-    once, none empty, at most FOLD_BLOCKS of them."""
-    cpb, grid = cst.chunk_runs(nchunks)
-    assert grid <= cst.FOLD_BLOCKS and cpb >= 1
-    seen = torch.zeros(nchunks, dtype=torch.long)
-    for g in range(grid):
-        lo, hi = g * cpb, min((g + 1) * cpb, nchunks)
-        assert lo < hi
-        seen[lo:hi] += 1
-    assert torch.equal(seen, torch.ones(nchunks, dtype=torch.long))
+    """B8 fold's thread blocks' spans (fold_spans, the kernel's formula)
+    cover the rows of the whole chunks, [0, nchunks * chunk), once: none
+    empty, each 16-row aligned, at most as many as the blocks given."""
+    rows = nchunks * CHUNK
+    for blocks in (1, 132, 264):
+        spans = cst.fold_spans(rows, blocks)
+        assert len(spans) == min(blocks, rows // 16)
+        seen = torch.zeros(rows, dtype=torch.long)
+        for lo, hi in spans:
+            assert lo < hi and lo % 16 == 0 and hi % 16 == 0
+            seen[lo:hi] += 1
+        assert torch.equal(seen, torch.ones(rows, dtype=torch.long))
+
+
+@pytest.mark.parametrize("chunk", [512, 1024, 2048])
+def test_fold_spans_are_even_at_the_experiment_shape(chunk):
+    """At exp_autopipe's shape ([524,288, 384], the whole chunks of each
+    size) the persistent grid's spans differ by at most one 16-row group,
+    at one and at two blocks an SM of an H100 (132 and 264 blocks): the
+    fold's work does not depend on the chunk size."""
+    rows = 512 * 1024 // chunk * chunk
+    for blocks in (132, 264):
+        sizes = {hi - lo for lo, hi in cst.fold_spans(rows, blocks)}
+        assert max(sizes) - min(sizes) <= 16, sizes
+        assert sum(hi - lo for lo, hi in cst.fold_spans(rows, blocks)) == rows
+
+
+def test_fold_by_spans_and_tree_matches_plain():
+    """The fold's order of additions, emulated on the host in f32: each
+    span's rows summed into its partial, the partials in kCombRuns = 32
+    contiguous runs, each summed in order, the runs added pairwise (run r
+    += run r + h for h = 16, 8, 4, 2, 1), then the seed: within 1e-5 of the
+    plain version (f32 sums in another order)."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(37 * CHUNK + 9, F)).astype(np.float32)
+    seed = _seed()
+    rows = x.shape[0] // CHUNK * CHUNK
+    parts = [x[lo:hi].reshape(-1, 16, F).sum(0) for lo, hi in cst.fold_spans(rows, 50)]
+    runs = [np.zeros((16, F), np.float32) for _ in range(32)]
+    for r in range(32):
+        for p in parts[len(parts) * r // 32:len(parts) * (r + 1) // 32]:
+            runs[r] = runs[r] + p
+    for h in (16, 8, 4, 2, 1):
+        for r in range(h):
+            runs[r] = runs[r] + runs[r + h]
+    got = seed + runs[0]
+    want = cst.stream_fold(torch.from_numpy(x), torch.from_numpy(seed), CHUNK)
+    _check(torch.from_numpy(got), want.numpy())
 
 
 def test_cpu_takes_the_plain_version_and_counts_no_launch():
     _kernels.reset_launches()
     x, seed = torch.randn(16 * CHUNK, F), torch.zeros(16, F)
     assert torch.equal(cst.stream_fold(x, seed, CHUNK), cst.stream_fold_plain(x, seed, CHUNK))
+    assert torch.equal(cst.stream_fold(x, seed, CHUNK, "first16"),
+                       cst.stream_fold_plain(x, seed, CHUNK, "first16"))
     assert torch.equal(cst.stream_flat(x, seed, CHUNK), cst.stream_flat_plain(x, seed, CHUNK))
     with pytest.raises(ValueError):
         cst.stream_fold(x, seed, CHUNK, "half")
@@ -137,8 +177,9 @@ def test_cpu_takes_the_plain_version_and_counts_no_launch():
 
 @pytest.mark.cuda
 def test_kernels_match_their_plain_versions():
-    """On the card: B5, B7 and B8 (both bodies) within 1e-5 of their plain
-    versions, bf16 and f32, one launch a call."""
+    """On the card: B5, B7 and B8 (both bodies, chunks of 512, 1,024 and
+    2,048) within 1e-5 of their plain versions, bf16 and f32, one launch a
+    call; B8's two runs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     gen = torch.Generator().manual_seed(0)
@@ -146,14 +187,19 @@ def test_kernels_match_their_plain_versions():
         x = torch.randn(70 * 512 + 3, 384, generator=gen).to(dtype).cuda()
         y = torch.randn(70 * 512 + 3, 384, generator=gen).to(dtype).cuda()
         seed = torch.randn(16, 384, generator=gen).cuda()
-        for fn, plain in ((lambda: cst.stream_flat(x, seed, 512),
-                           lambda: cst.stream_flat_plain(x, seed, 512)),
-                          (lambda: cst.stream_dual(x, y, seed, 512),
-                           lambda: cst.stream_dual_plain(x, y, seed, 512)),
-                          (lambda: cst.stream_fold(x, seed, 512),
-                           lambda: cst.stream_fold_plain(x, seed, 512)),
-                          (lambda: cst.stream_fold(x, seed, 512, "first16"),
-                           lambda: cst.stream_fold_plain(x, seed, 512, "first16"))):
+        cases = [(lambda: cst.stream_flat(x, seed, 512),
+                  lambda: cst.stream_flat_plain(x, seed, 512)),
+                 (lambda: cst.stream_dual(x, y, seed, 512),
+                  lambda: cst.stream_dual_plain(x, y, seed, 512))]
+        for chunk in (512, 1024, 2048):
+            for body in cst.BODIES:
+                cases.append((lambda c=chunk, b=body: cst.stream_fold(x, seed, c, b),
+                              lambda c=chunk, b=body: cst.stream_fold_plain(x, seed, c, b)))
+        for i, (fn, plain) in enumerate(cases):
+            before = dict(_kernels.launches)
             got, want = fn(), plain()
+            assert sum(_kernels.launches[k] - before[k] for k in before) == 1
             err = (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
-            assert err <= TOL, (dtype, err)
+            assert err <= TOL, (dtype, i, err)
+            if i >= 2:
+                assert torch.equal(got, fn()), (dtype, i)

@@ -280,15 +280,29 @@ def test_cli_never_falls_back_to_the_cpu_and_loads_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--profile", "trace"], ["--remat", "--profile", "trace"]])
-def test_cli_unported_parts_raise(flags, tmp_path):
-    """--profile, the one flag not ported yet, raises naming its ROADMAP
-    item, also beside a ported flag (--remat and --plot run since they
-    were ported, tests/test_torch_cli_surface.py)."""
+def test_cli_unported_parts_raise(flags, tmp_path, capsys):
+    """--profile, the last flag of the JAX CLI the port lacked, now runs
+    (no part of the CLI raises as unported): alone and beside a ported
+    flag (--remat), ``cli.main`` writes a trace of CPU activity into its
+    directory on the CPU, says so, and prints the same summary numbers as
+    the same command without it (the wall time aside)."""
     from allset_tpu_torch import cli
+    from allset_tpu_torch.utils import profiling
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        cli.main(["--device", "cpu", "--dname", "synthetic", "--epochs", "1", "--runs", "1",
-                  "--res_root", str(tmp_path), *flags])
+    base = ["--device", "cpu", "--dname", "synthetic", "--epochs", "2", "--runs", "1",
+            "--res_root", str(tmp_path)]
+    flags = [str(tmp_path / f) if f == "trace" else f for f in flags]
+    got = []
+    for extra in ([f for f in flags if f == "--remat"], flags):
+        capsys.readouterr()
+        assert cli.main(base + extra) == 0
+        lines = capsys.readouterr().out.splitlines()
+        got.append([ln for ln in lines if ln.startswith(("Highest", "  Final", "   Final"))]
+                   + [ln.split(", wall")[0] for ln in lines if ln.startswith("params:")])
+    assert f"Saved profiler trace to {tmp_path / 'trace'}" in lines
+    summ = profiling.trace_summary(profiling.latest_trace(str(tmp_path / "trace")))
+    assert summ["span_ms"] > 0 and summ["ops"] == []  # CPU activity only
+    assert len(got[0]) == 5 and got[0] == got[1]
 
 
 def test_cli_accepts_and_ignores_epoch_chunk(tmp_path, capsys):
