@@ -30,7 +30,14 @@ Differences from the JAX CLI:
     (torch.profiler in place of jax.profiler): on the card a trace of CPU
     and CUDA activity, the port's kernels included (it raises rather than
     write a trace without them), on the CPU of CPU activity, written into
-    DIR as a ``*.pt.trace.json`` file for Perfetto or TensorBoard.
+    DIR as a ``*.pt.trace.json`` file for Perfetto or TensorBoard. The
+    trace names the trainer's phases as ranges: ``trainer.fit``,
+    ``trainer.masks`` (the runs' splits), ``trainer.init`` (a group's
+    parameters and optimizer), ``trainer.epoch`` and inside it
+    ``trainer.forward``, ``trainer.backward``, ``trainer.optimizer`` and
+    ``trainer.eval``, ``trainer.collect`` (the metrics' copy to the
+    host); and SetGNN's blocks: ``model.V2E_{i}``, ``model.E2V_{i}``,
+    ``model.classifier``.
     ``--epoch_chunk`` is accepted and ignored. ``--method``
     takes every method of the JAX CLI: AllSetTransformer, AllDeepSets,
     CEGCN, CEGAT (``--heads``, ``--output_heads``), HyperGCN
@@ -119,7 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "best-valid epoch (a torch state_dict, leading runs axis)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the training into DIR (CPU and, "
-                        "on the card, CUDA activity; Chrome/Perfetto JSON)")
+                        "on the card, CUDA activity; Chrome/Perfetto JSON), with the ranges "
+                        "trainer.fit, .masks, .init, .epoch, .forward, .backward, .optimizer, "
+                        ".eval, .collect and SetGNN's model.V2E_{i}, model.E2V_{i}, "
+                        "model.classifier")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p

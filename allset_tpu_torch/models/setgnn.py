@@ -52,6 +52,7 @@ from torch import nn
 from allset_tpu_torch.graph.batch import Batch
 from allset_tpu_torch.nn.init import Generators
 from allset_tpu_torch.nn.modules import MLP, HalfNLHconv, TorchDense, dropout, runs_of
+from allset_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +156,8 @@ class SetGNN(nn.Module):
         cfg, inc = self.cfg, batch.inc
         p = cfg.dropout
         if cfg.all_num_layers == 0:
-            return self.classifier(batch.x, train, generator).float()
+            with annotate("model.classifier"):
+                return self.classifier(batch.x, train, generator).float()
         shex = batch.shex
         if shex is not None and (cfg.normalization == "bn" or (
                 cfg.learn_mask and shex.v2e.sl_mode != "none")):
@@ -185,13 +187,16 @@ class SetGNN(nn.Module):
         else:
             h = dropout(batch.x, 0.2, train, generator)  # fixed input dropout
         for i in range(cfg.all_num_layers):
-            h = getattr(self, f"V2E_{i}")(h, d_v2e, n_v2e, **kw)  # ends in a relu
+            with annotate(f"model.V2E_{i}"):
+                h = getattr(self, f"V2E_{i}")(h, d_v2e, n_v2e, **kw)  # ends in a relu
             h = dropout(h, p, train, generator)
-            h = getattr(self, f"E2V_{i}")(h, d_e2v, n_e2v, **kw)
+            with annotate(f"model.E2V_{i}"):
+                h = getattr(self, f"E2V_{i}")(h, d_e2v, n_e2v, **kw)
             if cfg.gpr:
                 xs.append(h)
             h = dropout(h, p, train, generator)
         if cfg.gpr:
             stacked = torch.stack([t.float() for t in xs], dim=-1)  # [N, (R,) hid, L+1]
             h = self.GPRweights(stacked).squeeze(-1)
-        return self.classifier(h, train, generator).float()
+        with annotate("model.classifier"):
+            return self.classifier(h, train, generator).float()

@@ -45,13 +45,19 @@ same bits as without it.
 statistics) at its best-valid epoch, the epoch whose test accuracy the
 summary reports as Final Test, in ``Results.params``; the JAX package
 keeps the final epoch's instead.
+
+``fit`` records spans (``utils/profiling.py``): ``trainer.fit`` around
+all of it, ``trainer.masks``, ``trainer.init`` a group, ``trainer.epoch``
+(with the port's launches in it, ``counts["launches"]``) holding
+``trainer.forward``, ``trainer.backward``, ``trainer.optimizer`` and
+``trainer.eval``, and ``trainer.collect``. Under the profiler on the card
+the epoch and its phases also time the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -64,8 +70,9 @@ from allset_tpu_torch.models import (CEConfig, HCHAConfig, HNHNConfig, HyperGCNC
                                      UniGNNConfig, build_model)
 from allset_tpu_torch.models.hypergcn import laplacian_nnz_bound
 from allset_tpu_torch.nn.modules import frozen_batch_stats, packed_width
-from allset_tpu_torch.ops import cuda_pma
+from allset_tpu_torch.ops import _kernels, cuda_pma
 from allset_tpu_torch.train.factory import make_optimizer
+from allset_tpu_torch.utils.profiling import span
 
 
 # [rows, WP] tables an AllSetTransformer half-layer keeps per run at its
@@ -272,26 +279,36 @@ class Trainer:
         on the device, the parameter count of one run, and with
         ``keep_params`` each run's state at its best-valid epoch, else
         None)."""
-        cfg = self.cfg
-        model = self._init(runs)
-        gens = [torch.Generator(device=self.device).manual_seed(run_seeds(cfg.seed, r)[1])
-                for r in runs]
-        opt = make_optimizer(model, cfg.lr, cfg.wd)
-        k = max(1, cfg.eval_every)
-        metrics = torch.zeros(len(runs), cfg.epochs, 6, device=self.device)
-        prev = torch.zeros(len(runs), 6, device=self.device)
-        best = BestState(model, len(runs)) if cfg.keep_params else None
+        cfg, dev = self.cfg, self.device
+        with span("trainer.init"):
+            model = self._init(runs)
+            gens = [torch.Generator(device=dev).manual_seed(run_seeds(cfg.seed, r)[1])
+                    for r in runs]
+            opt = make_optimizer(model, cfg.lr, cfg.wd)
+            k = max(1, cfg.eval_every)
+            metrics = torch.zeros(len(runs), cfg.epochs, 6, device=dev)
+            prev = torch.zeros(len(runs), 6, device=dev)
+            best = BestState(model, len(runs)) if cfg.keep_params else None
+        launches = _kernels.launches
         for ep in range(cfg.epochs):
-            opt.zero_grad(set_to_none=True)
-            loss = masked_nll(self._train_logits(model, gens), self.batch.y, masks["train"])
-            loss.sum().backward()  # run r's gradient is that of its own loss
-            opt.step()
-            # off epochs repeat the last evaluated metrics (JAX eval_every)
-            if (ep + 1) % k == 0 or ep == cfg.epochs - 1:
-                prev = self._eval(model, masks, loss.detach())
-                if best is not None:
-                    best.update(prev[:, 1])
-            metrics[:, ep] = prev
+            n0 = sum(launches.values())
+            with span("trainer.epoch", dev) as epoch:
+                with span("trainer.forward", dev):
+                    opt.zero_grad(set_to_none=True)
+                    loss = masked_nll(self._train_logits(model, gens), self.batch.y,
+                                      masks["train"])
+                with span("trainer.backward", dev):
+                    loss.sum().backward()  # run r's gradient is that of its own loss
+                with span("trainer.optimizer", dev):
+                    opt.step()
+                # off epochs repeat the last evaluated metrics (JAX eval_every)
+                if (ep + 1) % k == 0 or ep == cfg.epochs - 1:
+                    with span("trainer.eval", dev):
+                        prev = self._eval(model, masks, loss.detach())
+                        if best is not None:
+                            best.update(prev[:, 1])
+                metrics[:, ep] = prev
+                epoch.counts["launches"] = sum(launches.values()) - n0
         return metrics, count_params(model, len(runs)), None if best is None else best.state
 
     # --- group sizing ---
@@ -447,44 +464,48 @@ class Trainer:
                 for k in ("train", "valid", "test")}
 
     def fit(self) -> "Results":
+        """The runs, in groups; ``Results.wall_time`` is the duration of
+        the ``trainer.fit`` span, which encloses all of it (the spans:
+        ``utils/profiling.py``)."""
         cfg = self.cfg
-        masks = self.masks()
-
-        group = self._group_size()
-        if cfg.vmap_runs and group < cfg.runs:
-            print(f"[trainer] folding runs in groups of {group}")
-        t0 = time.time()
-        mets, groups, states, num_params = [], [], [], 0
-        lo = 0
-        while lo < cfg.runs:
-            hi = min(lo + group, cfg.runs)
-            try:
-                m, num_params, state = self._run_group(
-                    range(lo, hi), {k: v[:, lo:hi] for k, v in masks.items()})
-            except torch.cuda.OutOfMemoryError:
-                if group == 1:
-                    raise
-                m = None
-            if m is None:
-                # halve and retry THIS group: finished groups are kept (the
-                # failed group's tensors are released once the handler ends)
-                group = (group + 1) // 2
-                torch.cuda.empty_cache()
-                print(f"[trainer] device memory exhausted; retrying with "
-                      f"{group} runs per group")
-                continue
-            mets.append(m.cpu())
-            groups.append(hi - lo)
-            if state is not None:
-                states.append({k: v.cpu() for k, v in state.items()})
-            lo = hi
-        wall = time.time() - t0
-        metrics = torch.cat(mets).numpy()
+        with span("trainer.fit", fit=True) as whole:
+            with span("trainer.masks"):
+                masks = self.masks()
+            group = self._group_size()
+            if cfg.vmap_runs and group < cfg.runs:
+                print(f"[trainer] folding runs in groups of {group}")
+            mets, groups, states, num_params = [], [], [], 0
+            lo = 0
+            while lo < cfg.runs:
+                hi = min(lo + group, cfg.runs)
+                try:
+                    m, num_params, state = self._run_group(
+                        range(lo, hi), {k: v[:, lo:hi] for k, v in masks.items()})
+                except torch.cuda.OutOfMemoryError:
+                    if group == 1:
+                        raise
+                    m = None
+                if m is None:
+                    # halve and retry THIS group: finished groups are kept (the
+                    # failed group's tensors are released once the handler ends)
+                    group = (group + 1) // 2
+                    torch.cuda.empty_cache()
+                    print(f"[trainer] device memory exhausted; retrying with "
+                          f"{group} runs per group")
+                    continue
+                with span("trainer.collect"):
+                    mets.append(m.cpu())
+                    if state is not None:
+                        states.append({k: v.cpu() for k, v in state.items()})
+                groups.append(hi - lo)
+                lo = hi
+            with span("trainer.collect"):
+                metrics = torch.cat(mets).numpy()
+                params = ({k: torch.cat([s[k] for s in states]) for k in states[0]} if states
+                          else None)
         if cfg.display_step > 0:
             self._print_progress(metrics)
-        params = ({k: torch.cat([s[k] for s in states]) for k in states[0]} if states
-                  else None)
-        return Results(metrics=metrics, wall_time=wall, num_params=num_params,
+        return Results(metrics=metrics, wall_time=whole.seconds, num_params=num_params,
                        groups=groups, params=params)
 
     def _print_progress(self, metrics: np.ndarray) -> None:
