@@ -16,8 +16,10 @@ shared input [rows, F] (the features, before any dropout) is accepted
 too. The score+pack kernels, the sparse exchange and the fused epilogue
 see the runs folded into the width, [rows, R * F], and the LayerNorm
 kernels take [rows, R, F] with [R, F] parameters: one launch serves all
-runs, and each run's values come out as a single run's would. Every
-other dense op (GEMMs, the plain versions' LayerNorm, score and pack
+runs, and each run's values come out as a single run's would. So do the
+f32 dense products on the card that ``ops/cuda_dense.py`` takes (its
+kernels read [rows, R, K] and write [rows, R, N] in place). Every other
+dense op (the other GEMMs, the plain versions' LayerNorm, score and pack
 math) runs run by run on contiguous [rows, F] tensors, so its shapes,
 and with them the library's choice of kernel and summation order, do not
 depend on R: a run gives the same bits whether it is trained alone or
@@ -40,6 +42,7 @@ from allset_tpu_torch.nn.init import (
     torch_linear_kernel,
     xavier_uniform_torch_fans,
 )
+from allset_tpu_torch.ops import cuda_dense
 from allset_tpu_torch.ops.cuda_ln import layer_norm
 from allset_tpu_torch.ops.cuda_pack import NEGATIVE_SLOPE, pma_pack
 from allset_tpu_torch.ops.cuda_pma import DEN_FLOOR, pma_epilogue, pma_epilogue_runs
@@ -155,7 +158,8 @@ class TorchDense(nn.Module):
     and a bias unless ``use_bias=False``.
 
     bf16 rounding points of the JAX layer: the product is rounded to the
-    activation dtype, then the bias is added in that dtype."""
+    activation dtype, then the bias is added in that dtype. An f32 product
+    on the card that ``cuda_dense.route`` admits runs on its kernels."""
 
     def __init__(self, fan_in: int, features: int, generator: Generators,
                  kernel_init=torch_linear_kernel,
@@ -173,6 +177,8 @@ class TorchDense(nn.Module):
         return y if b is None else y + b.to(y.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None and cuda_dense.route(x, self.kernel):
+            return cuda_dense.runs_dense(x, self.kernel, self.bias if self.use_bias else None)
         params = (self.kernel, self.bias) if self.use_bias else (self.kernel,)
         if self.kernel.dim() == 2:
             return self._dense(x, *params)
@@ -413,9 +419,11 @@ class PMA(nn.Module):
     the packed width; the score+pack kernels (K4, K5) turn it into the
     packed table [x_V * e | e | 0].
 
-    With R runs the GEMMs run run by run and their outputs are stacked
-    [rows, R, WP]; K4/K5 fold them to [rows, R*WP] for the exchange and the
-    fused epilogue (K2R/K3R); the output is [M, R, out].
+    With R runs the GEMM runs run by run and the outputs are stacked
+    [rows, R, WP] (in f32 on the card: one ``cuda_dense.runs_dense`` over
+    the runs' stacked kernels, where it admits the product); K4/K5 fold
+    them to [rows, R*WP] for the exchange and the fused epilogue
+    (K2R/K3R); the output is [M, R, out].
 
     On an edge-partitioned Direction (``parallel/sharded.py``) whose
     shapes the epilogue's kernels take (``sharded_epilogue_active``, the
@@ -459,21 +467,32 @@ class PMA(nn.Module):
         self.ln1 = LNParams(out_dim, _lead(generator))
         self.runs = runs_of(generator)
 
-    def _scores(self, x, WK, bK, WV, att_flat):
-        """One run's [lin_V | Wa] GEMM, padded with zero kernel columns to
-        the packed width -> (yf [N, WP] without biases, ba [H])."""
+    def _fused(self, WK, bK, WV, att_flat):
+        """One run's [lin_V | Wa] kernel, padded with zero columns to the
+        packed width, and ba -> (Wf [in_dim, WP], ba [H]), f32 parameter
+        math."""
         H = self.heads
         HC = att_flat.shape[0]
         C = HC // H
-        col = torch.arange(HC, device=x.device)[:, None] // C
-        blk = col == torch.arange(H, device=x.device)[None, :]
-        proj = torch.where(blk, att_flat[:, None], torch.zeros((), device=x.device))
-        Wa = WK @ proj  # [in_dim, H], f32 parameter math
+        col = torch.arange(HC, device=WK.device)[:, None] // C
+        blk = col == torch.arange(H, device=WK.device)[None, :]
+        proj = torch.where(blk, att_flat[:, None], torch.zeros((), device=WK.device))
+        Wa = WK @ proj  # [in_dim, H]
         ba = bK @ proj  # [H]
-        xc = x.to(self.dtype) if self.dtype is not None else x
         Wf = torch.cat([WV, Wa, WV.new_zeros(WV.shape[0], packed_width(HC, H) - HC - H)],
                        dim=1)
-        return xc @ Wf.to(xc.dtype), ba
+        return Wf, ba
+
+    def _product(self, x, Wf):
+        """One run's [lin_V | Wa] GEMM -> yf [N, WP] without biases."""
+        xc = x.to(self.dtype) if self.dtype is not None else x
+        return xc @ Wf.to(xc.dtype)
+
+    def _scores(self, x, WK, bK, WV, att_flat):
+        """One run's [lin_V | Wa] GEMM -> (yf [N, WP] without biases, ba
+        [H])."""
+        Wf, ba = self._fused(WK, bK, WV, att_flat)
+        return self._product(x, Wf), ba
 
     def _params(self):
         """Every parameter, with the leading [R] axis where there are runs;
@@ -550,15 +569,23 @@ class PMA(nn.Module):
         sharded = isinstance(d, ShardedDirection) and sharded_epilogue_active(
             d, HC, self.heads, Wrff.shape[-3], self.ln1.scale.shape[-1], R or 1)
         if R is None:
-            yf, ba = self._scores(x, *params)
+            Wf, ba = self._fused(*params)
+            if self.dtype is None and cuda_dense.route(x, Wf):
+                yf = cuda_dense.runs_dense(x, Wf)
+            else:
+                yf = self._product(x, Wf)
             w = pma_pack(yf, self.lin_V.bias, ba, self.heads)
             if sharded:
                 return sharded_pma_epilogue(w, d, *epi)
             return pma_epilogue(dir_spmm(w, d), *epi)
-        outs = [self._scores(x_r, *p) for x_r, *p in
-                zip(per_run(x, R), *(t.unbind(0) for t in params))]
-        yf = torch.stack([o[0] for o in outs], dim=1)  # [N, R, WP]
-        ba = torch.stack([o[1] for o in outs])  # [R, H]
+        fused = [self._fused(*p) for p in zip(*(t.unbind(0) for t in params))]
+        Wf = torch.stack([f[0] for f in fused])  # [R, in_dim, WP]
+        ba = torch.stack([f[1] for f in fused])  # [R, H]
+        if self.dtype is None and cuda_dense.route(x, Wf):
+            yf = cuda_dense.runs_dense(x, Wf)  # [N, R, WP]
+        else:
+            yf = torch.stack([self._product(x_r, f[0]) for x_r, f in zip(per_run(x, R), fused)],
+                             dim=1)
         w = pma_pack(yf, self.lin_V.bias, ba, self.heads)  # runs folded: [N, R*WP]
         if sharded:
             out = sharded_pma_epilogue(w, d, *epi, runs=True)

@@ -22,7 +22,12 @@ and B8 (``csrc/stream.cu``); ``pma_bwd_rows``, ``pma_bwd_dw`` and
 ``pma_bwd_reduce``, the three parts (K3a, K3b, K3c) of K3 and K3R on the
 warpgroup route (``csrc/pma_epilogue_wg.cu``, at HC 256) and the cluster
 route (``csrc/pma_epilogue_cluster_bwd.cu``, at HC 384 and 512), counted
-besides ``pma_epilogue_bwd``/``pma_epilogue_bwd_runs``.
+besides ``pma_epilogue_bwd``/``pma_epilogue_bwd_runs``; ``runs_dense_mm``,
+``runs_dense_dw``, ``runs_dense_reduce`` and ``runs_dense_slabs``, the
+runs-folded f32 dense products (``csrc/runs_dense.cu``), which run
+wherever an f32 product runs on the card (``DENSE_KERNELS``).
+``declined["runs_dense"]`` counts the f32 CUDA dense products that
+``cuda_dense.route`` left to the library's route.
 """
 
 from __future__ import annotations
@@ -47,8 +52,14 @@ KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
            "pma_epilogue_fwd_runs", "pma_epilogue_bwd_runs", "pma_gmax", "pma_pack",
            "layer_norm_fwd", "layer_norm_bwd", "gather", "gather_sorted",
            "segment_sum_gather", "segsum_onehot", "stream_flat", "stream_dual", "stream_fold",
-           "pma_bwd_rows", "pma_bwd_dw", "pma_bwd_reduce")
+           "pma_bwd_rows", "pma_bwd_dw", "pma_bwd_reduce",
+           "runs_dense_mm", "runs_dense_dw", "runs_dense_reduce", "runs_dense_slabs")
+# the runs-folded dense products' counters (ops/cuda_dense.py): they count
+# wherever an f32 product runs on the card, besides each path's own kernels
+DENSE_KERNELS = KERNELS[-4:]
 launches = collections.Counter({k: 0 for k in KERNELS})
+# f32 CUDA dense products that cuda_dense.route sent to the library's route
+declined = collections.Counter({"runs_dense": 0})
 
 _lib = None
 build_seconds = 0.0
@@ -78,12 +89,16 @@ _SIGNATURES = {
                                  + [P],
     "allset_segsum_onehot": [P, P, P, LL] + [I] * 12 + [P, P, P, I, P],
     "allset_stream": [P, P, P] + [I] * 5 + [P, P, I, P],
+    "allset_runs_dense_slabs": [P, LL, LL, LL] + [I] * 6 + [P, P],
+    "allset_runs_dense_mm": [P, I, I, I, P, P, P, LL] + [I] * 5 + [P],
+    "allset_runs_dense_dw": [P, I, I, P] + [I] * 9 + [P] * 5,
 }
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         launches[k] = 0
+    declined["runs_dense"] = 0
 
 
 def _nvcc() -> str:

@@ -48,7 +48,9 @@ keeps the final epoch's instead.
 
 ``fit`` records spans (``utils/profiling.py``): ``trainer.fit`` around
 all of it, ``trainer.masks``, ``trainer.init`` a group, ``trainer.epoch``
-(with the port's launches in it, ``counts["launches"]``) holding
+(with the port's launches in it, ``counts["launches"]``, and the f32
+dense products ``ops/cuda_dense.py`` left to the library,
+``counts["dense_declined"]``) holding
 ``trainer.forward``, ``trainer.backward``, ``trainer.optimizer`` and
 ``trainer.eval``, and ``trainer.collect``. Under the profiler on the card
 the epoch and its phases also time the device.
@@ -289,9 +291,9 @@ class Trainer:
             metrics = torch.zeros(len(runs), cfg.epochs, 6, device=dev)
             prev = torch.zeros(len(runs), 6, device=dev)
             best = BestState(model, len(runs)) if cfg.keep_params else None
-        launches = _kernels.launches
+        launches, declined = _kernels.launches, _kernels.declined
         for ep in range(cfg.epochs):
-            n0 = sum(launches.values())
+            n0, d0 = sum(launches.values()), declined["runs_dense"]
             with span("trainer.epoch", dev) as epoch:
                 with span("trainer.forward", dev):
                     opt.zero_grad(set_to_none=True)
@@ -309,6 +311,7 @@ class Trainer:
                             best.update(prev[:, 1])
                 metrics[:, ep] = prev
                 epoch.counts["launches"] = sum(launches.values()) - n0
+                epoch.counts["dense_declined"] = declined["runs_dense"] - d0
         return metrics, count_params(model, len(runs)), None if best is None else best.state
 
     # --- group sizing ---
@@ -464,12 +467,13 @@ class Trainer:
                 for k in ("train", "valid", "test")}
 
     def fit(self) -> "Results":
-        """The runs, in groups; ``Results.wall_time`` is the duration of
-        the ``trainer.fit`` span, which encloses all of it (the spans:
-        ``utils/profiling.py``)."""
+        """The runs, in groups; ``Results.wall_time`` runs from the end of
+        the ``trainer.masks`` span to the end of the ``trainer.fit`` span,
+        which encloses all of it (the spans: ``utils/profiling.py``): the
+        JAX package's fit starts its clock after the splits."""
         cfg = self.cfg
         with span("trainer.fit", fit=True) as whole:
-            with span("trainer.masks"):
+            with span("trainer.masks") as splits:
                 masks = self.masks()
             group = self._group_size()
             if cfg.vmap_runs and group < cfg.runs:
@@ -505,8 +509,8 @@ class Trainer:
                           else None)
         if cfg.display_step > 0:
             self._print_progress(metrics)
-        return Results(metrics=metrics, wall_time=whole.seconds, num_params=num_params,
-                       groups=groups, params=params)
+        return Results(metrics=metrics, wall_time=(whole.t1_ns - splits.t1_ns) / 1e9,
+                       num_params=num_params, groups=groups, params=params)
 
     def _print_progress(self, metrics: np.ndarray) -> None:
         """Reference-format per-epoch lines (``src/train.py:489-496``),

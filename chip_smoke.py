@@ -106,6 +106,14 @@ Phases (any failure raises and exits non-zero):
      HyperGCN's reapprox path (f32), its host build time per step; the
      bench step also at hidden 64 and 128 (the tiled K2/K3, the width of
      four tuned presets), timed at its shapes too;
+  4g. (after 4, before the zoo) the runs-folded f32 dense products
+     (ops/cuda_dense.py): the kernel pair against its plain version (a
+     product a run, the bias, a stack) and torch.matmul over [R, rows, K],
+     forward and forward + backward, each held to the plain version, at
+     the cells' shapes (DENSE_CELL_SHAPES, 20 runs) and the zoo's
+     (DENSE_ZOO_SHAPES, 1 and 20 runs: where the gate's row count comes
+     from); the exact launch checks of the other phases leave out the
+     dense counters (path_kernels);
   4e. (after 4d) HAN at benchmarks/han_bench.py's shape (65,536 nodes,
      32,768 hyperedges of 12, 64 features, 8 classes, seed 0; 8 heads of
      8, f32): the metapath build's host seconds and pairs (4,788,390 VEV,
@@ -443,6 +451,16 @@ def ptxas_summary(text: str):
     except (OSError, subprocess.CalledProcessError):
         pass
     return out
+
+
+def path_kernels():
+    """The counters each path's launch checks hold to exact counts: every
+    one but the runs-folded dense products' (_kernels.DENSE_KERNELS), which
+    launch wherever an f32 product on the card passes the gate
+    (time_dense checks them)."""
+    from allset_tpu_torch.ops import _kernels
+
+    return [k for k in _kernels.KERNELS if k not in _kernels.DENSE_KERNELS]
 
 
 def require(ok: bool, what: str):
@@ -1104,6 +1122,98 @@ def time_layer_norm(shapes, F, dev, gen):
     return out
 
 
+# The runs-folded dense products (ops/cuda_dense.py) at the cells' shapes:
+# (rows, K, N, bias) of AllSetTransformer's [lin_V | Wa] products (V->E on
+# the node rows, E->V on the hyperedge rows with self-loops) and its
+# classifier, AllDeepSets' f_enc/f_dec layers, 20 runs
+DENSE_CELL_SHAPES = ((88_860, 100, 264, False), (158_766, 256, 264, False),
+                     (88_860, 256, 11, True), (88_860, 100, 256, True),
+                     (88_860, 256, 256, True), (158_766, 256, 256, True))
+# the zoo's: hidden 256 layers from a few hundred rows up (the gate's row
+# count), cora's 1,433 features, at 1 and 20 runs
+DENSE_ZOO_SHAPES = tuple((rows, 256, 256, True) for rows in (128, 256, 512, 1024, 2048, 4096,
+                                                             16384)) + ((2708, 1433, 256, True),)
+
+
+def dense_cost(rows, K, N, R, bwd):
+    """(bytes, flops) of the dense product over R runs: x in, y out; with
+    bwd also dX (dy in, dx out) and dW (x and dy in)."""
+    nbytes = 4 * rows * R * (K + N) * (3 if bwd else 1) + 4 * R * K * N * (3 if bwd else 1)
+    return nbytes, 2 * rows * R * K * N * (3 if bwd else 1)
+
+
+def time_dense(dev, gen, shapes=DENSE_CELL_SHAPES, runs=(20,)):
+    """The dense kernel pair (cuda_dense.runs_dense: the forward, then the
+    backward's dX, dW and db) against its plain version (TorchDense's loop:
+    a product a run on a contiguous slice, the bias, a stack) and
+    torch.matmul over [R, rows, K] (one batched library product, the
+    runs' tables made contiguous beforehand), f32, TF32 off; the forward
+    alone and forward + backward, each held to the plain version with
+    phase 3's tolerances. Returns {"runs_dense": Tally} summed over
+    ``shapes`` at the largest of ``runs`` (forward + backward)."""
+    from allset_tpu_torch.ops import cuda_dense as cd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tally = Tally()
+    for rows, K, N, bias in shapes:
+        for R in runs:
+            x = torch.randn(rows, R, K, generator=gen).to(dev).requires_grad_()
+            W = (torch.randn(R, K, N, generator=gen) / K ** 0.5).to(dev).requires_grad_()
+            b = torch.randn(R, N, generator=gen).to(dev).requires_grad_() if bias else None
+            gy = torch.randn(rows, R, N, generator=gen).to(dev)
+            xt = x.detach().transpose(0, 1).contiguous().requires_grad_()
+            gt = gy.transpose(0, 1).contiguous()
+
+            def kernel(bwd):
+                y = cd.runs_dense(x, W, b)
+                if bwd:
+                    y.backward(gy)
+                return y
+
+            def plain(bwd):
+                ys = [x[:, r].contiguous() @ W[r] for r in range(R)]
+                y = torch.stack([t + b[r] if bias else t for r, t in enumerate(ys)], dim=1)
+                if bwd:
+                    y.backward(gy)
+                return y
+
+            def library(bwd):
+                y = torch.matmul(xt, W)
+                y = y + b[:, None] if bias else y
+                if bwd:
+                    y.backward(gt)
+                return y
+
+            with torch.no_grad():
+                err, rel = scaled_err(kernel(False), plain(False))
+            require(rel <= TOL[torch.float32][0], f"runs_dense {rows}x{R}x{K}->{N}: {err}")
+            grads = []
+            for fn in (kernel, plain):
+                for t in (x, W, b):
+                    if t is not None:
+                        t.grad = None
+                fn(True)
+                grads.append([t.grad.clone() for t in (x, W, b) if t is not None])
+            for g1, g2 in zip(*grads):
+                e, r = scaled_err(g1, g2)
+                require(r <= TOL[torch.float32][1], f"runs_dense {rows}x{R}x{K}->{N} grad: {e}")
+            iters = 5 if rows * R >= 1_000_000 else 20
+            with torch.no_grad():
+                fwd = [cuda_ms(lambda f=f: f(False), iters) for f in (kernel, plain, library)]
+            both = [cuda_ms(lambda f=f: f(True), iters) for f in (kernel, plain, library)]
+            nb, fl = dense_cost(rows, K, N, R, True)
+            bound = max(nb / HBM, fl / PEAK["f32x3"]) * 1e3
+            log(f"  dense rows {rows} R {R} K {K} N {N}: forward kernel {fwd[0]:.3f} / plain "
+                f"{fwd[1]:.3f} / torch.matmul {fwd[2]:.3f} ms; forward + backward kernel "
+                f"{both[0]:.3f} / plain {both[1]:.3f} / torch.matmul {both[2]:.3f} ms "
+                f"(bound {bound:.3f} ms, {100 * bound / both[0]:.1f}%); max err {err:.2e}")
+            if R == max(runs):
+                tally.add(1, both[0], both[1], err, nb, [(fl, "f32x3")], library_ms=both[2])
+            del x, W, b, gy, xt, gt, grads
+            torch.cuda.empty_cache()
+    return {"runs_dense": tally}
+
+
 def time_main_shapes(batch, dev, gen):
     """Kernel, plain and library times and the bound at the main path's
     shapes (bf16): the gather inside K1 on _Spmm's four passes at the
@@ -1504,7 +1614,7 @@ def main_path(batch, dev, card, per_step=None, hidden=256, against_pair=False, *
     losses, times = run_steps(model, batch, mask, steps)
     counts = dict(_kernels.launches)
     log(f"  [{label}] launches over {steps} steps: {counts}")
-    for k in _kernels.KERNELS:
+    for k in path_kernels():
         n = per_step.get(k, 0) * steps
         require(counts[k] == n, f"{label}: {k} launched {counts[k]} times, expected {n}")
     lo = losses.cpu()
@@ -1654,13 +1764,14 @@ def cli_run(argv, epochs, per=None):
     counts = dict(_kernels.launches)
     n = len(res.groups) * epochs
     if callable(per):
-        total = {k: sum(per(g).get(k, 0) for g in res.groups) * epochs for k in _kernels.KERNELS}
-        require(total == counts, f"launches {counts}, expected {total} (groups {res.groups})")
+        total = {k: sum(per(g).get(k, 0) for g in res.groups) * epochs for k in path_kernels()}
+        require(total == {k: counts[k] for k in path_kernels()},
+                f"launches {counts}, expected {total} (groups {res.groups})")
         require(bool(math.isfinite(res.metrics.sum())), "non-finite metrics")
         return res, counts
     per = pma_group_epoch() if per is None else per
-    got = {k: counts[k] / n for k in _kernels.KERNELS}
-    want = {k: float(per.get(k, 0)) for k in _kernels.KERNELS}
+    got = {k: counts[k] / n for k in path_kernels()}
+    want = {k: float(per.get(k, 0)) for k in path_kernels()}
     require(got == want, f"launches per group and epoch {got}, expected {want} "
             f"(groups {res.groups})")
     require(bool(math.isfinite(res.metrics.sum())), "non-finite metrics")
@@ -1930,7 +2041,7 @@ def bn_bench_steps(batch, batches, dev, card):
         with direction_spy(seen):
             losses, times = run_train_steps(model, b, mask, steps)
         counts = dict(_kernels.launches)
-        for k in _kernels.KERNELS:
+        for k in path_kernels():
             require(counts[k] == per.get(k, 0) * steps,
                     f"bn {name}: {k} launched {counts[k]} times, expected {per.get(k, 0) * steps}")
         if name != "CEGCN":
@@ -3022,7 +3133,7 @@ def zoo_path(batches, dev, card, name, over):
     losses, times = run_steps(model, batch, mask, steps)
     counts = dict(_kernels.launches)
     per = zoo_launches(name)
-    for k in _kernels.KERNELS:
+    for k in path_kernels():
         require(counts[k] == per.get(k, 0) * steps,
                 f"{name}: {k} launched {counts[k]} times, expected {per.get(k, 0) * steps}")
     lo = losses.cpu()
@@ -3295,7 +3406,7 @@ def reapprox_steps(raw, dev, card, steps=2):
     losses, times = run_steps(model, batch, mask, steps)
     counts = dict(_kernels.launches)
     per = zoo_launches("HyperGCN")
-    for k in _kernels.KERNELS:
+    for k in path_kernels():
         require(counts[k] == per.get(k, 0) * steps,
                 f"HyperGCN reapprox: {k} launched {counts[k]} times, expected "
                 f"{per.get(k, 0) * steps}")
@@ -3516,7 +3627,7 @@ def han_path(batch, dev, card):
     peak = torch.cuda.max_memory_allocated(dev)
     counts = dict(_kernels.launches)
     per = han_launches()
-    for k in _kernels.KERNELS:
+    for k in path_kernels():
         require(counts[k] == per.get(k, 0) * steps,
                 f"HAN: {k} launched {counts[k]} times, expected {per.get(k, 0) * steps}")
     lo = losses.cpu()
@@ -3617,7 +3728,7 @@ def han_parity(batch, dev):
         with han_plain_route() if route == "plain" else contextlib.nullcontext():
             loss = masked_nll(model(batch, False), batch.y, mask)
             loss.backward()
-        n = sum(_kernels.launches.values())
+        n = sum(_kernels.launches[k] for k in path_kernels())
         require((n == 0) == (route == "plain"), f"HAN parity: {n} launches on the {route} route")
         out[route] = loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
     (l_k, g_k), (l_p, g_p) = out["kernels"], out["plain"]
@@ -3685,7 +3796,7 @@ def han_train_runs(batch, dev, card, runs=2, epochs=8):
     wall = time.perf_counter() - t0
     counts = dict(_kernels.launches)
     per, step_only = han_launches(epoch=True), han_launches()
-    for k in _kernels.KERNELS:
+    for k in path_kernels():
         n = runs * (epochs * per.get(k, 0) + per.get(k, 0) - step_only.get(k, 0))
         require(counts[k] == n, f"train_han: {k} launched {counts[k]} times, expected {n}")
     lo = torch.stack(losses).cpu().view(runs, epochs)
@@ -3734,7 +3845,7 @@ def sampled_han_steps(hd, batch, dev, card):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         counts = dict(_kernels.launches)
-        for k in _kernels.KERNELS:
+        for k in path_kernels():
             n = 3 * steps if k == "gather" else 0
             require(counts[k] == n, f"SampledHAN: {k} launched {counts[k]} times, expected {n}")
         lo = torch.stack(losses).cpu()
@@ -3786,7 +3897,7 @@ def hetero_han_step(hd, dev, card):
     ms = (time.perf_counter() - t0) * 1e3
     counts = dict(_kernels.launches)
     per = han_launches()
-    for k in _kernels.KERNELS:
+    for k in path_kernels():
         require(counts[k] == per.get(k, 0) // 2,
                 f"HeteroHAN: {k} launched {counts[k]} times, expected {per.get(k, 0) // 2}")
     require(math.isfinite(loss.item()), "HeteroHAN: non-finite loss")
@@ -4099,6 +4210,11 @@ def main() -> int:
     deepsets = dict(pma=False, aggregate="add")
     ds_counts, _ = main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets)
     main_path(batch, dev, card, PER_STEP_DEEPSETS, **deepsets, learn_mask=True)
+    log("phase 4g: the runs-folded f32 dense products at the cells' and the zoo's shapes")
+    t0 = time.perf_counter()
+    timings.update(time_dense(dev, gen))
+    time_dense(dev, gen, DENSE_ZOO_SHAPES, runs=(1, 20))
+    log(f"  phase 4g took {time.perf_counter() - t0:.1f} s")
     log("phase 4b: the conv zoo at bench size (bf16, 2 layers, hidden 256)")
     batches = zoo_batches(batch, hd, raw)
     timings.update(time_gather_step(batches, dev))
@@ -4228,6 +4344,10 @@ def main() -> int:
         "gather_sorted": ("allset_tpu_torch/csrc/gather_sorted.cu",
                           "benchmarks/exp_fused_gather.py:76", ce_counts["CEGAT"]),
     }
+    # the dense kernel pair over the cells' products (phase 4g), with the
+    # launches of phase 6's 20-run CLI run
+    sources["runs_dense"] = ("allset_tpu_torch/csrc/runs_dense.cu", "none (XLA's products)",
+                             {"runs_dense": sum(runs_counts[k] for k in _kernels.DENSE_KERNELS)})
     # B10, B9 and K1 per HAN step (phase 4e)
     for k in ("gather", "gather_sorted", "segment_sum"):
         sources[f"{k}_han"] = (*sources[k][:2], han_counts)

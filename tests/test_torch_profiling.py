@@ -128,9 +128,9 @@ def test_recorder_keeps_its_cap_and_counts_the_rest():
 
 def test_trainer_fit_records_its_spans():
     """2 groups x 3 epochs: one fit, its splits, an init a group, 6 epochs,
-    each with the four phases and a launch count, a collect a group and
-    the final one; every span carries the fit's id, each phase an epoch
-    as its parent."""
+    each with the four phases, a launch count and a count of declined dense
+    products, a collect a group and the final one; every span carries the
+    fit's id, each phase an epoch as its parent."""
     res, sp = _fit()
     assert res.groups == [2, 2]
     counts = collections.Counter(s.name for s in sp)
@@ -143,14 +143,19 @@ def test_trainer_fit_records_its_spans():
         want = "trainer.epoch" if s.name in PHASES else "trainer.fit"
         assert s is fit or by_id[s.parent].name == want
     epochs = [s for s in sp if s.name == "trainer.epoch"]
-    assert all(s.counts == {"launches": 0} for s in epochs)  # the CPU launches no kernel
+    # the CPU launches no kernel and declines no product (only CUDA ones count)
+    assert all(s.counts == {"launches": 0, "dense_declined": 0} for s in epochs)
     assert all(s.device_ms is None and not s.profiled for s in sp)
 
 
 def test_wall_time_is_the_fit_span():
+    """``wall_time`` is the fit span after the splits: from the end of
+    ``trainer.masks`` to the end of ``trainer.fit``."""
     res, sp = _fit(epochs=2, runs=2, chunk=None)
     fit = [s for s in sp if s.name == "trainer.fit"][0]
-    assert res.wall_time == fit.seconds > 0
+    splits = [s for s in sp if s.name == "trainer.masks"][0]
+    assert res.wall_time == (fit.t1_ns - splits.t1_ns) / 1e9 > 0
+    assert fit.seconds - splits.seconds >= res.wall_time
     assert fit.seconds >= sum(s.seconds for s in sp if s.parent == fit.id)
 
 
