@@ -27,7 +27,13 @@ besides ``pma_epilogue_bwd``/``pma_epilogue_bwd_runs``; ``runs_dense_mm``,
 runs-folded f32 dense products (``csrc/runs_dense.cu``), which run
 wherever an f32 product runs on the card (``DENSE_KERNELS``).
 ``declined["runs_dense"]`` counts the f32 CUDA dense products that
-``cuda_dense.route`` left to the library's route.
+``cuda_dense.route`` left to the library's route, and
+``declined["pma_epilogue"]`` the PMA epilogue calls on CUDA tensors that
+``cuda_pma.epilogue_route`` sent to the plain route. ``routes`` counts the
+epilogue's launches by the kernel that served them (``ROUTES``): K2 and
+K2R as ``pma_fwd_<route>``, K3 and K3R as ``pma_bwd_<route>``, the route
+being ``cuda_pma.fwd_kernel``'s or ``bwd_kernel``'s ('wg', 'cluster',
+'tiled', 'wide'). Neither counter is part of ``launches``.
 """
 
 from __future__ import annotations
@@ -58,8 +64,12 @@ KERNELS = ("segment_sum", "pma_epilogue_fwd", "pma_epilogue_bwd",
 # wherever an f32 product runs on the card, besides each path's own kernels
 DENSE_KERNELS = KERNELS[-4:]
 launches = collections.Counter({k: 0 for k in KERNELS})
-# f32 CUDA dense products that cuda_dense.route sent to the library's route
-declined = collections.Counter({"runs_dense": 0})
+# CUDA calls sent away from the kernels: f32 dense products that cuda_dense.route
+# left to the library, epilogue calls that cuda_pma.epilogue_route left to the plain route
+declined = collections.Counter({"runs_dense": 0, "pma_epilogue": 0})
+ROUTES = tuple(f"pma_{d}_{r}" for d in ("fwd", "bwd") for r in ("wg", "cluster", "tiled", "wide"))
+# the epilogue's launches by route (ops/cuda_pma.py)
+routes = collections.Counter({k: 0 for k in ROUTES})
 
 _lib = None
 build_seconds = 0.0
@@ -98,7 +108,10 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in KERNELS:
         launches[k] = 0
-    declined["runs_dense"] = 0
+    for k in ROUTES:
+        routes[k] = 0
+    for k in declined:
+        declined[k] = 0
 
 
 def _nvcc() -> str:

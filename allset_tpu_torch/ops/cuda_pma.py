@@ -567,6 +567,7 @@ def _launch_fwd(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     runs = 1 if R is None else R
     agg = agg.contiguous()
     route = fwd_kernel(HC, agg.dtype)
+    _kernels.routes[f"pma_fwd_{route}"] += 1
     if route == "wide":
         call, out = _wide_fwd_setup(agg, seed, g0, b0, Wrff, brff, g1, b1, H, relu, runs,
                                     M, WP, HC, L)
@@ -601,6 +602,7 @@ def _launch_bwd(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R=None):
     final reduces, on the current stream."""
     call, outs = _bwd_setup(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu, R)
     call()
+    _kernels.routes[f"pma_bwd_{bwd_kernel(Wrff.shape[-1], agg.dtype)}"] += 1
     return outs
 
 
@@ -879,12 +881,16 @@ def epilogue_bwd_runs_cuda(agg, gy, seed, g0, b0, Wrff, brff, g1, b1, H, relu):
 
 def _use_kernel(agg, seed, Wrff, H) -> bool:
     """For a CUDA tensor, epilogue_route's choice (by shape, before any
-    launch: a kernel that fails still raises); the plain version for a CPU
-    tensor; any other device raises."""
+    launch: a kernel that fails still raises; the plain route counts as
+    declined); the plain version for a CPU tensor; any other device
+    raises."""
     if agg.is_cuda:
         R = seed.shape[0] if seed.dim() == 2 else 1
-        return epilogue_route(seed.shape[-1], H, Wrff.shape[-3], agg.shape[1] // R,
-                              R) == "kernel"
+        if epilogue_route(seed.shape[-1], H, Wrff.shape[-3], agg.shape[1] // R,
+                          R) == "kernel":
+            return True
+        _kernels.declined["pma_epilogue"] += 1
+        return False
     if agg.device.type == "cpu":
         return False
     raise ValueError(f"pma epilogue: unsupported device {agg.device}")

@@ -48,9 +48,11 @@ keeps the final epoch's instead.
 
 ``fit`` records spans (``utils/profiling.py``): ``trainer.fit`` around
 all of it, ``trainer.masks``, ``trainer.init`` a group, ``trainer.epoch``
-(with the port's launches in it, ``counts["launches"]``, and the f32
+(with the port's launches in it, ``counts["launches"]``, the f32
 dense products ``ops/cuda_dense.py`` left to the library,
-``counts["dense_declined"]``) holding
+``counts["dense_declined"]``, the PMA epilogue's launches on the
+two-block cluster kernels, ``counts["pma_cluster"]``, and its CUDA calls
+sent to the plain route, ``counts["pma_declined"]``) holding
 ``trainer.forward``, ``trainer.backward``, ``trainer.optimizer`` and
 ``trainer.eval``, and ``trainer.collect``. Under the profiler on the card
 the epoch and its phases also time the device.
@@ -291,9 +293,11 @@ class Trainer:
             metrics = torch.zeros(len(runs), cfg.epochs, 6, device=dev)
             prev = torch.zeros(len(runs), 6, device=dev)
             best = BestState(model, len(runs)) if cfg.keep_params else None
-        launches, declined = _kernels.launches, _kernels.declined
+        launches, declined, routes = _kernels.launches, _kernels.declined, _kernels.routes
+        cluster = ("pma_fwd_cluster", "pma_bwd_cluster")
         for ep in range(cfg.epochs):
             n0, d0 = sum(launches.values()), declined["runs_dense"]
+            c0, p0 = sum(routes[k] for k in cluster), declined["pma_epilogue"]
             with span("trainer.epoch", dev) as epoch:
                 with span("trainer.forward", dev):
                     opt.zero_grad(set_to_none=True)
@@ -312,6 +316,8 @@ class Trainer:
                 metrics[:, ep] = prev
                 epoch.counts["launches"] = sum(launches.values()) - n0
                 epoch.counts["dense_declined"] = declined["runs_dense"] - d0
+                epoch.counts["pma_cluster"] = sum(routes[k] for k in cluster) - c0
+                epoch.counts["pma_declined"] = declined["pma_epilogue"] - p0
         return metrics, count_params(model, len(runs)), None if best is None else best.state
 
     # --- group sizing ---

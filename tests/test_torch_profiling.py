@@ -30,7 +30,7 @@ from hgbench import spans as hspans
 
 PHASES = ("trainer.forward", "trainer.backward", "trainer.optimizer", "trainer.eval")
 READERS = ("forward_ms", "backward_ms", "optimizer_ms", "eval_ms", "runs_init_ms",
-           "first_epoch_s", "launches_per_epoch")
+           "first_epoch_s", "launches_per_epoch", "cluster_launches_per_epoch")
 
 
 def _trainer(epochs=3, runs=4, chunk=2, device="cpu", name="synthetic", hidden=32, heads=2):
@@ -128,9 +128,10 @@ def test_recorder_keeps_its_cap_and_counts_the_rest():
 
 def test_trainer_fit_records_its_spans():
     """2 groups x 3 epochs: one fit, its splits, an init a group, 6 epochs,
-    each with the four phases, a launch count and a count of declined dense
-    products, a collect a group and the final one; every span carries the
-    fit's id, each phase an epoch as its parent."""
+    each with the four phases, a launch count, a count of declined dense
+    products, of cluster epilogue launches and of declined epilogue calls,
+    a collect a group and the final one; every span carries the fit's id,
+    each phase an epoch as its parent."""
     res, sp = _fit()
     assert res.groups == [2, 2]
     counts = collections.Counter(s.name for s in sp)
@@ -143,8 +144,9 @@ def test_trainer_fit_records_its_spans():
         want = "trainer.epoch" if s.name in PHASES else "trainer.fit"
         assert s is fit or by_id[s.parent].name == want
     epochs = [s for s in sp if s.name == "trainer.epoch"]
-    # the CPU launches no kernel and declines no product (only CUDA ones count)
-    assert all(s.counts == {"launches": 0, "dense_declined": 0} for s in epochs)
+    # the CPU launches no kernel and declines nothing (only CUDA calls count)
+    assert all(s.counts == {"launches": 0, "dense_declined": 0, "pma_cluster": 0,
+                            "pma_declined": 0} for s in epochs)
     assert all(s.device_ms is None and not s.profiled for s in sp)
 
 
@@ -176,10 +178,14 @@ def test_trace_shows_the_trainer_and_model_ranges(tmp_path):
     assert all(s.profiled for s in sp)
 
 
-def _span(name, id, fit, seconds=0.0, device_ms=None, launches=None, profiled=True):
+def _span(name, id, fit, seconds=0.0, device_ms=None, launches=None, profiled=True,
+          cluster=None):
+    """A span; an epoch's counts are its ``launches`` and its cluster
+    epilogue launches, ``cluster``."""
+    counts = {} if launches is None else {"launches": launches, "pma_cluster": cluster}
     return types.SimpleNamespace(name=name, id=id, parent=None, fit=fit,
                                  seconds=seconds, device_ms=device_ms, profiled=profiled,
-                                 counts={} if launches is None else {"launches": launches})
+                                 counts=counts)
 
 
 def _recorder(spans, dropped=0):
@@ -191,8 +197,8 @@ def _recorder(spans, dropped=0):
 SYNTHETIC = (
     [_span("trainer.masks", 1, 0, 0.5, profiled=False),
      _span("trainer.init", 2, 0, 1.0, profiled=False),
-     _span("trainer.epoch", 3, 0, 9.0, launches=100, profiled=False),
-     _span("trainer.epoch", 4, 0, 0.4, launches=100, profiled=False),
+     _span("trainer.epoch", 3, 0, 9.0, launches=100, profiled=False, cluster=50),
+     _span("trainer.epoch", 4, 0, 0.4, launches=100, profiled=False, cluster=50),
      _span("trainer.fit", 0, 0, 12.0, profiled=False),
      _span("trainer.masks", 11, 10, 0.002),
      _span("trainer.init", 12, 10, 0.010)]
@@ -202,10 +208,12 @@ SYNTHETIC = (
                                         ("trainer.backward", 20.0, {}),
                                         ("trainer.optimizer", 3.0, {}),
                                         ("trainer.eval", 5.0 + i, {}),
-                                        ("trainer.epoch", 40.0, {"launches": 7 + i})])]
+                                        ("trainer.epoch", 40.0,
+                                         {"launches": 7 + i, "cluster": 3 + i % 2})])]
     + [_span("trainer.init", 40, 10, 0.020), _span("trainer.fit", 10, 10, 1.0)])
 WANT = {"forward_ms": 20.0, "backward_ms": 40.0, "optimizer_ms": 6.0, "eval_ms": 13.0,
-        "runs_init_ms": 32.0, "first_epoch_s": 9.0, "launches_per_epoch": 17.0}
+        "runs_init_ms": 32.0, "first_epoch_s": 9.0, "launches_per_epoch": 17.0,
+        "cluster_launches_per_epoch": 7.0}
 CTX = types.SimpleNamespace(epochs=2)
 
 
@@ -246,6 +254,7 @@ def test_readers_of_a_cpu_fit_under_the_profiler(tmp_path):
     setup = [s.seconds for s in traced if s.name in ("trainer.masks", "trainer.init")]
     assert len(setup) == 2 and got["runs_init_ms"] == pytest.approx(sum(setup) * 1e3)
     assert got["first_epoch_s"] == first.seconds and got["launches_per_epoch"] == 0.0
+    assert got["cluster_launches_per_epoch"] == 0.0
 
 
 @pytest.mark.cuda
